@@ -1,0 +1,48 @@
+"""Hand-written Hopper kernels for the compute hot spots.
+
+Each kernel package ships three layers, as in ``repro.kernels``:
+
+  csrc/*.cu + kernel.py — the CUDA C++ kernel for ``sm_90a``, compiled by
+                          ``nvcc`` at its first launch into ``build/`` and
+                          bound through ``ctypes``
+  ops.py                — the public wrapper: dispatch by device, shape
+                          and dtype checks, the launch counter
+  ref.py                — the plain PyTorch version of the same function
+
+Dispatch follows the tensors, not a switch: a CUDA tensor launches the
+hand kernel (or raises on a form the kernel does not take), a CPU tensor
+takes the plain version. No environment variable or option sends a CUDA
+tensor to the plain version. Where no tensor says where to run (numpy
+data, a device left unnamed), :func:`resolve_device` picks ``cuda``.
+
+Kernels:
+  topk_score — fused score + top-K over a ψ table or one row-range shard
+               of it (replaces ``repro/kernels/topk_score/kernel.py``
+               ``topk_score_pallas``).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def on_cuda(*tensors) -> bool:
+    """Whether a kernel wrapper should launch its CUDA kernel for these
+    tensors (``None`` entries are skipped). All tensors must share one
+    device; a mix of devices raises rather than picking a path."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(
+            f"kernel inputs must share one device, got {sorted(map(str, devices))}")
+    return next(iter(devices)).type == "cuda"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device for data that carries none: ``cuda`` unless the caller
+    names another. Raises when CUDA is named or defaulted to and no GPU is
+    present, so nothing lands on the CPU's plain versions unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} but no CUDA device is available; pass "
+            "device='cpu' to run the plain PyTorch versions")
+    return device

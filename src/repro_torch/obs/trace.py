@@ -1,0 +1,168 @@
+"""Lightweight request tracing: spans with parent/child links, correlated
+to batcher tickets.
+
+One request's life through the serving stack —
+
+  submit → queue (admission wait) → flush(reason) → mesh dispatch →
+  per-replica attempt/retry/failover → shard kernel call → cross-shard
+  merge → result (or degraded)
+
+— is a single trace. Two API shapes coexist because the batcher's flush
+path is non-reentrant (a size-capped flush can trigger a follow-up
+deadline flush from inside ``_flush``; a context manager per request
+would entangle their lifetimes):
+
+  * ``with tracer.span("merge", shard=s):`` — scoped work; the span
+    auto-parents to the innermost active span and pushes itself while
+    the block runs, so nested instrumented calls (mesh inside a flush)
+    link up without any plumbing.
+  * ``sp = tracer.begin("queue", ticket=t)`` / ``tracer.end(sp)`` —
+    explicit lifetimes for spans that outlive a call frame (a request
+    span lives from submit to routing; flush spans route many tickets).
+    ``tracer.activate(sp)`` temporarily makes an explicitly begun span
+    the parent for nested ``span()`` calls.
+
+Ticket correlation: the batcher stamps each request span with its
+``ticket`` attr and, at flush time, a ``flush_span`` attr pointing at the
+flush span's id. :func:`trace_for_ticket` walks both links — the request
+span's subtree plus every referenced flush subtree (which contains the
+mesh's dispatch/retry/failover/merge spans) — so out-of-order and mixed
+flushes still yield one coherent per-request trace. Chrome-trace JSON
+export (open in ``chrome://tracing`` or https://ui.perfetto.dev) lives
+in ``obs/export.py``.
+
+Like everything in this repo's serving tier, the tracer takes an
+injectable clock so tests drive it under simulated time; tracing is
+OPT-IN per component (``tracer=None`` skips every span) and never
+touches result values.
+"""
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional
+
+
+class Span:
+    """One timed operation. ``t1 is None`` while still open."""
+
+    __slots__ = ("span_id", "parent_id", "name", "t0", "t1", "attrs")
+
+    def __init__(self, span_id: int, parent_id: Optional[int], name: str,
+                 t0: float, attrs: Dict[str, object]):
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+        self.t0 = t0
+        self.t1: Optional[float] = None
+        self.attrs = attrs
+
+    @property
+    def duration(self) -> float:
+        return (self.t1 if self.t1 is not None else self.t0) - self.t0
+
+    def __repr__(self) -> str:
+        state = "open" if self.t1 is None else f"{self.duration:.6f}s"
+        return (f"Span({self.name!r}, id={self.span_id}, "
+                f"parent={self.parent_id}, {state}, {self.attrs})")
+
+
+_AUTO_PARENT = object()  # sentinel: parent defaults to the active span
+
+
+class Tracer:
+    """Collects spans; single-threaded like the serving loop it traces."""
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self.clock = clock
+        self.spans: List[Span] = []
+        self._stack: List[Span] = []
+        self._next_id = 0
+
+    @property
+    def current(self) -> Optional[Span]:
+        """Innermost active span (``span()``/``activate()`` scope)."""
+        return self._stack[-1] if self._stack else None
+
+    def begin(self, name: str, *, parent=_AUTO_PARENT, **attrs) -> Span:
+        """Open a span explicitly (the non-reentrant-flush shape). The
+        caller owns its lifetime: pair with :meth:`end`. ``parent``
+        overrides the default (the innermost active span); pass ``None``
+        to force a root span, or a :class:`Span` to link explicitly."""
+        if parent is _AUTO_PARENT:
+            parent = self.current
+        sp = Span(
+            self._next_id,
+            parent.span_id if isinstance(parent, Span) else parent,
+            name, self.clock(), attrs,
+        )
+        self._next_id += 1
+        self.spans.append(sp)
+        return sp
+
+    def end(self, span: Span, **attrs) -> Span:
+        span.t1 = self.clock()
+        if attrs:
+            span.attrs.update(attrs)
+        return span
+
+    @contextmanager
+    def span(self, name: str, *, parent=_AUTO_PARENT, **attrs):
+        """Scoped span: begins, becomes the active parent, ends."""
+        sp = self.begin(name, parent=parent, **attrs)
+        self._stack.append(sp)
+        try:
+            yield sp
+        finally:
+            self._stack.pop()
+            self.end(sp)
+
+    @contextmanager
+    def activate(self, span: Span):
+        """Make an explicitly begun span the active parent for the block
+        (used by the batcher so mesh spans nest under its flush span)."""
+        self._stack.append(span)
+        try:
+            yield span
+        finally:
+            self._stack.pop()
+
+    # ----------------------------------------------------------- queries
+    def children_index(self) -> Dict[Optional[int], List[Span]]:
+        by_parent: Dict[Optional[int], List[Span]] = {}
+        for sp in self.spans:
+            by_parent.setdefault(sp.parent_id, []).append(sp)
+        return by_parent
+
+    def subtree(self, root: Span) -> List[Span]:
+        """``root`` plus every transitive child, in discovery order."""
+        by_parent = self.children_index()
+        out, frontier = [], [root]
+        while frontier:
+            sp = frontier.pop()
+            out.append(sp)
+            frontier.extend(by_parent.get(sp.span_id, ()))
+        return out
+
+
+def trace_for_ticket(tracer: Tracer, ticket: int) -> List[Span]:
+    """Every span belonging to one batcher ticket's request, sorted by
+    start time: the spans stamped with ``ticket`` (request/queue), their
+    subtrees, and the full subtree of every flush span a request span
+    references via ``flush_span`` — which is where the mesh's
+    dispatch/attempt/retry/failover/merge spans live. Spans a flush
+    shares across tickets (the flush itself, the kernel dispatches)
+    appear in each of its tickets' traces: a batched request's cost IS
+    shared, and the trace says so."""
+    by_id = {sp.span_id: sp for sp in tracer.spans}
+    seen: Dict[int, Span] = {}
+    for sp in tracer.spans:
+        if sp.attrs.get("ticket") != ticket:
+            continue
+        for member in tracer.subtree(sp):
+            seen[member.span_id] = member
+        flush_id = sp.attrs.get("flush_span")
+        if flush_id is not None and flush_id in by_id:
+            for member in tracer.subtree(by_id[flush_id]):
+                seen[member.span_id] = member
+    return sorted(seen.values(), key=lambda s: (s.t0, s.span_id))
