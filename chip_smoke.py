@@ -1,25 +1,44 @@
-"""GPU smoke test of the PyTorch port: build, hold, serve, time.
+"""GPU smoke test of the PyTorch port: build, hold, serve, train, time.
 
   python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for the numbers to mean what PERF.md says).
-Phases, one line each:
+Phases, one line each or more:
 
-  1. build the hand-written top-K kernel from ``csrc/`` with nvcc;
-  2. hold the kernel against its plain PyTorch version on the card: random
-     fp32 data at the serving driver's shapes (B=16, one 34,000-row shard,
-     D=128, K=100, id_offset=34,000, n_valid short of the shard), with and
-     without exclude-id lists, plus small-integer cases whose scores are
-     exact (ties across blocks, K > n_valid, fully excluded rows, ragged
-     chunks and row blocks), where ids must match exactly;
+  1. build every hand-written kernel from ``csrc/`` with nvcc, one nvcc
+     per source, all at once, and print each one's ptxas report;
+  2. hold the top-K kernel against its plain PyTorch version on the card:
+     random fp32 data at the serving driver's shapes (B=16, one 34,000-row
+     shard, D=128, K=100, id_offset=34,000, n_valid short of the shard),
+     with and without exclude-id lists, plus small-integer cases whose
+     scores are exact (ties across blocks, K > n_valid, fully excluded
+     rows, ragged chunks and row blocks), where ids must match exactly;
   3. serve 256 requests through ``repro_torch.launch.serve.main`` at full
      icd-mf width (200,000 × 68,000 × k=128, top-100, 2 shards × 2
      replicas, replica (0, 0) killed) and check coverage, the kernel's
      launch count, and 16 users' results against a plain recompute over
      the whole ψ table;
-  4. time the kernel, its plain version and ``torch.topk(phi @ psi.T)``
-     (a yardstick the port never calls) with CUDA events, beside the
-     card's bound for the same work.
+  4. time the top-K kernel, its plain version and
+     ``torch.topk(phi @ psi.T)`` (a yardstick the port never calls) with
+     CUDA events, beside the card's bound for the same work;
+  5. hold the Gram and block-sweep kernels against their plain versions:
+     at the full-width dispatch shapes (Gram of 200,000 × 128 and
+     68,000 × 128, weighted and not, in small integers, where the sums are
+     exact, and in random fp32; the gather sweep on both sides and the
+     pre-gathered sweep on the context side), and at small edge cases (k
+     not divisible by k_b, row counts off the row tile, all-zero-α rows
+     with l2 = 0 and α₀ = 0, padding ids, η ≠ 1, k_b = 1, and a whole
+     ``mf_padded`` epoch on the card against the same epoch on the CPU);
+  6. train icd-mf at full width on a seeded log (200,000 users × 68,000
+     items, k = 128): ``mf_padded.fit`` for 3 epochs with the defaults,
+     the objective falling every epoch, the kernels' launches counted;
+     then from one start one epoch each with ``psi_dispatch='pregather'``
+     and with the segment-sum ``mf.epoch``, held against the gather epoch;
+     and a streaming ranking evaluation of the trained model through the
+     top-K kernel, held against the plain version;
+  7. time the Gram and sweep kernels at the full-width shapes beside their
+     plain versions, the library call where one exists, and their bounds;
+  8. run the quickstart twin on the card (iCD-MF must beat popularity).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -184,24 +203,466 @@ def kernel_breakdown(fn, n: int = 20) -> str:
     return ", ".join(parts) or "not measured"
 
 
+# ---------------------------------------------------------------------------
+# Training slice: Gram and block-sweep kernels, icd-mf at full width.
+# ---------------------------------------------------------------------------
+# Kernel against plain version on the card: the reference's own kernel-vs-
+# oracle tolerance for the sweeps (tests/test_kernels.py) — the two sum
+# the D_pad slots in different orders; the Gram in random fp32 to rtol 1e-4
+# and an absolute 1e-6 of the largest |J| (200,000-term sums in another
+# order), and exactly in small integers, whose sums are exact in any order.
+SWEEP_RTOL, SWEEP_ATOL = 2e-5, 2e-6
+GRAM_RTOL, GRAM_ATOL_REL = 1e-4, 1e-6
+# mf_padded against mf (tests/test_mf_padded.py) and gather against
+# pregather (the same kernel program: they must agree to roundoff)
+EPOCH_RTOL, EPOCH_ATOL = 3e-4, 3e-5
+DISPATCH_RTOL, DISPATCH_ATOL = 1e-6, 1e-7
+FULL = dict(n_ctx=200_000, n_items=68_000, k=128, alpha0=1.0, l2=0.1)
+
+
+def make_full_log(seed: int = 0):
+    """The full-width training log: degree per user uniform in [5, 30),
+    items drawn with popularity ∝ rank^-0.3 over a seeded permutation
+    (the top item near 1,000 events), duplicate pairs dropped, y = 1,
+    α = α₀ + 4. Returns (ctx, item) sorted pairs."""
+    rng = np.random.default_rng(seed)
+    n_ctx, n_items = FULL["n_ctx"], FULL["n_items"]
+    deg = rng.integers(5, 30, n_ctx)
+    pop = 1.0 / np.arange(1, n_items + 1) ** 0.3
+    pop = pop[rng.permutation(n_items)]
+    items = rng.choice(n_items, size=int(deg.sum()), p=pop / pop.sum())
+    users = np.repeat(np.arange(n_ctx), deg)
+    pairs = np.unique(users.astype(np.int64) * n_items + items)
+    return pairs // n_items, pairs % n_items
+
+
+def sweep_inputs(gen, dev, c, d, kb, n_src, k=None, pad_frac=0.5):
+    """Random sweep operands at (C, D_pad) with a ``pad_frac`` share of
+    padding slots (id 0, α = 0); W and R' are column slices of (C, k)."""
+    k = k or kb
+    alpha = torch.rand((c, d), generator=gen, device=dev) * 4 + 0.5
+    pad = torch.rand((c, d), generator=gen, device=dev) < pad_frac
+    alpha[pad] = 0
+    ids = torch.randint(0, n_src, (c, d), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[pad] = 0
+    e = torch.randn((c, d), generator=gen, device=dev)
+    tab = 0.1 * torch.randn((n_src, k), generator=gen, device=dev)
+    w = 0.1 * torch.randn((c, k), generator=gen, device=dev)
+    r1 = torch.randn((c, kb), generator=gen, device=dev)
+    jfull = tab.T @ tab + torch.eye(k, device=dev)
+    return dict(alpha=alpha, ids=ids, e=e, tab=tab[:, :kb], w=w[:, :kb],
+                r1=r1, j=jfull[:kb, :kb])
+
+
+def hold_sweep(cs, cr, gen, dev, c, d, kb, n_src, *, gather=True, k=None,
+               alpha0=1.0, l2=0.1, eta=1.0, pad_frac=0.5, x=None) -> float:
+    """One sweep launch against the plain version on the same inputs;
+    returns the largest |error| over W and e."""
+    x = x or sweep_inputs(gen, dev, c, d, kb, n_src, k=k, pad_frac=pad_frac)
+    kw = dict(alpha0=alpha0, l2=l2, eta=eta)
+    if gather:
+        rw, re = cr.cd_block_sweep_gather_ref(
+            x["tab"], x["ids"], x["alpha"], x["e"], x["w"], x["r1"], x["j"], **kw)
+        e = x["e"].clone()
+        w, e2 = cs.cd_block_sweep_gather(
+            x["tab"], x["ids"], x["alpha"], e, x["w"], x["r1"], x["j"], **kw)
+    else:
+        psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+        rw, re = cr.cd_block_sweep_ref(psi, x["alpha"], x["e"], x["w"],
+                                       x["r1"], x["j"], **kw)
+        e = x["e"].clone()
+        w, e2 = cs.cd_block_sweep(psi, x["alpha"], e, x["w"], x["r1"],
+                                  x["j"], **kw)
+    torch.cuda.synchronize()
+    assert e2 is e, "the residual grid must be updated in place"
+    assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
+    torch.testing.assert_close(w, rw, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+    torch.testing.assert_close(e, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+    return max(float((w - rw).abs().max()), float((e - re).abs().max()))
+
+
+def hold_gram(gops, gref, gen, dev, rows, k, weighted) -> float:
+    """Gram kernel against the plain version: exact on small integers,
+    to a tolerance on random fp32; returns the random case's |error|."""
+    xi = torch.randint(-3, 4, (rows, k), generator=gen, device=dev).float()
+    wi = (torch.randint(0, 3, (rows,), generator=gen, device=dev).float()
+          if weighted else None)
+    got, ref = gops.gram(xi, weights=wi), gref.gram_ref(xi, wi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), f"integer Gram differs at {rows}x{k}"
+    x = 0.1 * torch.randn((rows, k), generator=gen, device=dev)
+    w = (torch.rand((rows,), generator=gen, device=dev) * 4
+         if weighted else None)
+    got, ref = gops.gram(x, weights=w), gref.gram_ref(x, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=GRAM_RTOL,
+                               atol=GRAM_ATOL_REL * float(ref.abs().max()))
+    return float((got - ref).abs().max())
+
+
+def hold_training_kernels(dev) -> dict:
+    """Phase 5: every new kernel against its plain version."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    from repro_torch.kernels.cd_update import ops as cu, ref as cur
+    from repro_torch.kernels.gram import ops as gops, ref as gref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_ctx, n_items = FULL["n_ctx"], FULL["n_items"]
+    err = {"gram": 0.0, "cd_block_sweep": 0.0, "cd_block_sweep_gather": 0.0}
+    for rows in (n_ctx, n_items):
+        for weighted in (False, True):
+            err["gram"] = max(err["gram"], hold_gram(gops, gref, gen, dev,
+                                                     rows, 128, weighted))
+    for rows, k in ((7, 16), (1000, 12), (130, 130), (0, 8), (33, 1)):
+        hold_gram(gops, gref, gen, dev, rows, k, rows % 2 == 1)
+    # full-width dispatch shapes: context side (D_pad 128) and item side
+    # (D_pad 1,024, the 1,000-event head of the log)
+    err["cd_block_sweep_gather"] = max(
+        hold_sweep(cs, cr, gen, dev, n_ctx, 128, 8, n_items, k=128,
+                   pad_frac=0.85),
+        hold_sweep(cs, cr, gen, dev, n_items, 1024, 8, n_ctx, k=128,
+                   pad_frac=0.95))
+    err["cd_block_sweep"] = hold_sweep(cs, cr, gen, dev, n_ctx, 128, 8,
+                                       n_items, gather=False, k=128,
+                                       pad_frac=0.85)
+    # edge cases: C off the row tile, D_pad off the warp width, a 4-column
+    # tail block, η ≠ 1, k_b = 1 of a wider table, out-of-range ids clipped
+    for c, d, kb, k, eta in ((1001, 40, 8, 12, 1.0), (1001, 40, 4, 12, 0.7),
+                             (13, 200, 1, 5, 0.5), (9, 33, 3, 3, 1.3)):
+        for gather in (True, False):
+            hold_sweep(cs, cr, gen, dev, c, d, kb, 50, gather=gather, k=k,
+                       eta=eta)
+    x = sweep_inputs(gen, dev, 64, 128, 8, 30)
+    x["ids"][:, :5] = torch.tensor([-7, 29, 30, 1000, -1], dtype=torch.int32,
+                                   device=dev)
+    hold_sweep(cs, cr, gen, dev, 64, 128, 8, 30, x=x)
+    # all-zero-α rows with l2 = 0 and α₀ = 0: the 1e-12 clamp, Δ = 0
+    x = sweep_inputs(gen, dev, 40, 128, 8, 30)
+    x["alpha"][:10] = 0
+    w_before = x["w"].clone()
+    hold_sweep(cs, cr, gen, dev, 40, 128, 8, 30, x=x, alpha0=0.0, l2=0.0)
+    e = x["e"].clone()
+    w, _ = cs.cd_block_sweep_gather(x["tab"], x["ids"], x["alpha"], e,
+                                    x["w"], x["r1"], x["j"], alpha0=0.0, l2=0.0)
+    assert torch.equal(w[:10], w_before[:10]), "an empty row moved"
+    # cd_column_update is the k_b = 1 launch of the block-sweep kernel
+    x = sweep_inputs(gen, dev, 300, 128, 1, 40)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"])[:, 0, :].contiguous()
+    before = cs.cd_block_sweep.launches
+    rw, re = cur.cd_column_update_ref(psi, x["alpha"], x["e"], x["w"][:, 0],
+                                      x["r1"][:, 0], x["j"][0, 0], alpha0=1.0,
+                                      l2=0.1)
+    w, e = cu.cd_column_update(psi, x["alpha"], x["e"].clone(), x["w"][:, 0],
+                               x["r1"][:, 0], x["j"][0, 0], alpha0=1.0, l2=0.1)
+    torch.cuda.synchronize()
+    assert cs.cd_block_sweep.launches == before + 1
+    torch.testing.assert_close(w, rw, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+    torch.testing.assert_close(e, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+    # a whole fused epoch on the card against the same epoch on the CPU
+    # (plain versions), k = 12 with block_k 8 (a tail of 4), 1 and 0
+    for hpkw in (dict(block_k=8), dict(block_k=8, psi_dispatch="pregather"),
+                 dict(block_k=1), dict(block_k=0, eta=0.8)):
+        small_epoch_on_card_vs_cpu(dev, hpkw)
+    # the slice-3/4 entry points refuse the card
+    t = torch.zeros((4, 2, 8), device=dev)
+    for fn, args in ((cs.cd_slab_reduce, (t, t[:, 0], t[:, 0])),
+                     (cs.cd_resid_patch, (t, t[:, 0], t[:, :, 0]))):
+        try:
+            fn(*args)
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{fn.__name__} ran on the card")
+    return err
+
+
+def small_epoch_on_card_vs_cpu(dev, hpkw) -> None:
+    from repro_torch.core.models import mf, mf_padded
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(7)
+    n_ctx, n_items, nnz, k = 300, 150, 3000, 12
+    cells = rng.choice((n_ctx - 5) * n_items, size=nnz, replace=False)
+    y = rng.integers(1, 5, nnz).astype(np.float64)
+    alpha = 1.4 + rng.random(nnz)
+    w0 = (0.1 * rng.normal(size=(n_ctx, k))).astype(np.float32)
+    h0 = (0.1 * rng.normal(size=(n_items, k))).astype(np.float32)
+    hp = mf.MFHyperParams(k=k, alpha0=0.4, l2=0.05, **hpkw)
+    out = {}
+    for where in ("cpu", dev):
+        data = build_interactions(cells // n_items, cells % n_items, y, alpha,
+                                  n_ctx, n_items, alpha0=0.4, device=where)
+        pdata = mf_padded.pad_interactions(data)
+        p = mf.params_from_numpy(w0, h0, device=where)
+        e = mf_padded.residuals(p, pdata)
+        for _ in range(2):
+            p, e = mf_padded.epoch(p, pdata, e, hp)
+        out[str(where)] = (p.w.cpu(), p.h.cpu(), e.cpu())
+    (cw, ch, ce), (gw, gh, ge) = out["cpu"], out[str(dev)]
+    for a, b in ((gw, cw), (gh, ch), (ge, ce)):
+        torch.testing.assert_close(a, b, rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+
+
+def train_full_width(dev) -> dict:
+    """Phase 6: icd-mf at full width on the card."""
+    from repro_torch.core.models import mf, mf_padded
+    from repro_torch.eval.ranking import ranking_eval
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.topk_score import ops as tops, ref as tref
+    from repro_torch.sparse.interactions import build_interactions
+
+    t0 = time.perf_counter()
+    ctx, item = make_full_log()
+    a0 = FULL["alpha0"]
+    data = build_interactions(ctx, item, np.ones(len(ctx)),
+                              np.full(len(ctx), a0 + 4.0), FULL["n_ctx"],
+                              FULL["n_items"], alpha0=a0, device=dev)
+    pdata = mf_padded.pad_interactions(data)
+    torch.cuda.synchronize()
+    d_c, d_i = pdata.alpha_c.shape[1], pdata.alpha_i.shape[1]
+    grid_bytes = 16 * (FULL["n_ctx"] * d_c + FULL["n_items"] * d_i)
+    log(f"phase 6 data: nnz {data.nnz}, D_pad ctx {d_c} item {d_i}, fill "
+        f"{data.nnz / (FULL['n_ctx'] * d_c):.3f} ctx {data.nnz / (FULL['n_items'] * d_i):.3f} "
+        f"item, grids (ids, α, y, e) {grid_bytes / 1e9:.3f} GB; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    hp = mf.MFHyperParams(k=FULL["k"], alpha0=a0, l2=FULL["l2"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params0 = mf.init(FULL["n_ctx"], FULL["n_items"], FULL["k"], generator=gen)
+    objs = [float(mf.objective(params0, data, hp))]
+    epoch_s = []
+    stamp = [time.perf_counter()]
+
+    def on_epoch(ep, p):
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - stamp[0])
+        objs.append(float(mf.objective(p, data, hp)))
+        stamp[0] = time.perf_counter()
+
+    counters = (gops.gram, cs.cd_block_sweep, cs.cd_block_sweep_gather,
+                tops.topk_score)
+    for c in counters:
+        c.launches = 0
+    stamp[0] = time.perf_counter()
+    trained = mf_padded.fit(params0, pdata, hp, 3, callback=on_epoch)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"phase 6 train: mf_padded.fit 3 epochs (block_k 8, gather): "
+        f"objective {' -> '.join(f'{o:.6g}' for o in objs)}; epoch s "
+        f"{', '.join(f'{s:.3f}' for s in epoch_s)} (objective excluded); "
+        f"launches {launches}: {launches['gram'] // 3} Gram and "
+        f"{launches['cd_block_sweep_gather'] // 3} sweep launches an epoch")
+    assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
+    assert launches["gram"] == 6 and launches["cd_block_sweep_gather"] == 96 \
+        and launches["cd_block_sweep"] == 0, launches
+
+    # one epoch from one start through each dispatch and the segment sum
+    finals = {}
+    for name in ("gather", "pregather"):
+        for c in counters:
+            c.launches = 0
+        hpd = mf.MFHyperParams(k=FULL["k"], alpha0=a0, l2=FULL["l2"],
+                               psi_dispatch=name)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, e = mf_padded.epoch(params0, pdata, mf_padded.residuals(params0, pdata), hpd)
+        torch.cuda.synchronize()
+        finals[name] = (p, e, time.perf_counter() - t,
+                        {c.__name__: c.launches for c in counters})
+    t = time.perf_counter()
+    p_seg, _ = mf.epoch(params0, data, mf.residuals(params0, data), hp)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t
+    (pg, eg, sg, lg), (pp, ep_, sp, lp) = finals["gather"], finals["pregather"]
+    assert lp["cd_block_sweep"] == 32 and lp["cd_block_sweep_gather"] == 0, lp
+    for a, b in ((pp.w, pg.w), (pp.h, pg.h), (ep_, eg)):
+        torch.testing.assert_close(a, b, rtol=DISPATCH_RTOL, atol=DISPATCH_ATOL)
+    e_start = mf_padded.residuals(params0, pdata)
+    log(f"phase 6 epoch breakdown (torch.profiler, one gather epoch and a "
+        f"copy of its start grid): {epoch_breakdown(lambda: mf_padded.epoch(params0, pdata, e_start.clone(), hp))}")
+    del e_start
+    dw = float((pp.w - pg.w).abs().max())
+    for a, b in ((pg.w, p_seg.w), (pg.h, p_seg.h)):
+        torch.testing.assert_close(a, b, rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+    seg_err = max(float((pg.w - p_seg.w).abs().max()),
+                  float((pg.h - p_seg.h).abs().max()))
+    log(f"phase 6 one epoch from one start: gather {sg:.3f}s, pregather "
+        f"{sp:.3f}s (max |dW| {dw:.3g}, rtol {DISPATCH_RTOL}), segment-sum "
+        f"mf.epoch {seg_s:.3f}s (max |d| {seg_err:.3g}, rtol {EPOCH_RTOL} "
+        f"atol {EPOCH_ATOL})")
+
+    # streaming ranking eval of the trained model through the top-K kernel
+    n_eval = 4096
+    users = np.arange(0, FULL["n_ctx"], FULL["n_ctx"] // n_eval)[:n_eval]
+    starts = np.searchsorted(ctx, users)
+    ends = np.searchsorted(ctx, users, side="right")
+    truth = item[ends - 1]
+    exclude = [item[s:e - 1] for s, e in zip(starts, ends)]
+    phi = mf.build_phi(trained, torch.as_tensor(users, device=dev))
+    tops.topk_score.launches = 0
+    res = ranking_eval(phi, trained.h, truth, k=100, exclude=exclude,
+                       batch_rows=256)
+    eval_launches = tops.topk_score.launches
+    from repro_torch.core.metrics import ndcg_from_topk, recall_from_topk
+    from repro_torch.serve.engine import exclude_ids_from_lists
+
+    eids = exclude_ids_from_lists(exclude, device=dev)
+    _, ref_ids = tref.topk_score_ref(phi, trained.h, 100, exclude_ids=eids)
+    tt = torch.as_tensor(truth, device=dev)
+    ref_r = float(recall_from_topk(ref_ids, tt))
+    ref_n = float(ndcg_from_topk(ref_ids, tt))
+    # the kernel and the plain product sum D in other orders, so a near-tie
+    # at the truth's rank may fall either way: allow two users' worth
+    assert abs(res["recall@100"] - ref_r) <= 2 / n_eval and \
+        abs(res["ndcg@100"] - ref_n) <= 2 / n_eval, (res, ref_r, ref_n)
+    assert eval_launches == n_eval // 256, eval_launches
+    log(f"phase 6 eval: ranking_eval of {n_eval} users (last train item "
+        f"held as truth, the rest excluded): recall@100 "
+        f"{res['recall@100']:.4f} ndcg@100 {res['ndcg@100']:.4f}, plain "
+        f"recompute {ref_r:.4f} / {ref_n:.4f}; {eval_launches} top-K launches")
+    return {"launches": launches, "pdata": pdata, "params": trained,
+            "eval_launches": eval_launches,
+            "pregather_launches": lp["cd_block_sweep"]}
+
+
+def epoch_breakdown(fn, top: int = 8) -> str:
+    """Device time of one call of ``fn`` by CUDA kernel name (the ``top``
+    largest), the device's busy time against the host's wall time, from
+    torch.profiler; "not measured" when the profiler sees no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0 and ev.device_type.name == "CUDA":
+            name = ev.key.split("(")[0][:60]
+            by[name] = by.get(name, 0.0) + us / 1e3
+    if not by:
+        return "not measured"
+    busy = sum(by.values())
+    parts = sorted(by.items(), key=lambda kv: -kv[1])[:top]
+    return (f"wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%); "
+            + ", ".join(f"{n} {ms:.3f} ms" for n, ms in parts))
+
+
+def time_training_kernels(dev, pdata, params) -> dict:
+    """Phase 7: CUDA-event times at the full-width dispatch shapes, one
+    launch per side as an epoch makes them (k_b = 8, columns 0..7)."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    from repro_torch.kernels.gram import ops as gops, ref as gref
+    from repro_torch.obs.costs import cd_sweep_cost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, h = params
+    kb = 8
+    sides = {  # name: (side, other, ids, alpha)
+        "ctx": (w, h, pdata.item_ids, pdata.alpha_c),
+        "item": (h, w, pdata.ctx_ids, pdata.alpha_i),
+    }
+    out = {}
+    # Gram: one launch per side and epoch, of the fixed side's factors
+    g = {"ms": [], "plain": [], "lib": [], "bound": []}
+    for name, (_side, other, _ids, _alpha) in sides.items():
+        xs = [other.clone() for _ in range(2)]
+        g["ms"].append(device_ms(lambda j: gops.gram(xs[j % 2])))
+        g["plain"].append(device_ms(lambda j: gref.gram_ref(xs[j % 2])))
+        g["lib"].append(device_ms(lambda j: torch.mm(xs[j % 2].T, xs[j % 2])))
+        rows, k = other.shape
+        g["bound"].append(bound(4 * rows * k + 4 * k * k, rows * k * (k + 1)))
+        log(f"phase 7 gram {rows}x{k}: kernel {g['ms'][-1]:.4f} ms, plain "
+            f"{g['plain'][-1]:.4f} ms, torch.mm(x.T, x) {g['lib'][-1]:.4f} ms, "
+            f"bound {g['bound'][-1][0]:.4f} ms ({g['bound'][-1][1]})")
+    out["gram"] = g
+    for disp in ("gather", "pregather"):
+        r = {"ms": [], "plain": [], "bound": []}
+        for name, (side, other, ids, alpha) in sides.items():
+            c, d = alpha.shape
+            jfull = gref.gram_ref(other)
+            j = jfull[:kb, :kb].contiguous()
+            r1 = side @ jfull[:, :kb]
+            tab, wb = other[:, :kb], side[:, :kb]
+            es = [torch.zeros_like(alpha) for _ in range(2)]
+            if disp == "gather":
+                fn = lambda i: cs.cd_block_sweep_gather(  # noqa: E731
+                    tab, ids, alpha, es[i % 2], wb, r1, j, alpha0=1.0, l2=0.1)
+                plain = lambda i: cr.cd_block_sweep_gather_ref(  # noqa: E731
+                    tab, ids, alpha, es[i % 2], wb, r1, j, alpha0=1.0, l2=0.1)
+            else:
+                psi = cr.gather_psi_blk(tab, ids).contiguous()
+                fn = lambda i: cs.cd_block_sweep(  # noqa: E731
+                    psi, alpha, es[i % 2], wb, r1, j, alpha0=1.0, l2=0.1)
+                plain = lambda i: cr.cd_block_sweep_ref(  # noqa: E731
+                    psi, alpha, es[i % 2], wb, r1, j, alpha0=1.0, l2=0.1)
+            r["ms"].append(device_ms(fn, n=20))
+            r["plain"].append(device_ms(plain, n=5))
+            cost = cd_sweep_cost(c, d, kb, kb, n_src=other.shape[0],
+                                 gather=disp == "gather")
+            r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
+            log(f"phase 7 {disp} sweep {name} side (C {c}, D_pad {d}, k_b "
+                f"{kb}): kernel {r['ms'][-1]:.4f} ms, plain "
+                f"{r['plain'][-1]:.4f} ms, library —, bound "
+                f"{r['bound'][-1][0]:.4f} ms "
+                f"({r['bound'][-1][1]}: {cost['hbm_bytes']:.0f} B, "
+                f"{cost['flops']:.0f} FLOP)")
+            del es
+        out[disp] = r
+    return out
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms, what bounds it) on an H100 for this work."""
+    tb, tf = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def run_quickstart(dev) -> dict:
+    """Phase 8: the quickstart twin on the card."""
+    from repro_torch.examples import quickstart
+
+    t = time.perf_counter()
+    out = quickstart.run(device=dev, log=lambda m: None)
+    assert out["recall"] > out["recall_pop"], out
+    objs = out["objectives"]
+    assert all(b < a for a, b in zip(objs, objs[1:])), objs
+    log(f"phase 8 quickstart twin: Recall@10 iCD-MF {out['recall']:.3f} vs "
+        f"popularity {out['recall_pop']:.3f}; objective every 5 epochs "
+        f"{', '.join(f'{o:.2f}' for o in objs)}; {time.perf_counter() - t:.1f}s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         sys.exit(1)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cd_sweep import kernel as cd_kernel
+    from repro_torch.kernels.gram import kernel as gram_kernel
     from repro_torch.kernels.topk_score import kernel, ops, ref
     from repro_torch.launch import serve
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
-    # 1. build
+    # 1. build every kernel, one nvcc per source, all at once
+    libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB]
     t0 = time.perf_counter()
-    lib = kernel.build()
-    ptxas = [ln.strip() for ln in kernel.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.1f}s; "
-        f"ptxas: {' | '.join(ptxas)}")
+    paths = build.build_all(libs)
+    log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
+        f"{time.perf_counter() - t0:.1f}s (in parallel)")
+    for lib in libs:
+        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        log(f"phase 1 ptxas {lib.name}: {' | '.join(ptxas)}")
 
     # 2. kernel vs plain version on the card
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -256,6 +717,39 @@ def main() -> None:
         f"{report['seconds'] * 1e3:.3f} ms trace "
         f"({100 * launches * kernel_ms / (report['seconds'] * 1e3):.1f}%)")
 
+    del phi, slabs, report
+
+    # 5.-8. the training slice
+    t0 = time.perf_counter()
+    errs = hold_training_kernels(dev)
+    log(f"phase 5 hold: gram max |err| {errs['gram']:.3g} (random fp32; "
+        f"rtol {GRAM_RTOL}, atol {GRAM_ATOL_REL} x max|J|; integer cases "
+        f"exact), gather sweep {errs['cd_block_sweep_gather']:.3g}, "
+        f"pre-gathered sweep {errs['cd_block_sweep']:.3g} (rtol {SWEEP_RTOL}, "
+        f"atol {SWEEP_ATOL}); edge cases and small epochs pass; "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tr = train_full_width(dev)
+    log(f"phase 6 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    times = time_training_kernels(dev, tr["pdata"], tr["params"])
+    log(f"phase 7 done in {time.perf_counter() - t0:.1f}s")
+    run_quickstart(dev)
+
+    def row(name, source, replaces, launches, err, t, library):
+        """A kernel's JSON row; times are per launch, averaged over the
+        two sides' launches an epoch makes."""
+        mean = lambda xs: float(np.mean(xs))  # noqa: E731
+        by = {b for _, b in t["bound"]}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": mean(t["ms"]),
+                "plain_ms": mean(t["plain"]),
+                "bound_ms": mean([b for b, _ in t["bound"]]),
+                "bound_by": by.pop() if len(by) == 1 else "bytes",
+                "library_ms": None if library is None else mean(library)}
+
+    cd_src = "src/repro_torch/kernels/cd_sweep/csrc/cd_sweep.cu"
     print(json.dumps({"kernels": [{
         "name": "topk_score", "route": "cuda",
         "source": "src/repro_torch/kernels/topk_score/csrc/topk_score.cu",
@@ -263,7 +757,17 @@ def main() -> None:
         "launches": launches, "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
-    }]}))
+    }, row("gram", "src/repro_torch/kernels/gram/csrc/gram.cu",
+           "src/repro/kernels/gram/kernel.py:49", tr["launches"]["gram"],
+           errs["gram"], times["gram"], times["gram"]["lib"]),
+       row("cd_block_sweep", cd_src,
+           "src/repro/kernels/cd_sweep/kernel.py:119",
+           tr["pregather_launches"], errs["cd_block_sweep"],
+           times["pregather"], None),
+       row("cd_block_sweep_gather", cd_src,
+           "src/repro/kernels/cd_sweep/kernel.py:429",
+           tr["launches"]["cd_block_sweep_gather"],
+           errs["cd_block_sweep_gather"], times["gather"], None)]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

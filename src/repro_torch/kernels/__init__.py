@@ -4,7 +4,7 @@ Each kernel package ships three layers, as in ``repro.kernels``:
 
   csrc/*.cu + kernel.py — the CUDA C++ kernel for ``sm_90a``, compiled by
                           ``nvcc`` at its first launch into ``build/`` and
-                          bound through ``ctypes``
+                          bound through ``ctypes`` (``build.py``)
   ops.py                — the public wrapper: dispatch by device, shape
                           and dtype checks, the launch counter
   ref.py                — the plain PyTorch version of the same function
@@ -19,6 +19,15 @@ Kernels:
   topk_score — fused score + top-K over a ψ table or one row-range shard
                of it (replaces ``repro/kernels/topk_score/kernel.py``
                ``topk_score_pallas``).
+  gram       — J = XᵀX or Xᵀ·diag(w)·X of a tall-skinny matrix (replaces
+               ``repro/kernels/gram/kernel.py`` ``gram_pallas``).
+  cd_sweep   — the fused k_b-column iCD Newton sweep over the padded
+               layout, Ψ pre-gathered or gathered in the kernel (replaces
+               ``repro/kernels/cd_sweep/kernel.py``
+               ``cd_block_sweep_pallas`` and
+               ``cd_block_sweep_gather_pallas``); its other entry points
+               (slices 3 and 4) run only their plain versions so far.
+  cd_update  — the per-column update, one k_b = 1 launch of ``cd_sweep``.
 """
 from __future__ import annotations
 

@@ -1,0 +1,53 @@
+"""Bind the hand-written CUDA block-sweep kernel (``csrc/cd_sweep.cu``),
+built by :mod:`repro_torch.kernels.build` at its first launch. One entry
+point serves both ψ routings: a pre-gathered (C, k_b, D_pad) tile, or the
+(n_src, k_b) ψ slab plus the (C, D_pad) id grid."""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import CudaLibrary
+
+
+def _bind(lib) -> None:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.cd_sweep_f32.argtypes = [p, p, ll, i, p, p, p, p, ll, p, ll, p, ll,
+                                 p, i, i, i, f, f, f, i, p]
+    lib.cd_sweep_f32.restype = i
+
+
+LIB = CudaLibrary(
+    "cd_sweep", Path(__file__).resolve().parent / "csrc" / "cd_sweep.cu",
+    bind=_bind,
+)
+
+
+def launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, w_out, *,
+           alpha0: float, l2: float, eta: float, rows_per_block: int) -> None:
+    """Enqueue one sweep on the current stream; ``e`` is updated in place
+    and the new W slab goes to ``w_out``. Exactly one of ``psi_blk`` and
+    ``psi_tab`` is given. The caller has checked shapes, dtypes, device
+    and strides (``ops``)."""
+    lib = LIB.load()
+    c, d = alpha.shape
+    kb = w_out.shape[1]
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
+    def ld(t):
+        return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+    gather = psi_tab is not None
+    with torch.cuda.device(alpha.device):
+        stream = torch.cuda.current_stream(alpha.device).cuda_stream
+        rc = lib.cd_sweep_f32(
+            ptr(psi_blk), ptr(psi_tab), ld(psi_tab) if gather else 0,
+            psi_tab.shape[0] if gather else 0, ptr(ids), ptr(alpha), ptr(e),
+            ptr(w_blk), ld(w_blk), ptr(r1_blk), ld(r1_blk), j_blk.data_ptr(),
+            ld(j_blk), ptr(w_out), c, d, kb, float(alpha0), float(l2),
+            float(eta), rows_per_block, stream)
+    LIB.check(rc, "cd_sweep")

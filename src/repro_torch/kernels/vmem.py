@@ -137,3 +137,92 @@ def cluster_block_items(k_pad: int, *, shard_items: int) -> int:
     so a shard's blocks cost what :func:`topk_block_items` says for its
     row count, and the same :class:`VmemBudgetError` propagates."""
     return topk_block_items(k_pad, n_items=shard_items)
+
+
+# ---------------------------------------------------------------------------
+# Gram (csrc/gram.cu). A block owns one GRAM_TILE × GRAM_TILE tile of J over
+# one range of rows and stages GRAM_CHUNK rows of its two column strips in
+# static shared memory (2 · 32 · 64 · 4 B = 16 KB); the rows are split so
+# that about GRAM_TARGET_BLOCKS blocks (4 per SM of an H100) share the work.
+# ---------------------------------------------------------------------------
+GRAM_TILE = 64
+GRAM_CHUNK = 32
+GRAM_TARGET_BLOCKS = 4 * 132
+assert 2 * 4 * GRAM_CHUNK * GRAM_TILE <= SMEM_STATIC_BYTES
+
+
+def gram_row_splits(rows: int, k: int) -> tuple:
+    """``(splits, rows_per_split)`` for one Gram launch: enough row splits
+    to give the card about GRAM_TARGET_BLOCKS blocks, each split a whole
+    number of staged chunks. The splits are summed in order by the second
+    pass, so the result depends only on ``rows`` and ``k``."""
+    tiles = -(-k // GRAM_TILE)
+    pairs = tiles * (tiles + 1) // 2  # J is symmetric: lower-triangle tiles
+    chunks = max(1, -(-rows // GRAM_CHUNK))
+    splits = max(1, min(-(-GRAM_TARGET_BLOCKS // pairs), chunks))
+    rows_per_split = -(-chunks // splits) * GRAM_CHUNK
+    return -(-max(rows, 1) // rows_per_split), rows_per_split
+
+
+# ---------------------------------------------------------------------------
+# Block sweep (csrc/cd_sweep.cu). One warp owns one row; a block of warps
+# keeps each row's e, α and a ψ_j scratch row (and ids, in the gather form)
+# of D_pad slots plus its R' and W slabs (k_b each) in dynamic shared
+# memory, beside one shared (k_b, k_b) Gram block. The ψ slab of the gather
+# form is not resident: the kernel reads it through L2 (the TPU kernel's
+# "slab fits VMEM" rule does not carry over). A row that cannot stay
+# resident in one block's shared memory raises VmemBudgetError.
+# ---------------------------------------------------------------------------
+SMEM_BLOCK_MAX = 232_448          # dynamic shared memory a block can opt into
+CD_SWEEP_SMEM_TARGET = 96 * 1024  # two blocks per SM's 228 KB
+CD_SWEEP_MAX_ROWS = 8             # warps (rows) per block
+
+
+def cd_sweep_smem_bytes(d_pad: int, k_b: int, rows: int, *,
+                        gather: bool) -> int:
+    """Dynamic shared memory of one block-sweep block of ``rows`` rows."""
+    per_row = 4 * (2 * k_b + (4 if gather else 3) * d_pad)
+    return 4 * k_b * k_b + rows * per_row
+
+
+def _cd_sweep_rows(d_pad: int, k_b: int, n_rows, gather: bool) -> int:
+    one = cd_sweep_smem_bytes(d_pad, k_b, 1, gather=gather)
+    if one > SMEM_BLOCK_MAX:
+        raise VmemBudgetError(
+            f"one block-sweep row does not fit a block's shared memory: "
+            f"D_pad={d_pad}, k_b={k_b} need {one} B > {SMEM_BLOCK_MAX} B; "
+            "degree-bucket the rows or lower k_b")
+    per_row = one - 4 * k_b * k_b
+    rows = (CD_SWEEP_SMEM_TARGET - 4 * k_b * k_b) // per_row
+    rows = max(1, min(CD_SWEEP_MAX_ROWS, rows))
+    if n_rows is not None:
+        rows = max(1, min(rows, n_rows))
+    return rows
+
+
+def cd_sweep_block_ctx(d_pad: int, k_b: int, *,
+                       n_rows: int | None = None) -> int:
+    """Rows per block of the PRE-GATHERED block sweep (the Ψ tile is read
+    from device memory, so a row holds e, α and the ψ_j scratch).
+    Raises :class:`VmemBudgetError` when one row does not fit."""
+    return _cd_sweep_rows(d_pad, k_b, n_rows, gather=False)
+
+
+def cd_sweep_gather_block_ctx(d_pad: int, m: int, *,
+                              n_rows: int | None = None) -> int:
+    """Rows per block of the IN-KERNEL-GATHER block sweep: a row also
+    holds its clipped ids. The ψ slab costs no shared memory: it is read
+    through L2. Raises :class:`VmemBudgetError` when one row does not
+    fit."""
+    return _cd_sweep_rows(d_pad, m, n_rows, gather=True)
+
+
+def resolve_cd_sweep_dispatch(d_pad: int, m: int, *,
+                              prefer_gather: bool = True) -> bool:
+    """``use_gather`` for one fused sweep. On CUDA the gather is native,
+    so the caller's preference decides. The chosen form is sized once
+    here, before the sweep starts, so a row that cannot stay resident
+    raises :class:`VmemBudgetError` rather than shrinking (each launch
+    sizes its own rows the same way)."""
+    _cd_sweep_rows(d_pad, m, None, gather=prefer_gather)
+    return prefer_gather

@@ -22,7 +22,7 @@ the trace (repeatable). ``--metrics-out FILE`` exports the metrics registry
 on exit (``.prom`` → Prometheus text, else JSONL), ``--trace-out FILE`` the
 request trace as Chrome-trace JSON, and ``--stats-every N`` prints a live
 stats line every N requests. ``--continual`` (fold-in under traffic) waits
-for slice 2.
+for fold-in, the former slice 2.6, now after slice 4.
 
 :func:`main` takes an argv list and returns a report (params, users,
 per-request results, coverage, counters), so callers can drive the whole
@@ -63,7 +63,7 @@ def _parse(argv):
                     help="inject a sticky fault on replica R of shard S "
                          "(repeatable), e.g. --kill 0:0 --kill 0:1")
     ap.add_argument("--continual", action="store_true",
-                    help="fold-in under traffic (not ported yet: slice 2)")
+                    help="fold-in under traffic (not ported yet: fold-in follows slice 4)")
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
                     help="export the metrics registry on exit (.prom -> "
                          "Prometheus text exposition, else JSONL)")
@@ -79,7 +79,8 @@ def main(argv=None) -> dict:
     args = _parse(argv)
     if args.continual:
         raise NotImplementedError(
-            "--continual is not ported yet: slice 2 (fold-in)")
+            "--continual is not ported yet: fold-in (former slice 2.6) "
+            "follows slice 4")
     if not args.arch.startswith("icd"):
         raise SystemExit(
             f"unknown serving arch {args.arch!r}: the serve driver hosts the "

@@ -2,7 +2,8 @@
 ``repro.obs.costs``, rebased on the Hopper kernel's own traffic).
 
 The mesh records one cost per ``topk_score`` dispatch into the metrics
-registry: device-memory bytes and FLOPs from the shapes in hand, and the
+registry, and the training callback (``obs/train.py``) one per fused
+sweep: device-memory bytes and FLOPs from the shapes in hand, and the
 shared memory of one kernel block. The counts are analytic, computed on
 the host; no kernel is instrumented.
 
@@ -40,6 +41,27 @@ def topk_score_cost(b: int, n_rows: int, d: int, k: int, *,
         smem = float(vmem.SMEM_STATIC_BYTES)
     return {"hbm_bytes": hbm, "flops": 2.0 * b * n_rows * d,
             "smem_bytes": smem}
+
+
+def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
+                  gather: bool = True) -> Dict[str, float]:
+    """Cost of ONE side's fused k-column block sweep over the padded
+    (C, D_pad) layout, ⌈k/k_b⌉ launches of ``csrc/cd_sweep.cu``.
+
+    Bytes, per launch: ids (gather form), α and e read and e written once
+    (16 B a slot; 12 B pre-gathered), W and R' read and W written (12 B a
+    row and column), the ψ slab's ``n_src`` rows read once — or, in the
+    pre-gathered form, the (C, k_b, D_pad) Ψ tile read. FLOPs: 8 a slot
+    and column (L'/2 and L''/2, three each; the e patch, two)."""
+    n_blocks = -(-k // k_b)
+    slot = (16.0 if gather else 12.0) * c * d_pad
+    hbm = n_blocks * slot + 12.0 * c * k
+    hbm += 4.0 * n_src * k if gather else 4.0 * c * d_pad * k
+    rows = (vmem.cd_sweep_gather_block_ctx(d_pad, k_b, n_rows=c)
+            if gather else vmem.cd_sweep_block_ctx(d_pad, k_b, n_rows=c))
+    return {"hbm_bytes": hbm, "flops": 8.0 * c * d_pad * k,
+            "smem_bytes": float(vmem.cd_sweep_smem_bytes(
+                d_pad, k_b, rows, gather=gather))}
 
 
 class KernelCostRecorder:
@@ -87,3 +109,13 @@ class KernelCostRecorder:
     def record_topk(self, b: int, n_rows: int, d: int, k: int, *,
                     kernel: str = "topk_score", excl_l: int = 0) -> None:
         self.record(kernel, topk_score_cost(b, n_rows, d, k, excl_l=excl_l))
+
+    def record_cd_sweep(self, c: int, d_pad: int, k: int, k_b: int, *,
+                        kernel: str = "cd_sweep", sweeps: int = 1,
+                        n_src: int = 0, gather: bool = True) -> None:
+        cost = cd_sweep_cost(c, d_pad, k, k_b, n_src=n_src, gather=gather)
+        self.record(kernel, {
+            "hbm_bytes": cost["hbm_bytes"] * sweeps,
+            "flops": cost["flops"] * sweeps,
+            "smem_bytes": cost["smem_bytes"],
+        }, calls=sweeps)

@@ -1,5 +1,5 @@
 """The port's serve driver end to end, its package boundary, its entry
-points' device policy, and its CUDA kernel against the plain version.
+points' device policy, and its CUDA kernels against their plain versions.
 
 ``python -m repro_torch.launch.serve --device cpu`` runs as a subprocess
 beside the JAX package's driver and must print the same report lines (the
@@ -70,6 +70,7 @@ def test_entry_points_refuse_what_is_not_there():
             serve.main(ARGS)  # --device defaults to cuda: no fallback
     with pytest.raises(NotImplementedError, match="slice 2"):
         serve.main([*ARGS, "--device", "cpu", "--continual"])
+
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_config("icd-fm")
     with pytest.raises(KeyError):
@@ -96,6 +97,25 @@ def test_numpy_data_goes_to_cuda_unless_cpu_is_named():
         shard_psi(h, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FaultTolerantRetrievalMesh(n_shards=2, n_replicas=1, k=2).publish(h)
+
+
+def test_training_data_goes_to_cuda_unless_cpu_is_named():
+    from repro_torch.examples import quickstart
+    from repro_torch.serve.engine import exclude_ids_from_lists
+    from repro_torch.sparse.interactions import build_interactions
+
+    def build(**kw):
+        return build_interactions([0, 1], [1, 0], [1.0, 1.0], [2.0, 2.0], 2, 2,
+                                  **kw)
+
+    assert build(device="cpu").ctx.device.type == "cpu"
+    assert exclude_ids_from_lists([[1]], device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert build().alpha.device.type == "cuda"
+        return
+    for fn in (build, lambda: exclude_ids_from_lists([[1]]), quickstart.run):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
 
 
 _IMPORT = re.compile(
@@ -161,3 +181,184 @@ def test_unported_forms_raise_on_cuda(cuda):
     with pytest.raises(ValueError, match="int32"):
         ops.topk_score(phi, psi, 4, exclude_ids=torch.zeros(
             2, 3, dtype=torch.int64, device=cuda))
+
+
+def _sweep_operands(dev, c, d, kb, n_src, k, seed):
+    """Sweep operands: W, the ψ slab and the Gram block are column slices
+    of wider matrices, as the epochs pass them; a third of the slots is
+    padding (id 0, α = 0)."""
+    rng = np.random.default_rng(seed)
+    alpha = (rng.random((c, d)) * 4 + 0.5).astype(np.float32)
+    pad = rng.random((c, d)) < 0.3
+    alpha[pad] = 0
+    ids = rng.integers(0, n_src, (c, d)).astype(np.int32)
+    ids[pad] = 0
+    tab = (0.3 * rng.normal(size=(n_src, k))).astype(np.float32)
+    jfull = tab.T @ tab + np.eye(k, dtype=np.float32)
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    return dict(tab=t(tab)[:, :kb], ids=t(ids), alpha=t(alpha),
+                e=t(rng.normal(size=(c, d)).astype(np.float32)),
+                w=t((0.3 * rng.normal(size=(c, k))).astype(np.float32))[:, :kb],
+                r1=t(rng.normal(size=(c, kb)).astype(np.float32)),
+                j=t(jfull)[:kb, :kb])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,k,weighted", [(1000, 12, False), (1000, 12, True),
+                                             (4097, 130, True), (0, 8, False)])
+def test_gram_kernel_matches_plain_on_cuda(cuda, rows, k, weighted):
+    """Small-integer inputs: every partial sum is an exact integer in fp32,
+    so the kernel must equal the plain version bit for bit."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram.ref import gram_ref
+
+    x = _ints((rows, k), 50, cuda)
+    w = _ints((rows,), 51, cuda).abs() if weighted else None
+    before = gram_ops.gram.launches
+    got = gram_ops.gram(x, weights=w)
+    want = gram_ref(x, w)
+    torch.cuda.synchronize()
+    assert gram_ops.gram.launches == before + 1
+    assert torch.equal(got, want)
+    # a column slice of a wider matrix is read in place
+    wide = _ints((rows, k + 5), 52, cuda)
+    assert torch.equal(gram_ops.gram(wide[:, 2:2 + k]), gram_ref(wide[:, 2:2 + k]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,kb,k,eta", [(1001, 40, 8, 12, 1.0), (13, 200, 1, 5, 0.5),
+                                          (9, 33, 3, 3, 1.3), (300, 128, 4, 12, 0.8)])
+def test_sweep_kernels_match_plain_on_cuda(cuda, c, d, kb, k, eta):
+    """Both routings against the plain version, with the reference's
+    kernel-vs-oracle tolerance (rtol 2e-5, atol 2e-6): the kernel sums
+    the D_pad slots in another order. e is updated in place."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    x = _sweep_operands(cuda, c, d, kb, 50, k, c + d)
+    kw = dict(alpha0=0.7, l2=0.05, eta=eta)
+    rw, re = cr.cd_block_sweep_gather_ref(x["tab"], x["ids"], x["alpha"], x["e"],
+                                          x["w"], x["r1"], x["j"], **kw)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    for name in ("cd_block_sweep_gather", "cd_block_sweep"):
+        fn = getattr(cs, name)
+        before = fn.launches
+        e = x["e"].clone()
+        first = (x["tab"], x["ids"]) if name.endswith("gather") else (psi,)
+        w, e2 = fn(*first, x["alpha"], e, x["w"], x["r1"], x["j"], **kw)
+        torch.cuda.synchronize()
+        assert e2 is e and fn.launches == before + 1
+        torch.testing.assert_close(w, rw, rtol=2e-5, atol=2e-6)
+        torch.testing.assert_close(e, re, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_sweep_kernel_clamps_empty_rows_and_clips_ids(cuda):
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    x = _sweep_operands(cuda, 40, 128, 8, 30, 8, 7)
+    x["alpha"][:10] = 0
+    x["ids"][10:, :4] = torch.tensor([-7, 30, 1000, 29], dtype=torch.int32,
+                                     device=cuda)
+    kw = dict(alpha0=0.0, l2=0.0)
+    e = x["e"].clone()
+    w, _ = cs.cd_block_sweep_gather(x["tab"], x["ids"], x["alpha"], e, x["w"],
+                                    x["r1"], x["j"], **kw)
+    rw, re = cr.cd_block_sweep_gather_ref(x["tab"], x["ids"], x["alpha"], x["e"],
+                                          x["w"], x["r1"], x["j"], **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(w).all()) and torch.equal(w[:10], x["w"][:10])
+    torch.testing.assert_close(w, rw, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(e, re, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_column_update_is_one_kb1_sweep_launch(cuda):
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.kernels.cd_update import ops as cu
+    from repro_torch.kernels.cd_update.ref import cd_column_update_ref
+
+    x = _sweep_operands(cuda, 300, 128, 1, 40, 1, 8)
+    psi = x["tab"][:, 0][x["ids"].long()].contiguous()
+    args = (psi, x["alpha"], x["e"], x["w"][:, 0], x["r1"][:, 0], x["j"][0, 0])
+    rw, re = cd_column_update_ref(*args, alpha0=1.0, l2=0.1)
+    before = cs.cd_block_sweep.launches
+    w, e = cu.cd_column_update(psi, x["alpha"], x["e"].clone(), *args[3:],
+                               alpha0=1.0, l2=0.1)
+    torch.cuda.synchronize()
+    assert cs.cd_block_sweep.launches == before + 1
+    torch.testing.assert_close(w, rw, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(e, re, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_slice_3_and_4_sweep_forms_raise_on_cuda(cuda):
+    from repro_torch.kernels.cd_sweep import ops as cs
+
+    t = torch.zeros((4, 2, 8), device=cuda)
+    ids = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    row, tab = t[:, 0], torch.zeros((3, 2), device=cuda)
+    calls = {
+        "slice 3": [lambda: cs.cd_block_sweep_rowpatch(
+                        t, row, row.clone(), t[:, :, 0], t[:, :, 0],
+                        torch.zeros((4, 2, 2), device=cuda), alpha0=1.0, l2=0.1),
+                    lambda: cs.cd_block_sweep_rowpatch_gather(
+                        tab, ids, row, row.clone(), t[:, :, 0], t[:, :, 0],
+                        torch.zeros((4, 2, 2), device=cuda), alpha0=1.0, l2=0.1)],
+        "slice 4": [lambda: cs.cd_slab_reduce(t, row, row),
+                    lambda: cs.cd_slab_reduce_gather(tab, ids, row, row),
+                    lambda: cs.cd_resid_patch(t, row.clone(), t[:, :, 0]),
+                    lambda: cs.cd_resid_patch_gather(tab, ids, row.clone(),
+                                                     t[:, :, 0])],
+    }
+    for where, fns in calls.items():
+        for fn in fns:
+            with pytest.raises(NotImplementedError, match=where):
+                fn()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hpkw", [dict(block_k=8), dict(block_k=8, psi_dispatch="pregather"),
+                                  dict(block_k=1), dict(block_k=0, eta=0.8)])
+def test_mf_padded_epoch_on_cuda_matches_cpu(cuda, hpkw):
+    """k = 12: block_k 8 leaves a 4-column tail. Two fused epochs on the
+    card against the same epochs through the plain versions on the CPU,
+    to the reference's fused-vs-flat tolerance (rtol 3e-4, atol 3e-5)."""
+    from repro_torch.core.models import mf, mf_padded
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(7)
+    n_ctx, n_items, nnz, k = 300, 150, 3000, 12
+    cells = rng.choice((n_ctx - 5) * n_items, size=nnz, replace=False)
+    y = rng.integers(1, 5, nnz).astype(np.float64)
+    alpha = 1.4 + rng.random(nnz)
+    w0 = (0.1 * rng.normal(size=(n_ctx, k))).astype(np.float32)
+    h0 = (0.1 * rng.normal(size=(n_items, k))).astype(np.float32)
+    hp = mf.MFHyperParams(k=k, alpha0=0.4, l2=0.05, **hpkw)
+    out = {}
+    for where in ("cpu", cuda):
+        data = build_interactions(cells // n_items, cells % n_items, y, alpha,
+                                  n_ctx, n_items, alpha0=0.4, device=where)
+        pdata = mf_padded.pad_interactions(data)
+        p = mf.params_from_numpy(w0, h0, device=where)
+        e = mf_padded.residuals(p, pdata)
+        before = cs.cd_block_sweep.launches + cs.cd_block_sweep_gather.launches
+        for _ in range(2):
+            p, e = mf_padded.epoch(p, pdata, e, hp)
+        launched = cs.cd_block_sweep.launches + cs.cd_block_sweep_gather.launches
+        assert (launched > before) == (where != "cpu")
+        out[str(where)] = [t.cpu() for t in (p.w, p.h, e)]
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=3e-4, atol=3e-5)
+
+
+@pytest.mark.gpu
+def test_quickstart_twin_on_cuda(cuda):
+    from repro_torch.examples import quickstart
+
+    out = quickstart.main([])
+    assert out["recall"] > out["recall_pop"]
+    assert out["params"].w.device.type == "cuda"
