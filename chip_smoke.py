@@ -38,7 +38,26 @@ Phases, one line each or more:
      top-K kernel, held against the plain version;
   7. time the Gram and sweep kernels at the full-width shapes beside their
      plain versions, the library call where one exists, and their bounds;
-  8. run the quickstart twin on the card (iCD-MF must beat popularity).
+  8. run the quickstart twin on the card (iCD-MF must beat popularity);
+  9. hold the row-patch block sweeps (kernels 4 and 5) against their plain
+     versions: both routings at the full-width user-side shape (C =
+     200,000, D_pad = 128, k_b = 8, a slab of nnz + 1 rows) in the warp-row
+     form, both at the bucket-side shape (C = 24, D_pad = 142,464) in the
+     block-row form, and edge cases (C off the row tile, a 4-column tail,
+     k_b = 1, η ≠ 1, ids past both ends, all-α = 0 rows with l2 = α₀ = 0,
+     the shared-J sweep in the block-row form);
+ 10. train CtxMF at full width (200,000 users × 24 hour-of-day buckets ×
+     68,000 items, k = 128) on phase 6's log with seeded timestamps over
+     28 days: 3 ``epoch_padded`` epochs (objective falling, launches
+     counted by form), one pregather and one flat epoch from one start
+     held against the default one, one profiled epoch, one
+     ``dense_context`` epoch, and 16 (user, bucket) queries through the
+     top-K kernel against a plain recompute;
+ 11. Tucker: one ``epoch_padded`` on the same log at k1 = k2 = k3 = 8
+     (objective falling), and small PARAFAC and Tucker epochs on the card
+     against the same epochs on the CPU;
+ 12. time the row-patch kernels at both full-width shapes beside their
+     plain versions and their bounds.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -639,6 +658,444 @@ def run_quickstart(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: the tensor models and the row-patch block sweeps.
+# ---------------------------------------------------------------------------
+# Long rows (block-row form): the kernel and the plain version sum each
+# row's many thousands of slots in other orders, and fp32 summation error is
+# a small multiple of u·Σ|terms|. So a row's absolute tolerance is
+# LONG_ROW_REL of its Σ_j (Σ_d |α·e·ψ_j|) / den_j in W, times max_j |ψ_j| per
+# slot in e, beside the sweep's rtol.
+LONG_ROW_REL = 1e-5
+# the reference's fused-vs-flat tolerances (tests/test_icd_tensor.py,
+# tests/test_ctxmf.py): parameters, residuals
+TENSOR_RTOL, TENSOR_ATOL, TENSOR_E_ATOL = 5e-4, 1e-5, 5e-5
+TUCKER_RTOL, TUCKER_ATOL = 1e-3, 1e-4
+# the CtxMF log (phase 10): its shape at full width, which phase 10 checks
+CTX = dict(n_buckets=24, days=28, ts_seed=1, k_tucker=8, nnz=3_399_385,
+           d_user=128, d_bucket=142_464, d_item=1_024)
+
+
+def rowpatch_inputs(gen, dev, c, d, kb, n_src, pad_frac=0.3, ids=None,
+                    alpha=None):
+    """Random row-patch operands at (C, D_pad): a flat slab of ``n_src``
+    rows whose last is the zero sentinel (padding points at it, α = 0) and
+    per-row patches P = K·Kᵀ + I; ``ids``/``alpha`` may be a real layout's."""
+    if alpha is None:
+        alpha = torch.rand((c, d), generator=gen, device=dev) * 4 + 0.5
+        pad = torch.rand((c, d), generator=gen, device=dev) < pad_frac
+        alpha[pad] = 0
+        ids = torch.randint(0, n_src - 1, (c, d), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[pad] = n_src - 1
+    tab = 0.1 * torch.randn((n_src, kb), generator=gen, device=dev)
+    tab[-1] = 0
+    kk = 0.3 * torch.randn((c, kb, kb), generator=gen, device=dev)
+    return dict(alpha=alpha, ids=ids, tab=tab,
+                e=torch.randn((c, d), generator=gen, device=dev),
+                w=0.1 * torch.randn((c, kb), generator=gen, device=dev),
+                r1=torch.randn((c, kb), generator=gen, device=dev),
+                p=kk @ kk.transpose(1, 2) + torch.eye(kb, device=dev))
+
+
+def hold_rowpatch(cs, cr, x, *, gather=True, cpl=None, alpha0=1.0, l2=0.1,
+                  eta=1.0):
+    """One launch of a row-patch sweep (or, with a 2-D ``cpl``, the
+    shared-J sweep) against its plain version; returns (max |error| over W
+    and e, whether it ran in the block-row form, W)."""
+    from repro_torch.kernels import vmem
+
+    cpl = x["p"] if cpl is None else cpl
+    name = ("cd_block_sweep_rowpatch" if cpl.dim() == 3 else
+            "cd_block_sweep") + ("_gather" if gather else "")
+    fn, plain = getattr(cs, name), getattr(cr, name + "_ref")
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    first = (x["tab"], x["ids"]) if gather else (psi,)
+    kw = dict(alpha0=alpha0, l2=l2, eta=eta)
+    d, kb = x["alpha"].shape[1], x["w"].shape[1]
+    long_rows = vmem.cd_sweep_form(d, kb, gather=gather,
+                                   rowpatch=cpl.dim() == 3) == vmem.BLOCK_ROW
+    before = (fn.launches, fn.launches_block_row)
+    rw, re = plain(*first, x["alpha"], x["e"], x["w"], x["r1"], cpl, **kw)
+    e = x["e"].clone()
+    w, e2 = fn(*first, x["alpha"], e, x["w"], x["r1"], cpl, **kw)
+    torch.cuda.synchronize()
+    assert e2 is e, "the residual grid must be updated in place"
+    assert (fn.launches - before[0], fn.launches_block_row - before[1]) == \
+        (1, int(long_rows)), (name, long_rows)
+    assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
+    atol_w = atol_e = SWEEP_ATOL
+    if long_rows:
+        a = x["alpha"][:, None, :]
+        den = ((a * psi * psi).sum(-1) + alpha0 * torch.diagonal(
+            cpl, dim1=-2, dim2=-1) + l2).clamp(min=1e-12)
+        scale = ((a * x["e"].abs()[:, None, :] * psi.abs()).sum(-1)
+                 / den).sum(1, keepdim=True)
+        atol_w = SWEEP_ATOL + LONG_ROW_REL * scale
+        atol_e = atol_w * psi.abs().amax(1)
+    bad_w = (w - rw).abs() > SWEEP_RTOL * rw.abs() + atol_w
+    bad_e = (e - re).abs() > SWEEP_RTOL * re.abs() + atol_e
+    err = max(float((w - rw).abs().max()), float((e - re).abs().max()))
+    assert not bool(bad_w.any()) and not bool(bad_e.any()), (name, d, err)
+    return err, long_rows, w
+
+
+def hold_rowpatch_kernels(dev, n_src) -> dict:
+    """Phase 9: both row-patch kernels against their plain versions at the
+    full-width shapes and at edge cases; ``n_src`` = nnz + 1."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    err = {"cd_block_sweep_rowpatch": 0.0, "cd_block_sweep_rowpatch_gather": 0.0}
+    # user side (warp-row; 13% of the slots filled at full width), bucket
+    # side (block-row; full rows)
+    for c, d, pad, long_rows in ((FULL["n_ctx"], 128, 0.87, False),
+                                 (CTX["n_buckets"], CTX["d_bucket"], 0.01, True)):
+        x = rowpatch_inputs(gen, dev, c, d, 8, n_src, pad)
+        for gather in (True, False):
+            name = "cd_block_sweep_rowpatch" + ("_gather" if gather else "")
+            got, lr, _ = hold_rowpatch(cs, cr, x, gather=gather)
+            assert lr == long_rows
+            err[name] = max(err[name], got)
+            log(f"phase 9 hold {name} C {c} D_pad {d}: "
+                f"{'block-row' if lr else 'warp-row'} form, max |err| {got:.3g}")
+        del x
+    # edge cases: C off the row tile, a 4-column tail, k_b = 1, η ≠ 1,
+    # long rows in both couplings
+    for c, d, kb, eta in ((1001, 40, 8, 1.0), (1001, 40, 4, 0.7),
+                          (13, 200, 1, 0.5), (9, 33, 3, 1.3),
+                          (5, 20_000, 8, 0.9), (3, 16_000, 4, 1.0)):
+        x = rowpatch_inputs(gen, dev, c, d, kb, 60)
+        for gather in (True, False):
+            hold_rowpatch(cs, cr, x, gather=gather, eta=eta)
+    for d in (128, 20_000):
+        # ids past both ends, clipped to the slab
+        x = rowpatch_inputs(gen, dev, 64, d, 8, 30)
+        x["ids"][:, :5] = torch.tensor([-7, 29, 30, 1000, -1],
+                                       dtype=torch.int32, device=dev)
+        hold_rowpatch(cs, cr, x)
+        # all-α = 0 rows with l2 = α₀ = 0: the 1e-12 clamp, W unchanged
+        x = rowpatch_inputs(gen, dev, 12, d, 8, 40)
+        x["alpha"][:4] = 0
+        x["p"][:4] = 0
+        for gather in (True, False):
+            _, _, w = hold_rowpatch(cs, cr, x, gather=gather, alpha0=0.0, l2=0.0)
+            assert torch.equal(w[:4], x["w"][:4]), "an empty row moved"
+    # the shared-J sweep (MF's kernel 2) in the block-row form
+    x = rowpatch_inputs(gen, dev, 5, 20_000, 8, 3_000)
+    for gather in (True, False):
+        _, lr, _ = hold_rowpatch(cs, cr, x, gather=gather, cpl=x["p"][0])
+        assert lr
+    return err
+
+
+def make_ctx_log(dev):
+    """Phase 6's log with a seeded uniform timestamp per event over 28
+    days, bucketed by hour of day, on the card: (tc, data, padded)."""
+    from repro_torch.core.models import ctxmf
+    from repro_torch.sparse.interactions import build_interactions
+
+    user, item = make_full_log()
+    t = np.random.default_rng(CTX["ts_seed"]).uniform(
+        0.0, CTX["days"] * 86400.0, len(user))
+    bucket = ctxmf.seasonal_buckets(t, CTX["n_buckets"], period=86400.0)
+    tc, pair = ctxmf.build_context(user, bucket, FULL["n_ctx"],
+                                   CTX["n_buckets"], device=dev)
+    a0 = FULL["alpha0"]
+    data = build_interactions(pair, item, np.ones(len(user)),
+                              np.full(len(user), a0 + 4.0), tc.n_ctx,
+                              FULL["n_items"], alpha0=a0, device=dev)
+    return tc, data, ctxmf.pad_tensor_groups(tc, data)
+
+
+def _counters():
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.kernels.gram import ops as gops
+
+    return (gops.gram, cs.cd_block_sweep, cs.cd_block_sweep_gather,
+            cs.cd_block_sweep_rowpatch, cs.cd_block_sweep_rowpatch_gather)
+
+
+def reset_counts() -> None:
+    for c in _counters():
+        c.launches = 0
+        if hasattr(c, "launches_block_row"):
+            c.launches_block_row = 0
+
+
+def read_counts() -> dict:
+    out = {}
+    for c in _counters():
+        out[c.__name__] = c.launches
+        if hasattr(c, "launches_block_row"):
+            out[c.__name__ + ":block_row"] = c.launches_block_row
+    return out
+
+
+def _hold_params(got, want, e_got=None, e_want=None) -> float:
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=TENSOR_RTOL, atol=TENSOR_ATOL)
+    if e_got is not None:
+        torch.testing.assert_close(e_got, e_want, rtol=TENSOR_RTOL,
+                                   atol=TENSOR_E_ATOL)
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def train_ctxmf_full_width(dev) -> dict:
+    """Phase 10: CtxMF at full width on the card."""
+    import dataclasses
+
+    from repro_torch.core.models import ctxmf
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.topk_score import ops as tops, ref as tref
+    from repro_torch.serve.engine import RetrievalEngine
+
+    t0 = time.perf_counter()
+    tc, data, padded = make_ctx_log(dev)
+    per_bucket = torch.bincount(tc.c2[data.ctx], minlength=CTX["n_buckets"])
+    torch.cuda.synchronize()
+    d1, d2, di = padded.g1.d_pad, padded.g2.d_pad, padded.gi.d_pad
+    forms = [vmem.cd_sweep_form(d, 8, gather=True, rowpatch=True)
+             for d in (d1, d2)]
+    log(f"phase 10 data: nnz {data.nnz}, {tc.n_ctx} (user, bucket) pairs, "
+        f"D_pad user {d1} bucket {d2} item {di}; bucket rows "
+        f"{int(per_bucket.min())}-{int(per_bucket.max())} events; sweep forms "
+        f"user {forms[0]}, bucket {forms[1]}; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    assert (data.nnz, d1, d2, di) == (CTX["nnz"], CTX["d_user"], CTX["d_bucket"],
+                                      CTX["d_item"]), (data.nnz, d1, d2, di)
+    assert forms == [vmem.WARP_ROW, vmem.BLOCK_ROW], forms
+
+    hp = ctxmf.CtxMFHyperParams(k=FULL["k"], alpha0=FULL["alpha0"],
+                                l2=FULL["l2"], implementation="pallas")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    params0 = ctxmf.init(FULL["n_ctx"], CTX["n_buckets"], FULL["n_items"],
+                         FULL["k"], generator=gen)
+    objs = [float(ctxmf.objective(params0, tc, data, hp))]
+    epoch_s, first = [], None
+    p, e = params0, ctxmf.residuals(params0, tc, data)
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(3):
+        t = time.perf_counter()
+        p, e = ctxmf.epoch_padded(p, tc, data, padded, e, hp)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t)
+        first = first or (p, e)
+        objs.append(float(ctxmf.objective(p, tc, data, hp)))
+    launches = read_counts()
+    rp = launches["cd_block_sweep_rowpatch_gather"]
+    rp_block = launches["cd_block_sweep_rowpatch_gather:block_row"]
+    log(f"phase 10 train: ctxmf.epoch_padded x3 (k {FULL['k']}, block_k 0 -> k_b 8, "
+        f"gather, Gram kernel for J_I): objective "
+        f"{' -> '.join(f'{o:.6g}' for o in objs)}; epoch s "
+        f"{', '.join(f'{s:.3f}' for s in epoch_s)} (objective excluded); "
+        f"launches {launches}: an epoch {(rp - rp_block) // 3} warp-row + "
+        f"{rp_block // 3} block-row row-patch, "
+        f"{launches['cd_block_sweep_gather'] // 3} item-sweep and "
+        f"{launches['gram'] // 3} Gram launches")
+    assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
+    nb = -(-FULL["k"] // 8)  # k_b = 8 blocks a mode: 16 at k = 128
+    want = {"gram": 3, "cd_block_sweep": 0, "cd_block_sweep:block_row": 0,
+            "cd_block_sweep_gather": 3 * nb,
+            "cd_block_sweep_gather:block_row": 0,
+            "cd_block_sweep_rowpatch": 0,
+            "cd_block_sweep_rowpatch:block_row": 0,
+            "cd_block_sweep_rowpatch_gather": 6 * nb,
+            "cd_block_sweep_rowpatch_gather:block_row": 3 * nb}
+    assert launches == want, launches
+
+    # one epoch from one start through the pregather route and the flat path
+    pg, eg = first
+    reset_counts()
+    t = time.perf_counter()
+    pp, ep_ = ctxmf.epoch_padded(params0, tc, data, padded,
+                                 ctxmf.residuals(params0, tc, data),
+                                 dataclasses.replace(hp, psi_dispatch="pregather"))
+    torch.cuda.synchronize()
+    pre_s, pre_launches = time.perf_counter() - t, read_counts()
+    assert pre_launches["cd_block_sweep_rowpatch"] == 2 * nb and \
+        pre_launches["cd_block_sweep_rowpatch:block_row"] == nb and \
+        pre_launches["cd_block_sweep"] == nb and \
+        pre_launches["cd_block_sweep_rowpatch_gather"] == 0, pre_launches
+    d_pre = _hold_params(pp, pg, ep_, eg)
+    del pp, ep_
+    t = time.perf_counter()
+    pf, ef = ctxmf.epoch(params0, tc, data, ctxmf.residuals(params0, tc, data), hp)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t
+    d_flat = _hold_params(pf, pg, ef, eg)
+    del pf, ef
+    log(f"phase 10 one epoch from one start: gather {epoch_s[0]:.3f}s, "
+        f"pregather {pre_s:.3f}s (max |d param| {d_pre:.3g}), flat "
+        f"ctxmf.epoch {flat_s:.3f}s (max |d param| {d_flat:.3g}); rtol "
+        f"{TENSOR_RTOL} atol {TENSOR_ATOL} (e atol {TENSOR_E_ATOL})")
+    e0 = ctxmf.residuals(params0, tc, data)
+    log(f"phase 10 epoch breakdown (torch.profiler, one gather epoch): "
+        f"{epoch_breakdown(lambda: ctxmf.epoch_padded(params0, tc, data, padded, e0, hp), top=12)}")
+    del e0
+
+    # dense context: regularizer universe users × buckets
+    hpd = dataclasses.replace(hp, dense_context=True)
+    od0 = float(ctxmf.objective(params0, tc, data, hpd))
+    reset_counts()
+    t = time.perf_counter()
+    pd, _ = ctxmf.epoch_padded(params0, tc, data, padded,
+                               ctxmf.residuals(params0, tc, data), hpd)
+    torch.cuda.synchronize()
+    dense_s, dense_launches = time.perf_counter() - t, read_counts()
+    od1 = float(ctxmf.objective(pd, tc, data, hpd))
+    assert od1 < od0 and all(bool(torch.isfinite(x).all()) for x in pd)
+    assert dense_launches["cd_block_sweep_rowpatch_gather"] == 2 * nb and \
+        dense_launches["cd_block_sweep_rowpatch_gather:block_row"] == nb
+    del pd
+    log(f"phase 10 dense_context epoch: objective {od0:.6g} -> {od1:.6g}, "
+        f"{dense_s:.3f}s, launches {dense_launches}")
+
+    # 16 (user, bucket) queries through the top-K kernel
+    qu = torch.arange(16, device=dev) * (FULL["n_ctx"] // 16) + 7
+    qb = (torch.arange(16, device=dev) * 5) % CTX["n_buckets"]
+    engine = RetrievalEngine(ctxmf.export_psi(p),
+                             lambda u, b: ctxmf.build_phi(p, u, b), k=100)
+    phi = ctxmf.build_phi(p, qu, qb)
+    tops.topk_score.launches = 0
+    res = engine.topk_phi(phi)
+    q_launches = tops.topk_score.launches
+    rs, ri = tref.topk_score_ref(phi, ctxmf.export_psi(p), 101)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(res.scores, rs[:, :100], rtol=RTOL, atol=ATOL)
+    ids_agree(rs[:, :100], ri[:, :100], res.ids, rs[:, 100])
+    exact = int((res.ids == ri[:, :100]).all(1).sum())
+    assert q_launches == 1, q_launches
+    log(f"phase 10 queries: 16 (user, bucket) queries, top-100 through "
+        f"{q_launches} top-K launch; ids equal to the plain recompute in "
+        f"{exact}/16 rows outright, and at every slot outside a near-tie")
+    return {"tc": tc, "data": data, "padded": padded, "launches": launches,
+            "pre_launches": pre_launches}
+
+
+def small_tensor_epochs_on_card_vs_cpu(dev) -> None:
+    """Two fused epochs of PARAFAC (k = 12, block_k 8: a 4-column tail) and
+    of Tucker (mode ranks 3, 2, 4 at block_k 2) on a small problem, on the
+    card against the same epochs on the CPU."""
+    from repro_torch.core.models import parafac, tucker
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(12)
+    n_c1, n_c2, n_items, n_pairs, nnz = 40, 6, 30, 150, 600
+    pairs = rng.choice(n_c1 * n_c2, size=n_pairs, replace=False)
+    cells = rng.choice(n_pairs * n_items, size=nnz, replace=False)
+    y = rng.integers(1, 4, nnz).astype(np.float64)
+    alpha = 1.3 + rng.random(nnz)
+    fp = [(0.3 * rng.normal(size=(n, 12))).astype(np.float32)
+          for n in (n_c1, n_c2, n_items)]
+    ft = [(0.3 * rng.normal(size=s)).astype(np.float32)
+          for s in ((n_c1, 3), (n_c2, 2), (n_items, 4), (3, 2, 4))]
+    cases = (  # (model, hp, factors, rtol, atol of the params, atol of e)
+        (parafac, parafac.PARAFACHyperParams(k=12, alpha0=0.3, l2=0.05,
+                                             block_k=8), fp,
+         TENSOR_RTOL, TENSOR_ATOL, TENSOR_E_ATOL),
+        (tucker, tucker.TuckerHyperParams(k1=3, k2=2, k3=4, alpha0=0.3,
+                                          l2=0.05, l2_core=0.02, block_k=2),
+         ft, TUCKER_RTOL, TUCKER_ATOL, TUCKER_ATOL))
+    for mod, hp, f, rtol, atol, e_atol in cases:
+        out = []
+        for where in ("cpu", dev):
+            tc = mod.TensorContext(
+                c1=torch.as_tensor(pairs // n_c2, device=where),
+                c2=torch.as_tensor(pairs % n_c2, device=where),
+                n_c1=n_c1, n_c2=n_c2)
+            data = build_interactions(cells // n_items, cells % n_items, y,
+                                      alpha, n_pairs, n_items, alpha0=0.3,
+                                      device=where)
+            pad = mod.pad_tensor_groups(tc, data)
+            p = mod.params_from_numpy(*f, device=where)
+            e = mod.residuals(p, tc, data)
+            for _ in range(2):
+                p, e = mod.epoch_padded(p, tc, data, pad, e, hp)
+            out.append([t.cpu() for t in (*p, e)])
+        *params, e = zip(out[1], out[0])
+        for a, b in params:
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        torch.testing.assert_close(*e, rtol=rtol, atol=e_atol)
+
+
+def train_tucker_full_width(dev, tc, data, padded) -> None:
+    """Phase 11: one Tucker epoch at k1 = k2 = k3 = 8 on the CtxMF log."""
+    from repro_torch.core.models import tucker
+
+    k = CTX["k_tucker"]
+    hp = tucker.TuckerHyperParams(k1=k, k2=k, k3=k, alpha0=FULL["alpha0"],
+                                  l2=FULL["l2"])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p0 = tucker.init(FULL["n_ctx"], CTX["n_buckets"], FULL["n_items"], k, k, k,
+                     generator=gen)
+    o0 = float(tucker.objective(p0, tc, data, hp))
+    e0 = tucker.residuals(p0, tc, data)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    p1, _ = tucker.epoch_padded(p0, tc, data, padded, e0, hp)
+    torch.cuda.synchronize()
+    s, launches = time.perf_counter() - t, read_counts()
+    o1 = float(tucker.objective(p1, tc, data, hp))
+    assert o1 < o0 and all(bool(torch.isfinite(x).all()) for x in p1), (o0, o1)
+    assert launches["cd_block_sweep_rowpatch_gather"] == 2 and \
+        launches["cd_block_sweep_rowpatch_gather:block_row"] == 1 and \
+        launches["cd_block_sweep_gather"] == 1, launches
+    small_tensor_epochs_on_card_vs_cpu(dev)
+    log(f"phase 11 tucker: epoch_padded at k1 = k2 = k3 = {k} (core sweep "
+        f"{k ** 3} scalar steps): objective {o0:.6g} -> {o1:.6g} in {s:.3f}s, "
+        f"launches {launches}; small PARAFAC and Tucker epochs on the card "
+        f"match the CPU")
+
+
+def time_rowpatch_kernels(dev, padded, n_src) -> dict:
+    """Phase 12: CUDA-event times of both row-patch forms at the
+    full-width user (warp-row) and bucket (block-row) shapes, on the real
+    layouts' ids and α with random values, one launch of k_b = 8."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    from repro_torch.obs.costs import cd_sweep_cost
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {d: {"ms": [], "plain": [], "bound": []}
+           for d in ("gather", "pregather")}
+    kw = dict(alpha0=1.0, l2=0.1)
+    for side, g in (("user", padded.g1), ("bucket", padded.g2)):
+        c, d = g.alpha_pad.shape
+        x = rowpatch_inputs(gen, dev, c, d, 8, n_src, ids=g.flat_ids,
+                            alpha=g.alpha_pad)
+        es = [x["e"].clone() for _ in range(2)]
+        psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+        rest = (x["alpha"], None, x["w"], x["r1"], x["p"])
+
+        def args(first, i):
+            return (*first, rest[0], es[i % 2], *rest[2:])
+
+        for disp in ("gather", "pregather"):
+            first = (x["tab"], x["ids"]) if disp == "gather" else (psi,)
+            name = "cd_block_sweep_rowpatch" + ("_gather" if disp == "gather" else "")
+            fn, plain = getattr(cs, name), getattr(cr, name + "_ref")
+            r = out[disp]
+            r["ms"].append(device_ms(lambda i: fn(*args(first, i), **kw),
+                                     n=20 if side == "user" else 10))
+            r["plain"].append(device_ms(lambda i: plain(*args(first, i), **kw),
+                                        n=5))
+            cost = cd_sweep_cost(c, d, 8, 8, n_src=n_src,
+                                 gather=disp == "gather", rowpatch=True)
+            r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
+            own = bound(cost["form_bytes"], cost["flops"])
+            log(f"phase 12 {name} {side} side (C {c}, D_pad {d}, k_b 8, "
+                f"{cost['form']}): kernel {r['ms'][-1]:.4f} ms, plain "
+                f"{r['plain'][-1]:.4f} ms, library —, bound "
+                f"{r['bound'][-1][0]:.4f} ms ({r['bound'][-1][1]}: "
+                f"{cost['hbm_bytes']:.0f} B, {cost['flops']:.0f} FLOP); the "
+                f"form's own traffic {cost['form_bytes']:.0f} B, "
+                f"{own[0]:.4f} ms")
+        del x, es, psi
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -660,8 +1117,10 @@ def main() -> None:
     log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.1f}s (in parallel)")
     for lib in libs:
-        ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        ptxas = [ln.split("'")[1][:40] if "Compiling entry" in ln else ln.strip()
+                 for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln
+                 or "Compiling entry" in ln]
         log(f"phase 1 ptxas {lib.name}: {' | '.join(ptxas)}")
 
     # 2. kernel vs plain version on the card
@@ -736,6 +1195,26 @@ def main() -> None:
     log(f"phase 7 done in {time.perf_counter() - t0:.1f}s")
     run_quickstart(dev)
 
+    # 9.-12. the tensor models
+    n_src = CTX["nnz"] + 1
+    t0 = time.perf_counter()
+    rp_errs = hold_rowpatch_kernels(dev, n_src)
+    log(f"phase 9 hold: row-patch sweeps max |err| pre-gathered "
+        f"{rp_errs['cd_block_sweep_rowpatch']:.3g}, gather "
+        f"{rp_errs['cd_block_sweep_rowpatch_gather']:.3g} (rtol {SWEEP_RTOL}, "
+        f"atol {SWEEP_ATOL}; long rows + {LONG_ROW_REL} x the row's sum of "
+        f"|a e psi| / den); edge cases pass; {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ctx = train_ctxmf_full_width(dev)
+    log(f"phase 10 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    train_tucker_full_width(dev, ctx["tc"], ctx["data"], ctx["padded"])
+    log(f"phase 11 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rp_times = time_rowpatch_kernels(dev, ctx["padded"], n_src)
+    log(f"phase 12 done in {time.perf_counter() - t0:.1f}s")
+    del ctx["data"], ctx["padded"]
+
     def row(name, source, replaces, launches, err, t, library):
         """A kernel's JSON row; times are per launch, averaged over the
         two sides' launches an epoch makes."""
@@ -767,7 +1246,16 @@ def main() -> None:
        row("cd_block_sweep_gather", cd_src,
            "src/repro/kernels/cd_sweep/kernel.py:429",
            tr["launches"]["cd_block_sweep_gather"],
-           errs["cd_block_sweep_gather"], times["gather"], None)]}))
+           errs["cd_block_sweep_gather"], times["gather"], None),
+       row("cd_block_sweep_rowpatch", cd_src,
+           "src/repro/kernels/cd_sweep/kernel.py:207",
+           ctx["pre_launches"]["cd_block_sweep_rowpatch"],
+           rp_errs["cd_block_sweep_rowpatch"], rp_times["pregather"], None),
+       row("cd_block_sweep_rowpatch_gather", cd_src,
+           "src/repro/kernels/cd_sweep/kernel.py:519",
+           ctx["launches"]["cd_block_sweep_rowpatch_gather"],
+           rp_errs["cd_block_sweep_rowpatch_gather"], rp_times["gather"],
+           None)]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

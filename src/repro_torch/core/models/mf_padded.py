@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import sweeps
 from repro_torch.core.gram import full_fp32
 from repro_torch.core.models.mf import MFHyperParams, MFParams
+from repro_torch.core.padded import group_slots
 from repro_torch.kernels import vmem
 from repro_torch.kernels.cd_sweep.ops import cd_block_sweep, cd_block_sweep_gather
 from repro_torch.kernels.cd_update.ops import cd_column_update
@@ -67,18 +68,6 @@ class PaddedInteractions:
     n_items: int
 
 
-def _slots(rows: np.ndarray, n_rows: int, lane: int):
-    """(d_pad, slot): each observation's rank among the observations of
-    its row, in their order, and the row width padded to ``lane``."""
-    deg = np.bincount(rows, minlength=n_rows)
-    d_pad = max(lane, int(-(-max(1, deg.max()) // lane) * lane))
-    order = np.argsort(rows, kind="stable")
-    start = np.cumsum(deg) - deg
-    slot = np.empty(len(rows), np.int64)
-    slot[order] = np.arange(len(rows)) - start[rows[order]]
-    return d_pad, slot
-
-
 def pad_interactions(data: Interactions, lane: int = 128) -> PaddedInteractions:
     """Build the dual padded layout on the data's device (degrees padded
     to the maximum, the slot dimension rounded up to ``lane``). Equal,
@@ -88,8 +77,8 @@ def pad_interactions(data: Interactions, lane: int = 128) -> PaddedInteractions:
     item = data.item.cpu().numpy()
     alpha = data.alpha.cpu().numpy()
     y = data.y.cpu().numpy()
-    d_c, slot_c = _slots(ctx, data.n_ctx, lane)
-    d_i, slot_i = _slots(item, data.n_items, lane)
+    d_c, slot_c = group_slots(ctx, data.n_ctx, lane)
+    d_i, slot_i = group_slots(item, data.n_items, lane)
 
     def grid(shape, rows, cols, vals, dtype):
         out = np.zeros(shape, dtype)

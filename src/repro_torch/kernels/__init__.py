@@ -22,11 +22,15 @@ Kernels:
   gram       — J = XᵀX or Xᵀ·diag(w)·X of a tall-skinny matrix (replaces
                ``repro/kernels/gram/kernel.py`` ``gram_pallas``).
   cd_sweep   — the fused k_b-column iCD Newton sweep over the padded
-               layout, Ψ pre-gathered or gathered in the kernel (replaces
-               ``repro/kernels/cd_sweep/kernel.py``
-               ``cd_block_sweep_pallas`` and
-               ``cd_block_sweep_gather_pallas``); its other entry points
-               (slices 3 and 4) run only their plain versions so far.
+               layout, with one shared Gram block or a per-row patch, Ψ
+               pre-gathered or gathered in the kernel, one warp a row or,
+               for rows too long for shared memory, one block a row
+               (replaces ``repro/kernels/cd_sweep/kernel.py``
+               ``cd_block_sweep_pallas``, ``cd_block_sweep_gather_pallas``,
+               ``cd_block_sweep_rowpatch_pallas`` and
+               ``cd_block_sweep_rowpatch_gather_pallas``); its slab-reduce
+               and residual-patch entry points (slice 4) run only their
+               plain versions so far.
   cd_update  — the per-column update, one k_b = 1 launch of ``cd_sweep``.
 """
 from __future__ import annotations

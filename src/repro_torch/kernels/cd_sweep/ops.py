@@ -2,16 +2,25 @@
 of ``repro.kernels.cd_sweep.ops``).
 
 A CUDA tensor launches the hand-written kernel (``csrc/cd_sweep.cu``) for
-:func:`cd_block_sweep` and :func:`cd_block_sweep_gather`; the per-row-patch
-(slice 3), slab-reduce and residual-patch (slice 4) entry points are not
-ported to the card yet and raise ``NotImplementedError`` there. A CPU
-tensor takes the plain version (``ref.py``) in every entry point.
+:func:`cd_block_sweep`, :func:`cd_block_sweep_gather`,
+:func:`cd_block_sweep_rowpatch` and :func:`cd_block_sweep_rowpatch_gather`;
+the slab-reduce and residual-patch entry points (slice 4) are not ported
+to the card yet and raise ``NotImplementedError`` there. A CPU tensor
+takes the plain version (``ref.py``) in every entry point.
+
+Each launch takes the form :func:`~repro_torch.kernels.vmem.cd_sweep_form`
+picks: the warp-row form when one row fits a block's shared memory, else
+the block-row form (one thread block a row). A wrapper's ``launches``
+counts its kernel launches; ``launches_block_row`` counts those of them in
+the block-row form.
 
 ``e`` is updated in place, as the reference donates it: the returned
 ``e`` is the caller's tensor on either device, and callers rebind
-(``w, e = cd_block_sweep(...)``). The ψ slab, the W and R' slabs and the
-Gram block may be column slices of wider matrices (any row stride, columns
-contiguous): the kernel reads them where they lie, without a copy.
+(``w, e = cd_block_sweep(...)``). The ψ slab, the W and R' slabs, the Gram
+block and the per-row patch may be slices of wider tensors (the slabs and
+the Gram block with contiguous columns, the patch with any strides, a row
+stride of 0 included): the kernel reads them where they lie, without a
+copy.
 
 Per-interaction confidence weights: every entry point takes an optional
 ``weights`` shaped like ``alpha``. The observed confidence enters the
@@ -51,29 +60,55 @@ def _check_grid(name, t, shape, dtype=torch.float32):
            f"{tuple(t.shape)}")
 
 
-def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, *,
+def _check_patch(t, c, kb):
+    _check(t.dtype == torch.float32, f"p_blk must be float32, got {t.dtype}")
+    _check(t.dim() == 3 and tuple(t.shape) == (c, kb, kb),
+           f"p_blk must be ({c}, {kb}, {kb}), got {tuple(t.shape)}")
+
+
+def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, *,
             alpha0, l2, eta):
+    """Check, size and launch one sweep; returns ``(w_new, e, form)``.
+    ``cpl`` is the shared (k_b, k_b) Gram block or the (C, k_b, k_b)
+    per-row patch; a patch with row stride 0 is one block for every row
+    and runs as the shared form."""
     c, d = alpha.shape
     kb = w_blk.shape[1]
+    gather = psi_tab is not None
     _check_grid("alpha", alpha, (c, d))
     _check_grid("e", e, (c, d))
     _check_slab("w_blk", w_blk, c, kb)
     _check_slab("r1_blk", r1_blk, c, kb)
-    _check_slab("j_blk", j_blk, kb, kb)
-    if psi_tab is not None:
+    if cpl.dim() == 3:
+        _check_patch(cpl, c, kb)
+    else:
+        _check_slab("j_blk", cpl, kb, kb)
+    if gather:
         _check_slab("psi_tab", psi_tab, psi_tab.shape[0], kb)
         _check(psi_tab.shape[0] >= 1, "psi_tab needs at least one row")
         _check_grid("ids", ids, (c, d), torch.int32)
     else:
         _check_grid("psi_blk", psi_blk, (c, kb, d))
-    rows = (vmem.cd_sweep_gather_block_ctx(d, kb, n_rows=c)
-            if psi_tab is not None else vmem.cd_sweep_block_ctx(d, kb, n_rows=c))
+    rowpatch = cpl.dim() == 3 and c > 1 and cpl.stride(0) != 0
+    if cpl.dim() == 3 and not rowpatch:
+        cpl = cpl[0]  # one block for every row: the shared form
+    form = vmem.cd_sweep_form(d, kb, gather=gather, rowpatch=rowpatch)
+    rows = 0
+    if form == vmem.WARP_ROW:
+        rows = (vmem.cd_sweep_gather_block_ctx if gather else
+                vmem.cd_sweep_block_ctx)(d, kb, n_rows=c, rowpatch=rowpatch)
     w_out = torch.empty((c, kb), dtype=torch.float32, device=e.device)
     if c:
-        kernel.launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk,
+        kernel.launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl,
                       w_out, alpha0=alpha0, l2=l2, eta=eta,
                       rows_per_block=rows)
-    return w_out, e
+    return w_out, e, form
+
+
+def _counted(fn, form):
+    fn.launches += 1
+    if form == vmem.BLOCK_ROW:
+        fn.launches_block_row += 1
 
 
 def _in_place(e, result):
@@ -86,21 +121,17 @@ def _in_place(e, result):
 
 def cd_block_sweep(psi_blk, alpha, e, w_blk, r1_blk, j_blk, *, alpha0, l2,
                    eta=1.0, weights=None):
-    """k_b Newton steps per row over a pre-gathered (C, k_b, D_pad) Ψ tile:
-    ``(W slab (C, k_b), e)``. The rows per CUDA block come from
-    :func:`~repro_torch.kernels.vmem.cd_sweep_block_ctx`."""
+    """k_b Newton steps per row over a pre-gathered (C, k_b, D_pad) Ψ tile
+    with one shared (k_b, k_b) Gram block: ``(W slab (C, k_b), e)``."""
     alpha = _fold_weights(alpha, weights)
     if not on_cuda(psi_blk, alpha, e, w_blk, r1_blk, j_blk):
         return _in_place(e, ref.cd_block_sweep_ref(
             psi_blk, alpha, e, w_blk, r1_blk, j_blk, alpha0=alpha0, l2=l2,
             eta=eta))
-    out = _launch(psi_blk, None, None, alpha, e, w_blk, r1_blk, j_blk,
-                  alpha0=alpha0, l2=l2, eta=eta)
-    cd_block_sweep.launches += 1
-    return out
-
-
-cd_block_sweep.launches = 0  # CUDA kernel launches (chip_smoke.py reads it)
+    w, e, form = _launch(psi_blk, None, None, alpha, e, w_blk, r1_blk, j_blk,
+                         alpha0=alpha0, l2=l2, eta=eta)
+    _counted(cd_block_sweep, form)
+    return w, e
 
 
 def cd_block_sweep_gather(psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, *,
@@ -113,37 +144,59 @@ def cd_block_sweep_gather(psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, *,
         return _in_place(e, ref.cd_block_sweep_gather_ref(
             psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, alpha0=alpha0,
             l2=l2, eta=eta))
-    out = _launch(None, psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk,
-                  alpha0=alpha0, l2=l2, eta=eta)
-    cd_block_sweep_gather.launches += 1
-    return out
+    w, e, form = _launch(None, psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk,
+                         alpha0=alpha0, l2=l2, eta=eta)
+    _counted(cd_block_sweep_gather, form)
+    return w, e
 
 
-cd_block_sweep_gather.launches = 0
+def cd_block_sweep_rowpatch(psi_blk, alpha, e, w_blk, r1_blk, p_blk, *,
+                            alpha0, l2, eta=1.0, weights=None):
+    """:func:`cd_block_sweep` with a per-row (C, k_b, k_b) patch P in place
+    of the shared Gram block: the denominator takes P[r, j, j] (R''/2) and
+    the Gauss–Seidel patch is R' += Δ·P[r, j, :] (the context modes of the
+    tensor models, eqs. 37–38)."""
+    alpha = _fold_weights(alpha, weights)
+    if not on_cuda(psi_blk, alpha, e, w_blk, r1_blk, p_blk):
+        return _in_place(e, ref.cd_block_sweep_rowpatch_ref(
+            psi_blk, alpha, e, w_blk, r1_blk, p_blk, alpha0=alpha0, l2=l2,
+            eta=eta))
+    w, e, form = _launch(psi_blk, None, None, alpha, e, w_blk, r1_blk, p_blk,
+                         alpha0=alpha0, l2=l2, eta=eta)
+    _counted(cd_block_sweep_rowpatch, form)
+    return w, e
+
+
+def cd_block_sweep_rowpatch_gather(psi_tab, ids, alpha, e, w_blk, r1_blk,
+                                   p_blk, *, alpha0, l2, eta=1.0,
+                                   weights=None):
+    """:func:`cd_block_sweep_rowpatch` with ψ gathered in the kernel from
+    a flat (nnz + 1, k_b) pseudo-ψ slab through the (C, D_pad) id grid;
+    padding slots point at the zero sentinel row ``nnz``."""
+    alpha = _fold_weights(alpha, weights)
+    if not on_cuda(psi_tab, ids, alpha, e, w_blk, r1_blk, p_blk):
+        return _in_place(e, ref.cd_block_sweep_rowpatch_gather_ref(
+            psi_tab, ids, alpha, e, w_blk, r1_blk, p_blk, alpha0=alpha0,
+            l2=l2, eta=eta))
+    w, e, form = _launch(None, psi_tab, ids, alpha, e, w_blk, r1_blk, p_blk,
+                         alpha0=alpha0, l2=l2, eta=eta)
+    _counted(cd_block_sweep_rowpatch_gather, form)
+    return w, e
+
+
+# CUDA kernel launches, and those of them in the block-row form
+# (chip_smoke.py reads both)
+for _fn in (cd_block_sweep, cd_block_sweep_gather, cd_block_sweep_rowpatch,
+            cd_block_sweep_rowpatch_gather):
+    _fn.launches = 0
+    _fn.launches_block_row = 0
+del _fn
 
 
 def _not_on_card(name: str, where: str, *tensors) -> None:
     if on_cuda(*tensors):
         raise NotImplementedError(
             f"{name} is not ported to the card yet: {where}")
-
-
-def cd_block_sweep_rowpatch(psi_blk, alpha, e, w_blk, r1_blk, p_blk, *,
-                            alpha0, l2, eta=1.0, weights=None):
-    _not_on_card("cd_block_sweep_rowpatch", "slice 3", psi_blk, alpha, e)
-    return _in_place(e, ref.cd_block_sweep_rowpatch_ref(
-        psi_blk, _fold_weights(alpha, weights), e, w_blk, r1_blk, p_blk,
-        alpha0=alpha0, l2=l2, eta=eta))
-
-
-def cd_block_sweep_rowpatch_gather(psi_tab, ids, alpha, e, w_blk, r1_blk,
-                                   p_blk, *, alpha0, l2, eta=1.0,
-                                   weights=None):
-    _not_on_card("cd_block_sweep_rowpatch_gather", "slice 3", psi_tab, ids,
-                 alpha, e)
-    return _in_place(e, ref.cd_block_sweep_rowpatch_gather_ref(
-        psi_tab, ids, _fold_weights(alpha, weights), e, w_blk, r1_blk,
-        p_blk, alpha0=alpha0, l2=l2, eta=eta))
 
 
 def cd_slab_reduce(psi_blk, alpha, e, *, weights=None):

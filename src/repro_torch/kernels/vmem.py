@@ -165,64 +165,110 @@ def gram_row_splits(rows: int, k: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# Block sweep (csrc/cd_sweep.cu). One warp owns one row; a block of warps
-# keeps each row's e, α and a ψ_j scratch row (and ids, in the gather form)
-# of D_pad slots plus its R' and W slabs (k_b each) in dynamic shared
-# memory, beside one shared (k_b, k_b) Gram block. The ψ slab of the gather
-# form is not resident: the kernel reads it through L2 (the TPU kernel's
-# "slab fits VMEM" rule does not carry over). A row that cannot stay
-# resident in one block's shared memory raises VmemBudgetError.
+# Block sweep (csrc/cd_sweep.cu), in two launch forms.
+#
+# Warp-row form: one warp owns one row; a block of warps keeps each row's
+# e, α and a ψ_j scratch row (and ids, in the gather form) of D_pad slots
+# plus its R' and W slabs (k_b each) in dynamic shared memory, beside either
+# one shared (k_b, k_b) Gram block or, in the row-patch form, each row's own
+# (k_b, k_b) patch P. The ψ slab of the gather form is not resident: the
+# kernel reads it through L2 (the TPU kernel's "slab fits VMEM" rule does
+# not carry over).
+#
+# Block-row form, for rows too long for that: one thread block of
+# CD_BLOCK_ROW_THREADS threads owns one row; e, α and ids stay in device
+# memory and are read on each of the row's k_b steps, and shared memory
+# holds only the row's coupling block (J or P), R', W and the reduction's
+# per-warp partial sums.
+#
+# cd_sweep_form picks the form: warp-row when one row fits a block's shared
+# memory, block-row otherwise. VmemBudgetError is left for what neither
+# form can launch (a k_b whose k_b × k_b block alone overflows a block).
 # ---------------------------------------------------------------------------
 SMEM_BLOCK_MAX = 232_448          # dynamic shared memory a block can opt into
 CD_SWEEP_SMEM_TARGET = 96 * 1024  # two blocks per SM's 228 KB
 CD_SWEEP_MAX_ROWS = 8             # warps (rows) per block
+CD_BLOCK_ROW_THREADS = 1024       # threads of one block-row block
+WARP_ROW, BLOCK_ROW = "warp_row", "block_row"
 
 
 def cd_sweep_smem_bytes(d_pad: int, k_b: int, rows: int, *,
-                        gather: bool) -> int:
-    """Dynamic shared memory of one block-sweep block of ``rows`` rows."""
-    per_row = 4 * (2 * k_b + (4 if gather else 3) * d_pad)
-    return 4 * k_b * k_b + rows * per_row
+                        gather: bool, rowpatch: bool = False) -> int:
+    """Dynamic shared memory of one warp-row block of ``rows`` rows: the
+    shared J block, or, in the row-patch form, k_b² floats a row for the
+    row's own patch P."""
+    patch = k_b * k_b
+    per_row = 4 * (2 * k_b + (patch if rowpatch else 0)
+                   + (4 if gather else 3) * d_pad)
+    return (0 if rowpatch else 4 * patch) + rows * per_row
 
 
-def _cd_sweep_rows(d_pad: int, k_b: int, n_rows, gather: bool) -> int:
-    one = cd_sweep_smem_bytes(d_pad, k_b, 1, gather=gather)
+def cd_sweep_block_row_smem_bytes(k_b: int) -> int:
+    """Dynamic shared memory of one block-row block: the row's coupling
+    block (J or P), R' and W, and two partial sums per warp."""
+    return 4 * (k_b * k_b + 2 * k_b + 2 * (CD_BLOCK_ROW_THREADS // 32))
+
+
+def cd_sweep_form(d_pad: int, k_b: int, *, gather: bool,
+                  rowpatch: bool = False) -> str:
+    """The launch form of one sweep: :data:`WARP_ROW` when one row fits a
+    block's shared memory, else :data:`BLOCK_ROW`. Raises
+    :class:`VmemBudgetError` when neither form can launch."""
+    if cd_sweep_smem_bytes(d_pad, k_b, 1, gather=gather,
+                           rowpatch=rowpatch) <= SMEM_BLOCK_MAX:
+        return WARP_ROW
+    need = cd_sweep_block_row_smem_bytes(k_b)
+    if need > SMEM_BLOCK_MAX:
+        raise VmemBudgetError(
+            f"k_b={k_b} does not fit the block sweep in either form: the "
+            f"block-row form needs {need} B > {SMEM_BLOCK_MAX} B; lower k_b")
+    return BLOCK_ROW
+
+
+def _cd_sweep_rows(d_pad: int, k_b: int, n_rows, gather: bool,
+                   rowpatch: bool = False) -> int:
+    one = cd_sweep_smem_bytes(d_pad, k_b, 1, gather=gather, rowpatch=rowpatch)
     if one > SMEM_BLOCK_MAX:
         raise VmemBudgetError(
             f"one block-sweep row does not fit a block's shared memory: "
             f"D_pad={d_pad}, k_b={k_b} need {one} B > {SMEM_BLOCK_MAX} B; "
             "degree-bucket the rows or lower k_b")
-    per_row = one - 4 * k_b * k_b
-    rows = (CD_SWEEP_SMEM_TARGET - 4 * k_b * k_b) // per_row
+    fixed = cd_sweep_smem_bytes(d_pad, k_b, 0, gather=gather,
+                                rowpatch=rowpatch)
+    per_row = one - fixed
+    rows = (CD_SWEEP_SMEM_TARGET - fixed) // per_row
     rows = max(1, min(CD_SWEEP_MAX_ROWS, rows))
     if n_rows is not None:
         rows = max(1, min(rows, n_rows))
     return rows
 
 
-def cd_sweep_block_ctx(d_pad: int, k_b: int, *,
-                       n_rows: int | None = None) -> int:
-    """Rows per block of the PRE-GATHERED block sweep (the Ψ tile is read
-    from device memory, so a row holds e, α and the ψ_j scratch).
+def cd_sweep_block_ctx(d_pad: int, k_b: int, *, n_rows: int | None = None,
+                       rowpatch: bool = False) -> int:
+    """Rows per block of the PRE-GATHERED warp-row sweep (the Ψ tile is
+    read from device memory, so a row holds e, α and the ψ_j scratch).
     Raises :class:`VmemBudgetError` when one row does not fit."""
-    return _cd_sweep_rows(d_pad, k_b, n_rows, gather=False)
+    return _cd_sweep_rows(d_pad, k_b, n_rows, gather=False, rowpatch=rowpatch)
 
 
 def cd_sweep_gather_block_ctx(d_pad: int, m: int, *,
-                              n_rows: int | None = None) -> int:
-    """Rows per block of the IN-KERNEL-GATHER block sweep: a row also
+                              n_rows: int | None = None,
+                              rowpatch: bool = False) -> int:
+    """Rows per block of the IN-KERNEL-GATHER warp-row sweep: a row also
     holds its clipped ids. The ψ slab costs no shared memory: it is read
     through L2. Raises :class:`VmemBudgetError` when one row does not
     fit."""
-    return _cd_sweep_rows(d_pad, m, n_rows, gather=True)
+    return _cd_sweep_rows(d_pad, m, n_rows, gather=True, rowpatch=rowpatch)
 
 
 def resolve_cd_sweep_dispatch(d_pad: int, m: int, *,
                               prefer_gather: bool = True) -> bool:
-    """``use_gather`` for one fused sweep. On CUDA the gather is native,
-    so the caller's preference decides. The chosen form is sized once
-    here, before the sweep starts, so a row that cannot stay resident
-    raises :class:`VmemBudgetError` rather than shrinking (each launch
-    sizes its own rows the same way)."""
+    """``use_gather`` for one fused MF sweep. On CUDA the gather is
+    native, so the caller's preference decides. The chosen form is sized
+    once here, before the sweep starts, so a row that cannot stay resident
+    raises :class:`VmemBudgetError` rather than shrinking, as in the
+    reference (each launch sizes its own rows the same way). The tensor
+    models' context modes size theirs with :func:`cd_sweep_form`, which
+    takes the block-row form for such rows."""
     _cd_sweep_rows(d_pad, m, None, gather=prefer_gather)
     return prefer_gather

@@ -44,24 +44,47 @@ def topk_score_cost(b: int, n_rows: int, d: int, k: int, *,
 
 
 def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
-                  gather: bool = True) -> Dict[str, float]:
+                  gather: bool = True,
+                  rowpatch: bool = False) -> Dict[str, float]:
     """Cost of ONE side's fused k-column block sweep over the padded
     (C, D_pad) layout, ⌈k/k_b⌉ launches of ``csrc/cd_sweep.cu``.
 
-    Bytes, per launch: ids (gather form), α and e read and e written once
-    (16 B a slot; 12 B pre-gathered), W and R' read and W written (12 B a
-    row and column), the ψ slab's ``n_src`` rows read once — or, in the
-    pre-gathered form, the (C, k_b, D_pad) Ψ tile read. FLOPs: 8 a slot
-    and column (L'/2 and L''/2, three each; the e patch, two)."""
+    ``hbm_bytes`` is what the function must move, per launch: ids (gather
+    form), α and e read and e written once (16 B a slot; 12 B
+    pre-gathered), W and R' read and W written (12 B a row and column),
+    the ψ slab's ``n_src`` rows read once — or, in the pre-gathered form,
+    the (C, k_b, D_pad) Ψ tile read — and, in the row-patch form, the
+    per-row patch P (C·k_b² floats) read in place of the Gram block.
+    FLOPs: 8 a slot and column (L'/2 and L''/2, three each; the e patch,
+    two).
+
+    ``form`` is the launch form (``vmem.cd_sweep_form``) and ``form_bytes``
+    what that form itself moves: the warp-row form moves ``hbm_bytes``;
+    the block-row form keeps e, α and ids in device memory and makes two
+    passes over the row on each of its k_b steps, one reading α, e, ids and
+    ψ_j, one reading ids, ψ_j and e and writing e (32 B a slot and step;
+    24 B pre-gathered), in place of the one pass over the slots and the
+    one read of the ψ slab."""
     n_blocks = -(-k // k_b)
     slot = (16.0 if gather else 12.0) * c * d_pad
-    hbm = n_blocks * slot + 12.0 * c * k
-    hbm += 4.0 * n_src * k if gather else 4.0 * c * d_pad * k
-    rows = (vmem.cd_sweep_gather_block_ctx(d_pad, k_b, n_rows=c)
-            if gather else vmem.cd_sweep_block_ctx(d_pad, k_b, n_rows=c))
+    psi = 4.0 * n_src * k if gather else 4.0 * c * d_pad * k
+    rest = 12.0 * c * k
+    if rowpatch:
+        rest += 4.0 * c * sum(min(k_b, k - f0) ** 2 for f0 in range(0, k, k_b))
+    hbm = n_blocks * slot + psi + rest
+    form = vmem.cd_sweep_form(d_pad, k_b, gather=gather, rowpatch=rowpatch)
+    if form == vmem.WARP_ROW:
+        rows = (vmem.cd_sweep_gather_block_ctx if gather else
+                vmem.cd_sweep_block_ctx)(d_pad, k_b, n_rows=c,
+                                         rowpatch=rowpatch)
+        smem = vmem.cd_sweep_smem_bytes(d_pad, k_b, rows, gather=gather,
+                                        rowpatch=rowpatch)
+        own = hbm
+    else:
+        smem = vmem.cd_sweep_block_row_smem_bytes(k_b)
+        own = (32.0 if gather else 24.0) * c * d_pad * k + rest
     return {"hbm_bytes": hbm, "flops": 8.0 * c * d_pad * k,
-            "smem_bytes": float(vmem.cd_sweep_smem_bytes(
-                d_pad, k_b, rows, gather=gather))}
+            "smem_bytes": float(smem), "form": form, "form_bytes": own}
 
 
 class KernelCostRecorder:

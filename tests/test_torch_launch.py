@@ -295,18 +295,14 @@ def test_column_update_is_one_kb1_sweep_launch(cuda):
 
 @pytest.mark.gpu
 def test_slice_3_and_4_sweep_forms_raise_on_cuda(cuda):
+    """The slice-4 forms (slab-reduce, residual-patch) refuse the card;
+    the slice-3 row-patch forms launch (tests below)."""
     from repro_torch.kernels.cd_sweep import ops as cs
 
     t = torch.zeros((4, 2, 8), device=cuda)
     ids = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
     row, tab = t[:, 0], torch.zeros((3, 2), device=cuda)
     calls = {
-        "slice 3": [lambda: cs.cd_block_sweep_rowpatch(
-                        t, row, row.clone(), t[:, :, 0], t[:, :, 0],
-                        torch.zeros((4, 2, 2), device=cuda), alpha0=1.0, l2=0.1),
-                    lambda: cs.cd_block_sweep_rowpatch_gather(
-                        tab, ids, row, row.clone(), t[:, :, 0], t[:, :, 0],
-                        torch.zeros((4, 2, 2), device=cuda), alpha0=1.0, l2=0.1)],
         "slice 4": [lambda: cs.cd_slab_reduce(t, row, row),
                     lambda: cs.cd_slab_reduce_gather(tab, ids, row, row),
                     lambda: cs.cd_resid_patch(t, row.clone(), t[:, :, 0]),
@@ -317,6 +313,227 @@ def test_slice_3_and_4_sweep_forms_raise_on_cuda(cuda):
         for fn in fns:
             with pytest.raises(NotImplementedError, match=where):
                 fn()
+
+
+def test_sweep_launch_form_follows_the_row_length():
+    """Warp-row while one row fits a block's shared memory (the user side
+    of the tensor models at D_pad 128, MF's item side at 1,024), block-row
+    beyond (CtxMF's hour-of-day buckets at 142,464); only a k_b whose
+    block alone overflows a block fits neither. The cost model carries
+    the form and its own traffic."""
+    from repro_torch.kernels import vmem
+    from repro_torch.obs.costs import cd_sweep_cost
+
+    for d, want in ((128, vmem.WARP_ROW), (1_024, vmem.WARP_ROW),
+                    (142_464, vmem.BLOCK_ROW)):
+        for gather in (True, False):
+            for rowpatch in (True, False):
+                assert vmem.cd_sweep_form(d, 8, gather=gather,
+                                          rowpatch=rowpatch) == want
+    # the row patch costs k_b² floats a row in place of the shared block
+    assert vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True, rowpatch=True) \
+        == vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True) - 4 * 64 + 4 * 4 * 64
+    assert vmem.cd_sweep_gather_block_ctx(128, 8, n_rows=200_000,
+                                          rowpatch=True) >= 1
+    # MF's sweeps keep refusing rows that cannot stay resident
+    with pytest.raises(vmem.VmemBudgetError):
+        vmem.resolve_cd_sweep_dispatch(142_464, 8)
+    with pytest.raises(vmem.VmemBudgetError):
+        vmem.cd_sweep_form(142_464, 240, gather=True)
+    with pytest.raises(vmem.VmemBudgetError):
+        vmem.cd_sweep_gather_block_ctx(142_464, 8, rowpatch=True)
+    nnz = 3_399_385
+    user = cd_sweep_cost(200_000, 128, 8, 8, n_src=nnz + 1, rowpatch=True)
+    assert user["form"] == vmem.WARP_ROW
+    assert user["hbm_bytes"] == user["form_bytes"] == (
+        200_000 * 128 * 16 + 200_000 * 8 * 12 + 200_000 * 64 * 4
+        + (nnz + 1) * 8 * 4)
+    bucket = cd_sweep_cost(24, 142_464, 8, 8, n_src=nnz + 1, rowpatch=True)
+    assert bucket["form"] == vmem.BLOCK_ROW
+    assert bucket["hbm_bytes"] == (24 * 142_464 * 16 + 24 * 8 * 12
+                                   + 24 * 64 * 4 + (nnz + 1) * 8 * 4)
+    assert bucket["form_bytes"] == 32 * 24 * 142_464 * 8 + 24 * 8 * 12 + 24 * 64 * 4
+    assert bucket["smem_bytes"] == vmem.cd_sweep_block_row_smem_bytes(8)
+
+
+def _rowpatch_operands(dev, c, d, kb, n_src, seed, pad_frac=0.3):
+    """Row-patch operands: a flat slab whose last row is the zero
+    sentinel (padding points at it, α = 0), and per-row patches P = K Kᵀ +
+    I, as J ⊙ K is positive semi-definite."""
+    rng = np.random.default_rng(seed)
+    alpha = (rng.random((c, d)) * 4 + 0.5).astype(np.float32)
+    ids = rng.integers(0, n_src - 1, (c, d)).astype(np.int32)
+    pad = rng.random((c, d)) < pad_frac
+    alpha[pad], ids[pad] = 0, n_src - 1
+    tab = (0.3 * rng.normal(size=(n_src, kb))).astype(np.float32)
+    tab[-1] = 0
+    k = (0.3 * rng.normal(size=(c, kb, kb))).astype(np.float32)
+    p = k @ k.transpose(0, 2, 1) + np.eye(kb, dtype=np.float32)
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    return dict(tab=t(tab), ids=t(ids), alpha=t(alpha), p=t(p),
+                e=t(rng.normal(size=(c, d)).astype(np.float32)),
+                w=t((0.3 * rng.normal(size=(c, kb))).astype(np.float32)),
+                r1=t(rng.normal(size=(c, kb)).astype(np.float32)))
+
+
+def _hold_sweep(fn, plain, x, first, cpl, long_rows=False, **kw):
+    """One launch against the plain version on the same inputs: the
+    reference's kernel-vs-oracle rtol 2e-5 / atol 2e-6; for rows of many
+    thousands of slots, whose sums the two take in other orders, an
+    absolute tolerance per row of 1e-5 of the row's Σ|α·e·ψ_j|/den_j summed
+    over j (in W; times max|ψ| in e)."""
+    from repro_torch.kernels.cd_sweep import ref as cr
+
+    before = (fn.launches, fn.launches_block_row)
+    e = x["e"].clone()
+    w, e2 = fn(*first, x["alpha"], e, x["w"], x["r1"], cpl, **kw)
+    rw, re = plain(*first, x["alpha"], x["e"], x["w"], x["r1"], cpl, **kw)
+    torch.cuda.synchronize()
+    assert e2 is e and fn.launches == before[0] + 1
+    assert fn.launches_block_row == before[1] + int(long_rows)
+    assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
+    atol_w = torch.full((w.shape[0], 1), 2e-6, device=w.device)
+    atol_e = atol_w
+    if long_rows:
+        psi = (cr.gather_psi_blk(*first) if len(first) == 2 else first[0])
+        a = x["alpha"][:, None, :]
+        diag = torch.diagonal(cpl if cpl.dim() == 3 else cpl.expand(
+            w.shape[0], *cpl.shape), dim1=1, dim2=2)
+        den = (a * psi * psi).sum(-1) + kw["alpha0"] * diag + kw["l2"]
+        scale = ((a * x["e"][:, None, :].abs() * psi.abs()).sum(-1)
+                 / den.clamp(min=1e-12)).sum(1, keepdim=True)
+        atol_w = 2e-6 + 1e-5 * scale
+        atol_e = atol_w * psi.abs().amax(1)
+    assert bool(((w - rw).abs() <= 2e-5 * rw.abs() + atol_w).all())
+    assert bool(((e - re).abs() <= 2e-5 * re.abs() + atol_e).all())
+    return w, rw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,kb,eta", [(1001, 40, 8, 1.0), (300, 128, 4, 0.8),
+                                        (13, 200, 1, 0.5), (9, 33, 3, 1.3)])
+def test_rowpatch_kernels_match_plain_on_cuda(cuda, c, d, kb, eta):
+    """Both row-patch routings in the warp-row form, C off the row tile."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    x = _rowpatch_operands(cuda, c, d, kb, 60, c + d)
+    kw = dict(alpha0=0.7, l2=0.05, eta=eta)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    _hold_sweep(cs.cd_block_sweep_rowpatch_gather,
+                cr.cd_block_sweep_rowpatch_gather_ref, x,
+                (x["tab"], x["ids"]), x["p"], **kw)
+    _hold_sweep(cs.cd_block_sweep_rowpatch, cr.cd_block_sweep_rowpatch_ref,
+                x, (psi,), x["p"], **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rowpatch", [True, False])
+@pytest.mark.parametrize("gather", [True, False])
+def test_block_row_form_matches_plain_on_cuda(cuda, rowpatch, gather):
+    """Rows of 20,000 slots do not fit a block's shared memory: the sweep
+    runs one block a row, with the per-row patch and with one shared J."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    x = _rowpatch_operands(cuda, 5, 20_000, 8, 3_000, 9)
+    cpl = x["p"] if rowpatch else x["p"][0]
+    name = ("cd_block_sweep_rowpatch" if rowpatch else "cd_block_sweep") + (
+        "_gather" if gather else "")
+    first = ((x["tab"], x["ids"]) if gather else
+             (cr.gather_psi_blk(x["tab"], x["ids"]).contiguous(),))
+    _hold_sweep(getattr(cs, name), getattr(cr, name + "_ref"), x, first, cpl,
+                long_rows=True, alpha0=0.7, l2=0.05, eta=0.9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 20_000])
+def test_rowpatch_kernel_clamps_empty_rows_and_clips_ids(cuda, d):
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    x = _rowpatch_operands(cuda, 12, d, 8, 40, 3)
+    x["alpha"][:4] = 0
+    x["p"][:4] = 0
+    x["ids"][4:, :4] = torch.tensor([-7, 40, 1000, 39], dtype=torch.int32,
+                                    device=cuda)
+    w, _ = _hold_sweep(cs.cd_block_sweep_rowpatch_gather,
+                       cr.cd_block_sweep_rowpatch_gather_ref, x,
+                       (x["tab"], x["ids"]), x["p"], long_rows=d > 128,
+                       alpha0=0.0, l2=0.0)
+    assert torch.equal(w[:4], x["w"][:4])
+
+
+def _tensor_problem(dev, seed=7, n_c1=40, n_c2=6, n_items=30, nnz=600):
+    from repro_torch.core.models import parafac
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(seed)
+    pairs = rng.choice(n_c1 * n_c2, size=150, replace=False)
+    cells = rng.choice(150 * n_items, size=nnz, replace=False)
+    y = rng.integers(1, 4, nnz).astype(np.float64)
+    alpha = 1.3 + rng.random(nnz)
+    tc = parafac.TensorContext(
+        c1=torch.as_tensor(pairs // n_c2, device=dev),
+        c2=torch.as_tensor(pairs % n_c2, device=dev), n_c1=n_c1, n_c2=n_c2)
+    data = build_interactions(cells // n_items, cells % n_items, y, alpha, 150,
+                              n_items, alpha0=0.3, device=dev)
+    return tc, data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hpkw", [dict(block_k=0), dict(block_k=8, psi_dispatch="pregather"),
+                                  dict(block_k=1, dense_context=True)])
+def test_parafac_epoch_padded_on_cuda_matches_cpu(cuda, hpkw):
+    """k = 12 (block_k 8 leaves a 4-column tail): two fused epochs on the
+    card against the same epochs through the plain versions on the CPU,
+    to the reference's fused-vs-flat tolerance (rtol 5e-4, atol 1e-5; e
+    atol 5e-5)."""
+    from repro_torch.core.models import parafac
+    from repro_torch.kernels.cd_sweep import ops as cs
+
+    rng = np.random.default_rng(8)
+    f = [(0.3 * rng.normal(size=(n, 12))).astype(np.float32) for n in (40, 6, 30)]
+    hp = parafac.PARAFACHyperParams(k=12, alpha0=0.3, l2=0.05, **hpkw)
+    counters = (cs.cd_block_sweep_rowpatch, cs.cd_block_sweep_rowpatch_gather)
+    out = {}
+    for where in ("cpu", cuda):
+        tc, data = _tensor_problem(where)
+        pad = parafac.pad_tensor_groups(tc, data)
+        p = parafac.params_from_numpy(*f, device=where)
+        e = parafac.residuals(p, tc, data)
+        before = sum(c.launches for c in counters)
+        for _ in range(2):
+            p, e = parafac.epoch_padded(p, tc, data, pad, e, hp)
+        assert (sum(c.launches for c in counters) > before) == (where != "cpu")
+        out[str(where)] = [t.cpu() for t in (*p, e)]
+    for i, (a, b) in enumerate(zip(out[str(cuda)], out["cpu"])):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5 if i == 3 else 1e-5)
+
+
+@pytest.mark.gpu
+def test_tucker_epoch_padded_on_cuda_matches_cpu(cuda):
+    """Mode ranks (3, 2, 4) at block_k 2: two fused epochs on the card
+    against the CPU, to the reference's Tucker tolerance (rtol 1e-3, atol
+    1e-4)."""
+    from repro_torch.core.models import tucker
+
+    rng = np.random.default_rng(9)
+    f = [(0.3 * rng.normal(size=s)).astype(np.float32)
+         for s in ((40, 3), (6, 2), (30, 4), (3, 2, 4))]
+    hp = tucker.TuckerHyperParams(k1=3, k2=2, k3=4, alpha0=0.3, l2=0.05,
+                                  l2_core=0.02, block_k=2)
+    out = {}
+    for where in ("cpu", cuda):
+        tc, data = _tensor_problem(where)
+        pad = tucker.pad_tensor_groups(tc, data)
+        p = tucker.params_from_numpy(*f, device=where)
+        e = tucker.residuals(p, tc, data)
+        for _ in range(2):
+            p, e = tucker.epoch_padded(p, tc, data, pad, e, hp)
+        out[str(where)] = [t.cpu() for t in (*p, e)]
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.gpu
