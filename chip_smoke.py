@@ -57,7 +57,26 @@ Phases, one line each or more:
      (objective falling), and small PARAFAC and Tucker epochs on the card
      against the same epochs on the CPU;
  12. time the row-patch kernels at both full-width shapes beside their
-     plain versions and their bounds.
+     plain versions and their bounds;
+ 13. hold the slab-reduce and residual-patch kernels (kernels 6–9, both ψ
+     routings) against their plain versions: at both sides' full-width
+     shapes (context C = 200,000, D_pad = 128, n_src = 68,000; item C =
+     68,000, D_pad = 1,024, n_src = 200,000; m = 8, the ψ slab a column
+     slice of a k = 128 table), at m = 9 and 17 with strided slabs, on rows
+     of 20,480 slots and with ids past the slab;
+ 14. train MFSI at icd-fm width (200,000 contexts over 7 fields, p_ctx =
+     336,091, 68,000 items, k = 128) on phase 6's log with a seeded
+     context design: 3 ``epoch_padded`` epochs (objective falling, 96
+     launches each of the gather slab reduce and residual patch), one
+     pregather and one flat epoch from one start held against the default
+     one, one profiled epoch, and 16 users' queries through the top-K
+     kernel against a plain recompute;
+ 15. time kernels 6–9 at both sides' full-width shapes beside their plain
+     versions, their bounds and, for the pre-gathered forms, one
+     ``torch.bmm``/``baddbmm`` over the same tile.
+
+Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
+2,048, K past n_valid) in small integers, exactly.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -142,7 +161,10 @@ def check_exact(ops, ref, rng, dev) -> None:
         (19, 1_001, 16, 37, 5_000, 990, 6, False),           # ragged rows, 2 row blocks
         (5, 60, 8, 100, 0, 50, 0, False),                    # K > n_valid
         (4, 40, 8, 20, 80, 40, 40, True),                    # a fully excluded row
-        (3, 700, 4, 256, 0, 700, 0, False),                  # the largest K
+        (3, 700, 4, 256, 0, 700, 0, False),                  # the largest small K
+        (16, 34_000, 128, 257, 34_000, 33_000, 0, False),    # large K: the wide merge
+        (16, 34_000, 128, 1_000, 34_000, 33_000, 40, False),
+        (5, 1_500, 8, 2_048, 0, 1_490, 0, False),            # large K > n_valid
         (7, 2_000, 5, 1, 10, 1_990, 3, False),               # K=1, D % 4 != 0
     ]
     for b, rows, d, k, off, n_valid, excl_l, full in cases:
@@ -383,15 +405,6 @@ def hold_training_kernels(dev) -> dict:
     for hpkw in (dict(block_k=8), dict(block_k=8, psi_dispatch="pregather"),
                  dict(block_k=1), dict(block_k=0, eta=0.8)):
         small_epoch_on_card_vs_cpu(dev, hpkw)
-    # the slice-3/4 entry points refuse the card
-    t = torch.zeros((4, 2, 8), device=dev)
-    for fn, args in ((cs.cd_slab_reduce, (t, t[:, 0], t[:, 0])),
-                     (cs.cd_resid_patch, (t, t[:, 0], t[:, :, 0]))):
-        try:
-            fn(*args)
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"{fn.__name__} ran on the card")
     return err
 
 
@@ -1096,6 +1109,355 @@ def time_rowpatch_kernels(dev, padded, n_src) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 4a: the fielded design, MFSI, the slab-reduce and residual-patch
+# kernels.
+# ---------------------------------------------------------------------------
+# icd-fm's full width (src/repro/configs/icd_fm.py, the paper's §6 A+P+H
+# features): context fields with their vocabularies, p_ctx = 336,091; the
+# item design is the video id. Depth is not cut: k = 128. The history bag
+# is the repo's own feature (benchmarks/experiments.py: HIST_LEN = 10, the
+# last items merged, each occurrence weighing 1/len).
+ICD_FM = dict(fields=(("user", 200_000), ("age", 8), ("country", 64), ("gender", 3),
+                  ("device", 16), ("prev_video", 68_000), ("history", 68_000)),
+          hist_len=10, p_ctx=336_091, seed=16)
+# rows longer than this sum in another order than the plain version over
+# enough slots that the row-scaled bound applies (phase 9's LONG_ROW_REL)
+SLAB_LONG_D = 1_024
+
+
+def history_bags(ctx, item, n_ctx, length):
+    """Each user's watch history as ``benchmarks/experiments.py`` builds it
+    (``_merge_bag``): the user's last ``length`` logged items, each
+    weighing 1/len; padding id 0 with weight 0. Returns ((n_ctx, length)
+    ids, weights). ``make_full_log``'s pairs are unique, so there are no
+    repeats to merge (``make_design`` raises on a repeated id in a bag)."""
+    ends = np.searchsorted(ctx, np.arange(n_ctx), side="right")
+    n = np.minimum(ends - np.searchsorted(ctx, np.arange(n_ctx)), length)
+    held = np.arange(length)[None, :] < n[:, None]
+    idx = np.where(held, ends[:, None] - n[:, None] + np.arange(length), 0)
+    ids = np.where(held, item[idx], 0)
+    return ids, np.where(held, 1.0 / np.maximum(n, 1)[:, None], 0.0)
+
+
+def make_fm_design(dev, ctx, item):
+    """The context and item designs on phase 6's log: user id; one-hot age,
+    country, gender and device, seeded; previous video = the user's last
+    logged item; history = ``history_bags`` of the user's last 10 items.
+    Every user has logged at least one item, so no id is reserved for an
+    empty history and the vocabularies stay icd-fm's."""
+    from repro_torch.core import design
+
+    n_ctx, n_items = FULL["n_ctx"], FULL["n_items"]
+    rng = np.random.default_rng(ICD_FM["seed"])
+    ends = np.searchsorted(ctx, np.arange(n_ctx), side="right")
+    hist, hist_w = history_bags(ctx, item, n_ctx, ICD_FM["hist_len"])
+    ids = {"user": np.arange(n_ctx), "prev_video": item[ends - 1]}
+    spec = []
+    for name, vocab in ICD_FM["fields"]:
+        if name == "history":
+            spec.append(dict(name=name, ids=hist, weights=hist_w, vocab=vocab))
+        else:
+            spec.append(dict(name=name, vocab=vocab, ids=ids.get(
+                name, rng.integers(0, vocab, n_ctx))))
+    x = design.make_design(spec, n_ctx, device=dev)
+    z = design.make_design([dict(name="video", ids=np.arange(n_items),
+                                 vocab=n_items)], n_items, device=dev)
+    return x, z
+
+
+def slab_inputs(gen, dev, c, d, m, n_src, *, pad_frac, k=None, ids=None,
+                alpha=None):
+    """Random slab-reduce / residual-patch operands at (C, D_pad): the ψ
+    slab a column slice of an (n_src, k) table (row stride k, as the epochs
+    pass ``other_psi[:, blk]``), a ``pad_frac`` share of padding slots (id
+    0, α = 0), or a real layout's ``ids``/``alpha``."""
+    if alpha is None:
+        alpha = torch.rand((c, d), generator=gen, device=dev) * 4 + 0.5
+        pad = torch.rand((c, d), generator=gen, device=dev) < pad_frac
+        alpha[pad] = 0
+        ids = torch.randint(0, n_src, (c, d), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[pad] = 0
+    k = k or m
+    return dict(alpha=alpha, ids=ids,
+                tab=(0.1 * torch.randn((n_src, k), generator=gen, device=dev))[:, :m],
+                e=torch.randn((c, d), generator=gen, device=dev),
+                dphi=0.1 * torch.randn((c, m), generator=gen, device=dev))
+
+
+def hold_slab(cs, cr, x) -> dict:
+    """All four slab kernels once against their plain versions on the same
+    inputs; returns the largest |error| of each. Q and P to SWEEP_RTOL /
+    SWEEP_ATOL, plus, for rows of SLAB_LONG_D slots and more,
+    LONG_ROW_REL of the row's Σ|terms|; P symmetric bit for bit; e patched
+    in place to SWEEP_RTOL / SWEEP_ATOL (m terms a slot, no long sum)."""
+    tab, ids, alpha, e, dphi = (x[n] for n in ("tab", "ids", "alpha", "e", "dphi"))
+    psi = cr.gather_psi_blk(tab, ids).contiguous()
+    c, d = alpha.shape
+    rq, rp = cr.cd_slab_reduce_ref(psi, alpha, e)
+    # per-row Σ|terms| of Q and of P, in place of the (C, m, m, D) products
+    aps = alpha[:, None, :] * psi.abs()
+    q_abs = (aps * e.abs()[:, None, :]).sum(-1)
+    p_abs = torch.einsum("cid,cjd->cij", aps, psi.abs())
+    rel = LONG_ROW_REL if d >= SLAB_LONG_D else 0.0
+    err = {}
+    for name, first in (("cd_slab_reduce_gather", (tab, ids)),
+                        ("cd_slab_reduce", (psi,))):
+        fn = getattr(cs, name)
+        before = fn.launches
+        q, p = fn(*first, alpha, e)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        assert torch.equal(p, p.transpose(1, 2)), f"{name}: P not symmetric"
+        assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(p).all())
+        bad_q = (q - rq).abs() > SWEEP_RTOL * rq.abs() + SWEEP_ATOL + rel * q_abs
+        bad_p = (p - rp).abs() > SWEEP_RTOL * rp.abs() + SWEEP_ATOL + rel * p_abs
+        err[name] = max(float((q - rq).abs().max()), float((p - rp).abs().max()))
+        assert not bool(bad_q.any()) and not bool(bad_p.any()), (name, c, d, err[name])
+    re = cr.cd_resid_patch_ref(psi, e, dphi)
+    for name, first in (("cd_resid_patch_gather", (tab, ids)),
+                        ("cd_resid_patch", (psi,))):
+        fn = getattr(cs, name)
+        before = fn.launches
+        e2 = e.clone()
+        assert fn(*first, e2, dphi) is e2, "the residual grid must be patched in place"
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        torch.testing.assert_close(e2, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+        err[name] = float((e2 - re).abs().max())
+    return err
+
+
+def hold_slab_kernels(dev) -> dict:
+    """Phase 13: kernels 6–9 against their plain versions at both sides'
+    full-width shapes (m = 8), and at m = 9 and 17, a long row, ids past
+    the slab."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_ctx, n_items = FULL["n_ctx"], FULL["n_items"]
+    worst = {}
+
+    def hold(x, what):
+        got = hold_slab(cs, cr, x)
+        for n, v in got.items():
+            worst[n] = max(worst.get(n, 0.0), v)
+        log(f"phase 13 hold {what}: max |err| " + ", ".join(
+            f"{n} {v:.3g}" for n, v in got.items()))
+
+    # the full-width shapes, at the log's fill (13% of the context grid,
+    # 5% of the item grid), the ψ slab a column slice of a k = 128 table
+    hold(slab_inputs(gen, dev, n_ctx, 128, 8, n_items, pad_frac=0.87, k=128),
+         f"context side C {n_ctx} D_pad 128 n_src {n_items} m 8")
+    hold(slab_inputs(gen, dev, n_items, 1_024, 8, n_ctx, pad_frac=0.95, k=128),
+         f"item side C {n_items} D_pad 1024 n_src {n_ctx} m 8")
+    # FM's m = k_b + 1 and a P of three column tiles, with ψ slabs strided
+    for m in (9, 17):
+        hold(slab_inputs(gen, dev, 5_000, 128, m, 3_000, pad_frac=0.5, k=m + 7),
+             f"m {m}, strided slab")
+    # a long row (no shared memory per slot: any D_pad runs)
+    hold(slab_inputs(gen, dev, 6, 20_480, 8, 3_000, pad_frac=0.1, k=16),
+         "long rows D_pad 20480")
+    # ids past both ends of the slab, clipped as jnp.take(mode="clip")
+    x = slab_inputs(gen, dev, 64, 128, 8, 30, pad_frac=0.3)
+    x["ids"][:, :5] = torch.tensor([-7, 29, 30, 1000, -1], dtype=torch.int32,
+                                   device=dev)
+    hold(x, "ids past the slab")
+    return worst
+
+
+def train_mfsi_full_width(dev) -> dict:
+    """Phase 14: MFSI at icd-fm width on the card."""
+    import dataclasses
+
+    from repro_torch.core.models import mfsi
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.topk_score import ops as tops, ref as tref
+    from repro_torch.sparse.interactions import build_interactions
+
+    t0 = time.perf_counter()
+    ctx, item = make_full_log()
+    x, z = make_fm_design(dev, ctx, item)
+    a0 = FULL["alpha0"]
+    data = build_interactions(ctx, item, np.ones(len(ctx)),
+                              np.full(len(ctx), a0 + 4.0), FULL["n_ctx"],
+                              FULL["n_items"], alpha0=a0, device=dev)
+    pdata = mfsi.pad_interactions(data)
+    torch.cuda.synchronize()
+    bags = x.fields[-1].weights.gt(0).sum(1).float()
+    log(f"phase 14 data: nnz {data.nnz}, p_ctx {x.p} over {len(x.fields)} "
+        f"fields, p_item {z.p}; history bags of {bags.mean():.2f} items "
+        f"(most {int(bags.max())}); D_pad ctx {pdata.alpha_c.shape[1]} item "
+        f"{pdata.alpha_i.shape[1]}; built in {time.perf_counter() - t0:.1f}s")
+    assert x.p == ICD_FM["p_ctx"] and z.p == FULL["n_items"], (x.p, z.p)
+
+    k = FULL["k"]
+    hp = mfsi.MFSIHyperParams(k=k, alpha0=a0, l2=FULL["l2"],
+                              implementation="pallas")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    params0 = mfsi.init(x.p, z.p, k, generator=gen)
+    counters = (gops.gram, cs.cd_slab_reduce, cs.cd_slab_reduce_gather,
+                cs.cd_resid_patch, cs.cd_resid_patch_gather)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    objs = [float(mfsi.objective(params0, x, z, data, hp))]
+    p, e = params0, mfsi.residuals_padded(params0, x, z, data, pdata)
+    epoch_s, first = [], None
+    torch.cuda.synchronize()
+    reset()
+    for _ in range(3):
+        t = time.perf_counter()
+        p, e = mfsi.epoch_padded(p, x, z, pdata, e, hp)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t)
+        first = first or (p, e.clone())
+        objs.append(float(mfsi.objective(p, x, z, data, hp)))
+    launches = counts()
+    nb = -(-k // 8)  # k_b = 8: 16 blocks a side
+    log(f"phase 14 train: mfsi.epoch_padded x3 (k {k}, block_k 0 -> k_b 8, "
+        f"gather, jacobi, Gram kernel): objective "
+        f"{' -> '.join(f'{o:.6g}' for o in objs)}; epoch s "
+        f"{', '.join(f'{s:.3f}' for s in epoch_s)} (objective excluded); "
+        f"launches {launches}")
+    assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
+    assert launches == {"gram": 6, "cd_slab_reduce": 0,
+                        "cd_slab_reduce_gather": 3 * 2 * nb,
+                        "cd_resid_patch": 0,
+                        "cd_resid_patch_gather": 3 * 2 * nb}, launches
+
+    # one epoch from one start through the pregather route and the flat path
+    pg, eg = first
+    reset()
+    t = time.perf_counter()
+    pp, ep_ = mfsi.epoch_padded(params0, x, z, pdata,
+                                mfsi.residuals_padded(params0, x, z, data, pdata),
+                                dataclasses.replace(hp, psi_dispatch="pregather"))
+    torch.cuda.synchronize()
+    pre_s, pre_launches = time.perf_counter() - t, counts()
+    assert pre_launches["cd_slab_reduce"] == 2 * nb and \
+        pre_launches["cd_resid_patch"] == 2 * nb and \
+        pre_launches["cd_slab_reduce_gather"] == 0, pre_launches
+    d_pre = _hold_params(pp, pg, ep_, eg)
+    del pp, ep_
+    t = time.perf_counter()
+    pf, ef = mfsi.epoch(params0, x, z, data,
+                        mfsi.residuals(params0, x, z, data), hp)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t
+    d_flat = _hold_params(pf, pg, ef, eg[pdata.c_rows, pdata.c_cols])
+    del pf, ef
+    log(f"phase 14 one epoch from one start: gather {epoch_s[0]:.3f}s, "
+        f"pregather {pre_s:.3f}s (max |d param| {d_pre:.3g}), flat mfsi.epoch "
+        f"{flat_s:.3f}s (max |d param| {d_flat:.3g}); rtol {TENSOR_RTOL} atol "
+        f"{TENSOR_ATOL} (e atol {TENSOR_E_ATOL})")
+    e0 = mfsi.residuals_padded(params0, x, z, data, pdata)
+    log(f"phase 14 epoch breakdown (torch.profiler, one gather epoch and a "
+        f"copy of its start grid): {epoch_breakdown(lambda: mfsi.epoch_padded(params0, x, z, pdata, e0.clone(), hp), top=12)}")
+    del e0
+    # one segment sum of each context field's layer (an epoch makes five a
+    # layer and column): where the index_add_ time goes, field by field
+    from repro_torch.sparse.segment import segment_sum
+
+    seg = []
+    for f, (ids_g, xw, _, vocab, offset, _) in zip(x.fields,
+                                                   mfsi._field_layers(x, hp)):
+        local = ids_g - offset
+        seg.append(f"{f.name} ({vocab}, {xw.numel()} entries) "
+                   f"{device_ms(lambda j: segment_sum(xw, local, vocab), n=10):.4f}")
+    log(f"phase 14 segment sums, ms a call by context field: {', '.join(seg)}")
+
+    # 16 users' queries through the top-K kernel
+    users = torch.arange(16, device=dev) * (FULL["n_ctx"] // 16) + 5
+    phi = mfsi.build_phi(p, x, users)
+    psi = mfsi.export_psi(p, z)
+    want_phi = mfsi.phi(p, x)[users]
+    torch.testing.assert_close(phi, want_phi, rtol=1e-5, atol=1e-6)
+    tops.topk_score.launches = 0
+    s, i = tops.topk_score(phi, psi, 100)
+    rs, ri = tref.topk_score_ref(phi, psi, 101)
+    torch.cuda.synchronize()
+    assert tops.topk_score.launches == 1
+    torch.testing.assert_close(s, rs[:, :100], rtol=RTOL, atol=ATOL)
+    ids_agree(rs[:, :100], ri[:, :100], i, rs[:, 100])
+    exact = int((i == ri[:, :100]).all(1).sum())
+    log(f"phase 14 queries: 16 users' build_phi(rows) against export_psi, "
+        f"top-100 through 1 top-K launch; ids equal to the plain recompute "
+        f"in {exact}/16 rows outright, and at every slot outside a near-tie")
+    return {"launches": launches, "pre_launches": pre_launches, "pdata": pdata}
+
+
+def time_slab_kernels(dev, pdata) -> dict:
+    """Phase 15: CUDA-event times of kernels 6–9 at both sides' full-width
+    shapes, on the MFSI log's ids and α with random values (m = 8, the ψ
+    slab a column slice of a k = 128 table), beside their plain versions,
+    their bounds and, for the pre-gathered forms, the one ``torch.bmm``
+    (``baddbmm``) that computes the same function on the same tile."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    from repro_torch.obs.costs import cd_resid_patch_cost, cd_slab_reduce_cost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(15)
+    m = 8
+    names = ("cd_slab_reduce", "cd_slab_reduce_gather", "cd_resid_patch",
+             "cd_resid_patch_gather")
+    out = {n: {"ms": [], "plain": [], "bound": [], "lib": []} for n in names}
+    sides = (("context", pdata.item_ids, pdata.alpha_c, FULL["n_items"]),
+             ("item", pdata.ctx_ids, pdata.alpha_i, FULL["n_ctx"]))
+    for side, ids, alpha, n_src in sides:
+        c, d = alpha.shape
+        x = slab_inputs(gen, dev, c, d, m, n_src, pad_frac=0, k=FULL["k"],
+                        ids=ids, alpha=alpha)
+        tab, e, dphi = x["tab"], x["e"], x["dphi"]
+        psi = cr.gather_psi_blk(tab, ids).contiguous()
+        es = [e.clone() for _ in range(2)]
+        calls = {
+            "cd_slab_reduce": (lambda i: cs.cd_slab_reduce(psi, alpha, es[i % 2]),
+                               lambda i: cr.cd_slab_reduce_ref(psi, alpha, es[i % 2]),
+                               lambda i: torch.bmm(
+                                   psi * alpha[:, None, :],
+                                   torch.cat([psi, es[i % 2][:, None, :]], 1)
+                                   .transpose(1, 2))),
+            "cd_slab_reduce_gather": (
+                lambda i: cs.cd_slab_reduce_gather(tab, ids, alpha, es[i % 2]),
+                lambda i: cr.cd_slab_reduce_gather_ref(tab, ids, alpha, es[i % 2]),
+                None),
+            "cd_resid_patch": (lambda i: cs.cd_resid_patch(psi, es[i % 2], dphi),
+                               lambda i: cr.cd_resid_patch_ref(psi, es[i % 2], dphi),
+                               lambda i: torch.baddbmm(es[i % 2][:, None, :],
+                                                       dphi[:, None, :], psi)),
+            "cd_resid_patch_gather": (
+                lambda i: cs.cd_resid_patch_gather(tab, ids, es[i % 2], dphi),
+                lambda i: cr.cd_resid_patch_gather_ref(tab, ids, es[i % 2], dphi),
+                None),
+        }
+        for name in names:
+            fn, plain, lib = calls[name]
+            gather = name.endswith("gather")
+            cost = (cd_slab_reduce_cost if "slab" in name else cd_resid_patch_cost)(
+                c, d, m, n_src=n_src, gather=gather)
+            r = out[name]
+            r["ms"].append(device_ms(fn, n=20))
+            r["plain"].append(device_ms(plain, n=5))
+            r["lib"].append(device_ms(lib, n=10) if lib else None)
+            r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
+            lib_txt = f"{r['lib'][-1]:.4f} ms" if lib else "—"
+            log(f"phase 15 {name} {side} side (C {c}, D_pad {d}, m {m}, n_src "
+                f"{n_src}): kernel {r['ms'][-1]:.4f} ms, plain "
+                f"{r['plain'][-1]:.4f} ms, library {lib_txt}, bound "
+                f"{r['bound'][-1][0]:.4f} ms ({r['bound'][-1][1]}: "
+                f"{cost['hbm_bytes']:.0f} B, {cost['flops']:.0f} FLOP)")
+        del x, psi, es
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1111,7 +1473,7 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
 
     # 1. build every kernel, one nvcc per source, all at once
-    libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB]
+    libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB, cd_kernel.SLAB_LIB]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
@@ -1165,6 +1527,16 @@ def main() -> None:
     library_ms = device_ms(lambda j: torch.topk(phi @ slabs[j % 4].T, k))
     log(f"phase 4 breakdown (torch.profiler, per call): "
         f"{kernel_breakdown(serve_call)}")
+    # the large-K path at the same shard (K = 1,000: four merge levels'
+    # worth of keys per φ row in one 128 KB block)
+    wide_ms = device_ms(lambda j: ops.topk_score(phi, slabs[j % 4], 1_000,
+                                                 id_offset=rows, n_valid=rows), n=20)
+    wide_plain = device_ms(lambda j: ref.topk_score_ref(
+        phi, slabs[j % 4], 1_000, id_offset=rows, n_valid=rows), n=10)
+    log(f"phase 4 large K: topk_score K=1000 {wide_ms:.4f} ms, plain "
+        f"{wide_plain:.4f} ms, torch.topk(phi @ psi.T, 1000) "
+        f"{device_ms(lambda j: torch.topk(phi @ slabs[j % 4].T, 1_000), n=10):.4f} ms; "
+        f"breakdown {kernel_breakdown(lambda j: ops.topk_score(phi, slabs[j % 4], 1_000))}")
     nbytes = 4 * (b * d + rows * d) + 8 * b * k
     flops = 2 * b * rows * d
     bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
@@ -1215,6 +1587,18 @@ def main() -> None:
     log(f"phase 12 done in {time.perf_counter() - t0:.1f}s")
     del ctx["data"], ctx["padded"]
 
+    # 13.-15. the fielded design, MFSI, the slab-reduce and residual-patch kernels
+    t0 = time.perf_counter()
+    slab_errs = hold_slab_kernels(dev)
+    log(f"phase 13 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fm = train_mfsi_full_width(dev)
+    log(f"phase 14 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    slab_times = time_slab_kernels(dev, fm["pdata"])
+    log(f"phase 15 done in {time.perf_counter() - t0:.1f}s")
+    del fm["pdata"]
+
     def row(name, source, replaces, launches, err, t, library):
         """A kernel's JSON row; times are per launch, averaged over the
         two sides' launches an epoch makes."""
@@ -1255,7 +1639,14 @@ def main() -> None:
            "src/repro/kernels/cd_sweep/kernel.py:519",
            ctx["launches"]["cd_block_sweep_rowpatch_gather"],
            rp_errs["cd_block_sweep_rowpatch_gather"], rp_times["gather"],
-           None)]}))
+           None)] + [
+        row(name, "src/repro_torch/kernels/cd_sweep/csrc/cd_slab.cu",
+            f"src/repro/kernels/cd_sweep/kernel.py:{line}",
+            (fm["launches"] if name.endswith("gather") else fm["pre_launches"])[name],
+            slab_errs[name], slab_times[name],
+            None if name.endswith("gather") else slab_times[name]["lib"])
+        for name, line in (("cd_slab_reduce", 275), ("cd_slab_reduce_gather", 585),
+                           ("cd_resid_patch", 331), ("cd_resid_patch_gather", 646))]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

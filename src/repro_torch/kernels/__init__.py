@@ -28,9 +28,12 @@ Kernels:
                (replaces ``repro/kernels/cd_sweep/kernel.py``
                ``cd_block_sweep_pallas``, ``cd_block_sweep_gather_pallas``,
                ``cd_block_sweep_rowpatch_pallas`` and
-               ``cd_block_sweep_rowpatch_gather_pallas``); its slab-reduce
-               and residual-patch entry points (slice 4) run only their
-               plain versions so far.
+               ``cd_block_sweep_rowpatch_gather_pallas``), and the feature
+               models' slab reduce and rank-m residual patch, ψ
+               pre-gathered or gathered in the kernel (replaces
+               ``cd_slab_reduce_pallas``, ``cd_slab_reduce_gather_pallas``,
+               ``cd_resid_patch_pallas`` and
+               ``cd_resid_patch_gather_pallas``).
   cd_update  — the per-column update, one k_b = 1 launch of ``cd_sweep``.
 """
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """Public wrappers for the fused multi-column CD block-sweep family (port
 of ``repro.kernels.cd_sweep.ops``).
 
-A CUDA tensor launches the hand-written kernel (``csrc/cd_sweep.cu``) for
+A CUDA tensor launches a hand-written kernel: ``csrc/cd_sweep.cu`` for
 :func:`cd_block_sweep`, :func:`cd_block_sweep_gather`,
-:func:`cd_block_sweep_rowpatch` and :func:`cd_block_sweep_rowpatch_gather`;
-the slab-reduce and residual-patch entry points (slice 4) are not ported
-to the card yet and raise ``NotImplementedError`` there. A CPU tensor
-takes the plain version (``ref.py``) in every entry point.
+:func:`cd_block_sweep_rowpatch` and :func:`cd_block_sweep_rowpatch_gather`,
+``csrc/cd_slab.cu`` for the feature models' :func:`cd_slab_reduce`,
+:func:`cd_slab_reduce_gather`, :func:`cd_resid_patch` and
+:func:`cd_resid_patch_gather`. A CPU tensor takes the plain version
+(``ref.py``) in every entry point.
 
-Each launch takes the form :func:`~repro_torch.kernels.vmem.cd_sweep_form`
+Each block-sweep launch takes the form :func:`~repro_torch.kernels.vmem.cd_sweep_form`
 picks: the warp-row form when one row fits a block's shared memory, else
 the block-row form (one thread block a row). A wrapper's ``launches``
 counts its kernel launches; ``launches_block_row`` counts those of them in
@@ -20,7 +21,8 @@ the block-row form.
 block and the per-row patch may be slices of wider tensors (the slabs and
 the Gram block with contiguous columns, the patch with any strides, a row
 stride of 0 included): the kernel reads them where they lie, without a
-copy.
+copy. The slab reduce and residual patch take any D_pad and any number m
+of block columns; their ψ slab and Δφ slab may likewise be column slices.
 
 Per-interaction confidence weights: every entry point takes an optional
 ``weights`` shaped like ``alpha``. The observed confidence enters the
@@ -49,7 +51,7 @@ def _check_slab(name, t, rows, cols):
     _check(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
     _check(t.dim() == 2 and tuple(t.shape) == (rows, cols),
            f"{name} must be ({rows}, {cols}), got {tuple(t.shape)}")
-    _check(rows <= 1 or cols <= 1 or t.stride(1) == 1,
+    _check(cols <= 1 or t.stride(1) == 1,
            f"{name}'s columns must be contiguous")
 
 
@@ -64,6 +66,12 @@ def _check_patch(t, c, kb):
     _check(t.dtype == torch.float32, f"p_blk must be float32, got {t.dtype}")
     _check(t.dim() == 3 and tuple(t.shape) == (c, kb, kb),
            f"p_blk must be ({c}, {kb}, {kb}), got {tuple(t.shape)}")
+
+
+def _check_ids_slab(psi_tab, ids, c, d, m):
+    _check_slab("psi_tab", psi_tab, psi_tab.shape[0], m)
+    _check(psi_tab.shape[0] >= 1, "psi_tab needs at least one row")
+    _check_grid("ids", ids, (c, d), torch.int32)
 
 
 def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, *,
@@ -84,9 +92,7 @@ def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, *,
     else:
         _check_slab("j_blk", cpl, kb, kb)
     if gather:
-        _check_slab("psi_tab", psi_tab, psi_tab.shape[0], kb)
-        _check(psi_tab.shape[0] >= 1, "psi_tab needs at least one row")
-        _check_grid("ids", ids, (c, d), torch.int32)
+        _check_ids_slab(psi_tab, ids, c, d, kb)
     else:
         _check_grid("psi_blk", psi_blk, (c, kb, d))
     rowpatch = cpl.dim() == 3 and c > 1 and cpl.stride(0) != 0
@@ -193,31 +199,93 @@ for _fn in (cd_block_sweep, cd_block_sweep_gather, cd_block_sweep_rowpatch,
 del _fn
 
 
-def _not_on_card(name: str, where: str, *tensors) -> None:
-    if on_cuda(*tensors):
-        raise NotImplementedError(
-            f"{name} is not ported to the card yet: {where}")
+def _slab_launch(psi_blk, psi_tab, ids, alpha, e, m):
+    _check(alpha.dim() == 2, f"alpha must be (C, D_pad), got "
+           f"{tuple(alpha.shape)}")
+    c, d = alpha.shape
+    _check_grid("alpha", alpha, (c, d))
+    _check_grid("e", e, (c, d))
+    if psi_tab is not None:
+        _check_ids_slab(psi_tab, ids, c, d, m)
+    else:
+        _check_grid("psi_blk", psi_blk, (c, m, d))
+    q = torch.empty((c, m), dtype=torch.float32, device=e.device)
+    p = torch.empty((c, m, m), dtype=torch.float32, device=e.device)
+    if c:
+        kernel.slab_reduce(psi_blk, psi_tab, ids, alpha, e, q, p)
+    return q, p
 
 
 def cd_slab_reduce(psi_blk, alpha, e, *, weights=None):
-    _not_on_card("cd_slab_reduce", "slice 4", psi_blk, alpha, e)
-    return ref.cd_slab_reduce_ref(psi_blk, _fold_weights(alpha, weights), e)
+    """Per-row moments of a pre-gathered (C, m, D_pad) Ψ tile in one e/α
+    pass: ``(Q (C, m), P (C, m, m))`` with Q[r, j] = Σ_d α·e·ψ_j and
+    P[r, i, j] = Σ_d α·ψ_i·ψ_j (the feature models' q, p2 and coupling
+    caches, Algorithm 3)."""
+    alpha = _fold_weights(alpha, weights)
+    if not on_cuda(psi_blk, alpha, e):
+        return ref.cd_slab_reduce_ref(psi_blk, alpha, e)
+    _check(psi_blk.dim() == 3, f"psi_blk must be (C, m, D_pad), got "
+           f"{tuple(psi_blk.shape)}")
+    q, p = _slab_launch(psi_blk, None, None, alpha, e, psi_blk.shape[1])
+    cd_slab_reduce.launches += int(e.shape[0] > 0)
+    return q, p
 
 
 def cd_slab_reduce_gather(psi_tab, ids, alpha, e, *, weights=None):
-    _not_on_card("cd_slab_reduce_gather", "slice 4", psi_tab, ids, alpha, e)
-    return ref.cd_slab_reduce_gather_ref(
-        psi_tab, ids, _fold_weights(alpha, weights), e)
+    """:func:`cd_slab_reduce` with ψ gathered in the kernel from the
+    (n_src, m) slab through the (C, D_pad) int32 id grid (ids clipped to
+    the slab; padding slots carry α = 0)."""
+    alpha = _fold_weights(alpha, weights)
+    if not on_cuda(psi_tab, ids, alpha, e):
+        return ref.cd_slab_reduce_gather_ref(psi_tab, ids, alpha, e)
+    _check(psi_tab.dim() == 2, f"psi_tab must be (n_src, m), got "
+           f"{tuple(psi_tab.shape)}")
+    q, p = _slab_launch(None, psi_tab, ids, alpha, e, psi_tab.shape[1])
+    cd_slab_reduce_gather.launches += int(e.shape[0] > 0)
+    return q, p
+
+
+def _patch_launch(psi_blk, psi_tab, ids, e, dphi_blk):
+    _check(e.dim() == 2, f"e must be (C, D_pad), got {tuple(e.shape)}")
+    c, d = e.shape
+    _check_grid("e", e, (c, d))
+    _check(dphi_blk.dim() == 2, f"dphi_blk must be (C, m), got "
+           f"{tuple(dphi_blk.shape)}")
+    m = dphi_blk.shape[1]
+    _check_slab("dphi_blk", dphi_blk, c, m)
+    if psi_tab is not None:
+        _check_ids_slab(psi_tab, ids, c, d, m)
+    else:
+        _check_grid("psi_blk", psi_blk, (c, m, d))
+    if c:
+        kernel.resid_patch(psi_blk, psi_tab, ids, e, dphi_blk)
+    return e
 
 
 def cd_resid_patch(psi_blk, e, dphi_blk):
-    _not_on_card("cd_resid_patch", "slice 4", psi_blk, e, dphi_blk)
-    e.copy_(ref.cd_resid_patch_ref(psi_blk, e, dphi_blk))
+    """Rank-m residual patch e += Σ_j Δφ_j·ψ_j over a pre-gathered (C, m,
+    D_pad) Ψ tile, on ``e`` in place; returns ``e``."""
+    if not on_cuda(psi_blk, e, dphi_blk):
+        e.copy_(ref.cd_resid_patch_ref(psi_blk, e, dphi_blk))
+        return e
+    e = _patch_launch(psi_blk, None, None, e, dphi_blk)
+    cd_resid_patch.launches += int(e.shape[0] > 0)
     return e
 
 
 def cd_resid_patch_gather(psi_tab, ids, e, dphi_blk):
-    _not_on_card("cd_resid_patch_gather", "slice 4", psi_tab, ids, e,
-                 dphi_blk)
-    e.copy_(ref.cd_resid_patch_gather_ref(psi_tab, ids, e, dphi_blk))
+    """:func:`cd_resid_patch` with ψ gathered in the kernel from the
+    (n_src, m) slab through the (C, D_pad) id grid (ids clipped)."""
+    if not on_cuda(psi_tab, ids, e, dphi_blk):
+        e.copy_(ref.cd_resid_patch_gather_ref(psi_tab, ids, e, dphi_blk))
+        return e
+    e = _patch_launch(None, psi_tab, ids, e, dphi_blk)
+    cd_resid_patch_gather.launches += int(e.shape[0] > 0)
     return e
+
+
+# CUDA kernel launches (chip_smoke.py reads them)
+for _fn in (cd_slab_reduce, cd_slab_reduce_gather, cd_resid_patch,
+            cd_resid_patch_gather):
+    _fn.launches = 0
+del _fn

@@ -35,6 +35,15 @@
 // Every size in the sorting networks is a power of two, so all indices
 // come from shifts and masks: no integer division on the sorting path.
 // The register sort holds 256 keys a row, so a chunk is at most 256 rows.
+//
+// Large K (k_pad > TOPK_MAX_CHUNK, up to TOPK_WIDE_KEYS / 2): a chunk then
+// holds fewer rows than k_pad, so pass 1 keeps its whole sorted chunk, and
+// the merge levels run in dynamic shared memory (TOPK_WIDE_KEYS keys, 128
+// KB, opted into at launch) with as many lists a block as fit: two sorted
+// lists of length n < k_pad merge into one of 2n (a flip and half-cleaners,
+// keeping every key) until lists reach k_pad, and from there keep the
+// k_pad smallest, as the small-K merge does. Fewer lists a block for longer
+// lists, so a level of k_pad = 8,192 merges two.
 // Because one key orders "descending score, then ascending id" exactly,
 // the result does not depend on the order in which blocks finish.
 // Inadmissible candidates carry the largest key, which decodes to
@@ -50,7 +59,7 @@
 #include <stdint.h>
 
 #if !defined(TOPK_ROWS) || !defined(TOPK_DSLAB) || !defined(TOPK_MAX_CHUNK) || \
-    !defined(TOPK_MERGE_SLOTS) || !defined(TOPK_MERGE_THREADS)
+    !defined(TOPK_MERGE_SLOTS) || !defined(TOPK_MERGE_THREADS) || !defined(TOPK_WIDE_KEYS)
 #error "build through repro_torch/kernels/topk_score/kernel.py, which passes the tile sizes"
 #endif
 
@@ -300,6 +309,94 @@ topk_merge_kernel(const key_t64* __restrict__ in, int n_lists, int B, int lk_pad
     }
 }
 
+// Large-K merge level. grid = (ceil(n_lists / G), B), G = 1 << lg lists of
+// lin = 1 << llin keys a block in dynamic shared memory. Lists shorter than
+// k_pad merge pairwise into sorted lists of twice the length; lists of k_pad
+// keep their k_pad smallest. The block's result (length min(G·lin, k_pad))
+// goes to `out` as (groups, B, lout) lists, or, FINAL, is decoded into the
+// K slots (past the merged length: −inf, −1).
+template <bool FINAL>
+__global__ void __launch_bounds__(TOPK_MERGE_THREADS)
+topk_merge_wide_kernel(const key_t64* __restrict__ in, int n_lists, int B, int lg,
+                       int llin, int lk_pad, key_t64* __restrict__ out, int K,
+                       float* __restrict__ out_s, int* __restrict__ out_i) {
+    extern __shared__ key_t64 wide[];
+    const int g = blockIdx.x, row = blockIdx.y, t = threadIdx.x;
+    const int lin = 1 << llin, k_pad = 1 << lk_pad;
+    for (int p = t; p < (1 << (lg + llin)); p += blockDim.x) {
+        const int c = (g << lg) + (p >> llin), s = p & (lin - 1);
+        wide[p] = c < n_lists ? in[((size_t)c * B + row) * lin + s] : KEY_NONE;
+    }
+    __syncthreads();
+    int llen = llin;  // log2 of the length of each list at this level
+    for (int lw = 0; lw < lg; ++lw) {
+        const int lspan = llin + lw;          // slots a list occupies
+        const int pairs = 1 << (lg - lw - 1);
+        const int len = 1 << llen;
+        if (llen < lk_pad) {
+            // keep every key: flip-compare A[i] with B[len-1-i], then sort
+            // both bitonic halves; the merged list is [base, base + 2·len)
+            for (int p = t; p < (pairs << llen); p += blockDim.x) {
+                key_t64* a = wide + ((size_t)(p >> llen) << (lspan + 1));
+                const int i = p & (len - 1), j = 2 * len - 1 - i;
+                const key_t64 x = a[i], y = a[j];
+                if (x > y) { a[i] = y; a[j] = x; }
+            }
+            __syncthreads();
+            for (int lj = llen - 1; lj >= 0; --lj) {
+                for (int p = t; p < (pairs << llen); p += blockDim.x) {
+                    key_t64* a = wide + ((size_t)(p >> llen) << (lspan + 1));
+                    const int q = p & (len - 1);
+                    const int h = q >> (llen - 1);  // which half
+                    const int qq = q & ((len >> 1) - 1);
+                    key_t64* b = a + (h << llen);
+                    const int i = ((qq >> lj) << (lj + 1)) | (qq & ((1 << lj) - 1));
+                    const key_t64 x = b[i], y = b[i + (1 << lj)];
+                    if (x > y) { b[i] = y; b[i + (1 << lj)] = x; }
+                }
+                __syncthreads();
+            }
+            ++llen;
+        } else {
+            // keep the k_pad smallest of A and B (B at base + span)
+            for (int p = t; p < (pairs << lk_pad); p += blockDim.x) {
+                key_t64* a = wide + ((size_t)(p >> lk_pad) << (lspan + 1));
+                const int i = p & (k_pad - 1);
+                const key_t64 x = a[i], y = a[(1 << lspan) + k_pad - 1 - i];
+                a[i] = x < y ? x : y;
+            }
+            __syncthreads();
+            for (int lj = lk_pad - 1; lj >= 0; --lj) {
+                for (int p = t; p < (pairs << (lk_pad - 1)); p += blockDim.x) {
+                    key_t64* a = wide + ((size_t)(p >> (lk_pad - 1)) << (lspan + 1));
+                    const int q = p & ((k_pad >> 1) - 1);
+                    const int i = ((q >> lj) << (lj + 1)) | (q & ((1 << lj) - 1));
+                    const key_t64 x = a[i], y = a[i + (1 << lj)];
+                    if (x > y) { a[i] = y; a[i + (1 << lj)] = x; }
+                }
+                __syncthreads();
+            }
+        }
+    }
+    const int len = 1 << llen;
+    if (FINAL) {
+        for (int s = t; s < K; s += blockDim.x) {
+            const key_t64 key = s < len ? wide[s] : KEY_NONE;
+            float score = -INFINITY;
+            int id = -1;
+            if (key != KEY_NONE) {
+                score = desc_score((uint32_t)(key >> 32));
+                id = isinf(score) && score < 0.0f ? -1 : (int)(uint32_t)key;
+            }
+            out_s[(size_t)row * K + s] = score;
+            out_i[(size_t)row * K + s] = id;
+        }
+    } else {
+        for (int s = t; s < len; s += blockDim.x)
+            out[((size_t)g * B + row) * len + s] = wide[s];
+    }
+}
+
 static int log2_exact(int x) {
     if (x <= 0 || (x & (x - 1)) != 0) return -1;
     int l = 0;
@@ -349,6 +446,70 @@ extern "C" int topk_score_f32(const float* phi, const float* psi, const int* exc
     }
     topk_merge_kernel<true><<<dim3(1, B), TOPK_MERGE_THREADS, 0, st>>>(
         src, n, B, lk_pad, nullptr, K, out_s, out_i);
+    return (int)cudaGetLastError();
+}
+
+// Large K: chunk < k_pad ≤ TOPK_WIDE_KEYS / 2. cand and cand2 each hold
+// `scratch` keys a φ row: pass 1 writes (n_chunks, B, chunk) whole sorted
+// chunks, and each merge level (groups, B, lout) lists, at most half the
+// keys it reads, since lout ≤ k_pad ≤ TOPK_WIDE_KEYS / 2.
+extern "C" int topk_score_wide_f32(const float* phi, const float* psi, const int* excl,
+                                   int B, int n_rows, int D, int L, int id_offset,
+                                   int n_valid, int K, int k_pad, int chunk, long long scratch,
+                                   key_t64* cand, key_t64* cand2, float* out_s, int* out_i,
+                                   void* stream) {
+    const int lk_pad = log2_exact(k_pad), lchunk = log2_exact(chunk);
+    if (B < 1 || B > 65535 || n_rows < 0 || D < 1 || L < 0 || K < 1 || K > k_pad ||
+        lk_pad < 0 || lchunk < 5 || chunk >= k_pad || chunk > TOPK_MAX_CHUNK ||
+        2 * k_pad > TOPK_WIDE_KEYS || n_valid < 0 || n_valid > n_rows)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSuccess;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int n_chunks = (n_rows + chunk - 1) / chunk;
+    if ((long long)n_chunks * chunk > scratch) return (int)cudaErrorInvalidValue;
+    if (n_chunks > 0) {
+        dim3 grid(n_chunks, (B + TOPK_ROWS - 1) / TOPK_ROWS);
+        const bool vec = D % 4 == 0 && ((uintptr_t)psi & 15) == 0;
+        if (vec)
+            topk_chunk_kernel<true><<<grid, chunk, 0, st>>>(
+                phi, psi, excl, B, n_rows, D, L, id_offset, n_valid, lchunk, lchunk, cand);
+        else
+            topk_chunk_kernel<false><<<grid, chunk, 0, st>>>(
+                phi, psi, excl, B, n_rows, D, L, id_offset, n_valid, lchunk, lchunk, cand);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    const size_t smem = sizeof(key_t64) * TOPK_WIDE_KEYS;
+    err = cudaFuncSetAttribute(topk_merge_wide_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(topk_merge_wide_kernel<true>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const key_t64* src = cand;
+    key_t64* bufs[2] = {cand2, cand};
+    int n = n_chunks, llin = lchunk, level = 0;
+    for (;;) {
+        const int lg = log2_exact(TOPK_WIDE_KEYS) - llin;  // lists a block holds
+        if (n <= (1 << lg)) break;
+        const int groups = (n + (1 << lg) - 1) >> lg;
+        const int llout = llin + lg < lk_pad ? llin + lg : lk_pad;
+        if ((long long)groups << llout > scratch) return (int)cudaErrorInvalidValue;
+        key_t64* dst = bufs[level++ & 1];
+        topk_merge_wide_kernel<false><<<dim3(groups, B), TOPK_MERGE_THREADS,
+                                        sizeof(key_t64) << (lg + llin), st>>>(
+            src, n, B, lg, llin, lk_pad, dst, K, out_s, out_i);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        src = dst;
+        n = groups;
+        llin = llout;
+    }
+    int lg = 0;
+    while ((1 << lg) < n) ++lg;
+    topk_merge_wide_kernel<true><<<dim3(1, B), TOPK_MERGE_THREADS,
+                                   sizeof(key_t64) << (lg + llin), st>>>(
+        src, n, B, lg, llin, lk_pad, nullptr, K, out_s, out_i);
     return (int)cudaGetLastError();
 }
 

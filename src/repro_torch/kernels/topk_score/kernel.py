@@ -20,6 +20,9 @@ def _bind(lib) -> None:
     lib.topk_score_f32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
                                    p, p, p, p, p]
     lib.topk_score_f32.restype = i
+    lib.topk_score_wide_f32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
+                                        ctypes.c_longlong, p, p, p, p, p]
+    lib.topk_score_wide_f32.restype = i
 
 
 LIB = CudaLibrary(
@@ -30,6 +33,7 @@ LIB = CudaLibrary(
         "TOPK_MAX_CHUNK": vmem.TOPK_MAX_CHUNK,
         "TOPK_MERGE_SLOTS": vmem.TOPK_MERGE_SLOTS,
         "TOPK_MERGE_THREADS": vmem.TOPK_MERGE_THREADS,
+        "TOPK_WIDE_KEYS": vmem.TOPK_WIDE_KEYS,
     },
     bind=_bind,
 )
@@ -38,11 +42,13 @@ LIB = CudaLibrary(
 def launch(phi: torch.Tensor, psi: torch.Tensor, exclude_ids, k: int,
            k_pad: int, chunk: int, id_offset: int, n_valid: int,
            scores: torch.Tensor, ids: torch.Tensor,
-           cand: torch.Tensor, cand2: torch.Tensor) -> None:
+           cand: torch.Tensor, cand2: torch.Tensor, *, wide: bool) -> None:
     """Enqueue both passes on the current stream. ``cand`` holds
     (chunks, B, k_pad) candidate keys and ``cand2`` (⌈chunks/16⌉, B,
-    k_pad), the merge levels' other buffer. The caller has checked every
-    shape, dtype, device and contiguity (``ops.topk_score``)."""
+    k_pad), the merge levels' other buffer; on the large-K path
+    (``wide``, chosen by the caller) each holds B·chunks·chunk keys. The
+    caller has checked every shape, dtype, device and contiguity
+    (``ops.topk_score``)."""
     lib = LIB.load()
     b, d = phi.shape
     n_rows = psi.shape[0]
@@ -52,10 +58,13 @@ def launch(phi: torch.Tensor, psi: torch.Tensor, exclude_ids, k: int,
     # call: the caller's current device is left as it was
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        rc = lib.topk_score_f32(
-            phi.data_ptr(), psi.data_ptr() if n_rows else None, excl_ptr,
-            b, n_rows, d, n_excl, id_offset, n_valid, k, k_pad, chunk,
-            cand.data_ptr() if cand.numel() else None, cand2.data_ptr(),
-            scores.data_ptr(), ids.data_ptr(), stream,
-        )
+        args = (phi.data_ptr(), psi.data_ptr() if n_rows else None, excl_ptr,
+                b, n_rows, d, n_excl, id_offset, n_valid, k, k_pad, chunk)
+        bufs = (cand.data_ptr() if cand.numel() else None,
+                cand2.data_ptr() if cand2.numel() else None,
+                scores.data_ptr(), ids.data_ptr(), stream)
+        if wide:
+            rc = lib.topk_score_wide_f32(*args, cand.numel() // b, *bufs)
+        else:
+            rc = lib.topk_score_f32(*args, *bufs)
     LIB.check(rc, "topk_score")

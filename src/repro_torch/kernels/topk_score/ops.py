@@ -34,9 +34,11 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
     no admissible candidate are (−inf, −1). Ties rank in ascending id.
 
     On CUDA, ``block_items`` is the ψ rows per pass-1 block (a power of
-    two; default :func:`~repro_torch.kernels.vmem.topk_block_items`). The
-    dense ``exclude_mask`` and bf16/int8 ψ raise ``NotImplementedError``
-    there; nothing falls back to the plain version."""
+    two; default :func:`~repro_torch.kernels.vmem.topk_block_items`). K
+    above 256 takes the kernel's large-K merge, up to
+    ``vmem.TOPK_WIDE_MAX_K_PAD`` (8,192). The dense ``exclude_mask`` and
+    bf16/int8 ψ raise ``NotImplementedError`` there; nothing falls back to
+    the plain version."""
     if not on_cuda(phi, psi, exclude_mask, exclude_ids):
         return topk_score_ref(phi, psi, k, exclude_mask,
                               exclude_ids=exclude_ids, id_offset=id_offset,
@@ -70,23 +72,34 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
            f"global ids must fit int32 (id_offset={id_offset})")
     k_pad = vmem.topk_k_pad(k)
     chunk = block_items or vmem.topk_block_items(k_pad, n_items=n_rows)
-    _check(chunk & (chunk - 1) == 0 and max(32, k_pad) <= chunk
-           <= vmem.TOPK_MAX_CHUNK,
+    wide = k_pad > vmem.TOPK_MAX_CHUNK
+    lo = 32 if wide else max(32, k_pad)
+    _check(chunk & (chunk - 1) == 0 and lo <= chunk <= vmem.TOPK_MAX_CHUNK,
            f"block_items={chunk} must be a power of two in "
-           f"[{max(32, k_pad)}, {vmem.TOPK_MAX_CHUNK}]")
+           f"[{lo}, {vmem.TOPK_MAX_CHUNK}]")
+    _check(k_pad <= vmem.TOPK_WIDE_MAX_K_PAD,
+           f"k={k} exceeds the kernel's largest K, {vmem.TOPK_WIDE_MAX_K_PAD}")
     scores = torch.empty((b, k), dtype=torch.float32, device=phi.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=phi.device)
     if b == 0:
         return scores, ids
     _check(b <= 65535, f"B={b} rows exceed one launch's grid")
     n_chunks = -(-n_rows // chunk)
-    n_level2 = max(1, -(-n_chunks // vmem.TOPK_MERGE_SLOTS))
-    cand = torch.empty((n_chunks, b, k_pad), dtype=torch.int64,
-                       device=phi.device)
-    cand2 = torch.empty((n_level2, b, k_pad), dtype=torch.int64,
-                        device=phi.device)
+    if wide:
+        # pass 1 writes every chunk's keys; a merge level writes at most
+        # half what it reads (lists of k_pad ≤ TOPK_WIDE_KEYS / 2 from
+        # blocks of TOPK_WIDE_KEYS keys), so each buffer needs as many
+        keys = n_chunks * chunk
+        cand, cand2 = (torch.empty((b * keys,), dtype=torch.int64,
+                                   device=phi.device) for _ in range(2))
+    else:
+        n_level2 = max(1, -(-n_chunks // vmem.TOPK_MERGE_SLOTS))
+        cand = torch.empty((n_chunks, b, k_pad), dtype=torch.int64,
+                           device=phi.device)
+        cand2 = torch.empty((n_level2, b, k_pad), dtype=torch.int64,
+                            device=phi.device)
     kernel.launch(phi, psi, exclude_ids, k, k_pad, chunk, id_offset, n_valid,
-                  scores, ids, cand, cand2)
+                  scores, ids, cand, cand2, wide=wide)
     topk_score.launches += 1
     return scores, ids
 

@@ -16,6 +16,7 @@ in silence.
 from __future__ import annotations
 
 SMEM_STATIC_BYTES = 48 * 1024     # static __shared__ arrays, no opt-in
+SMEM_BLOCK_MAX = 232_448          # dynamic shared memory a block can opt into
 
 # topk_score geometry (csrc/topk_score.cu). A pass-1 block scores one chunk
 # of ψ rows (one thread per row) against TOPK_ROW_BLOCK φ rows, staging ψ
@@ -107,25 +108,35 @@ def topk_max_chunk() -> int:
 TOPK_MAX_CHUNK = topk_max_chunk()
 
 
+# Large K (k_pad > TOPK_MAX_CHUNK): the merge levels hold up to
+# TOPK_WIDE_KEYS keys a block in dynamic shared memory (128 KB), two lists of
+# k_pad at least, so k_pad stops at TOPK_WIDE_KEYS / 2.
+TOPK_WIDE_KEYS = 16_384
+TOPK_WIDE_MAX_K_PAD = TOPK_WIDE_KEYS // 2
+assert _KEY_BYTES * TOPK_WIDE_KEYS <= SMEM_BLOCK_MAX
+
+
 def topk_block_items(k_pad: int, *, n_items: int | None = None) -> int:
     """ψ rows per pass-1 block for the ``topk_score`` kernel (the
     counterpart of the TPU kernel's ``block_items``).
 
-    A block keeps the best ``k_pad`` keys of its chunk, so the chunk is at
-    least ``k_pad``; pass 2 holds TOPK_MERGE_SLOTS lists of ``k_pad`` keys.
-    ``n_items`` shrinks the chunk for a small table (one block, fewer idle
-    threads). Raises :class:`VmemBudgetError` when ``k_pad`` needs more
-    shared memory than a block has."""
+    Up to TOPK_MAX_CHUNK, a block keeps the best ``k_pad`` keys of its
+    chunk, so the chunk is at least ``k_pad``, and pass 2 holds
+    TOPK_MERGE_SLOTS lists of ``k_pad`` keys. Above it (the large-K path)
+    a chunk keeps all its rows and is smaller than ``k_pad``; the merge
+    levels keep every key until lists reach ``k_pad``, in blocks of
+    TOPK_WIDE_KEYS keys. ``n_items`` shrinks the chunk for a small table
+    (one block, fewer idle threads). Raises :class:`VmemBudgetError` when
+    ``k_pad`` exceeds TOPK_WIDE_MAX_K_PAD."""
     chunk = TOPK_MAX_CHUNK
-    merge = _KEY_BYTES * TOPK_MERGE_SLOTS * k_pad
-    if k_pad > chunk or merge > SMEM_STATIC_BYTES:
+    if k_pad > TOPK_WIDE_MAX_K_PAD:
         raise VmemBudgetError(
-            f"k_pad={k_pad} does not fit the topk_score blocks: the chunk "
-            f"holds at most {chunk} rows and the merge needs {merge} B of "
-            f"{SMEM_STATIC_BYTES} B"
-        )
+            f"k_pad={k_pad} does not fit the topk_score blocks: a large-K "
+            f"merge block holds {TOPK_WIDE_KEYS} keys, two lists of at most "
+            f"{TOPK_WIDE_MAX_K_PAD}")
+    lo = max(k_pad, 32) if k_pad <= chunk else 32
     if n_items is not None:
-        chunk = min(chunk, max(k_pad, 32, _pow2_ceil(max(1, n_items))))
+        chunk = min(chunk, max(lo, _pow2_ceil(max(1, n_items))))
     return chunk
 
 
@@ -185,7 +196,6 @@ def gram_row_splits(rows: int, k: int) -> tuple:
 # memory, block-row otherwise. VmemBudgetError is left for what neither
 # form can launch (a k_b whose k_b × k_b block alone overflows a block).
 # ---------------------------------------------------------------------------
-SMEM_BLOCK_MAX = 232_448          # dynamic shared memory a block can opt into
 CD_SWEEP_SMEM_TARGET = 96 * 1024  # two blocks per SM's 228 KB
 CD_SWEEP_MAX_ROWS = 8             # warps (rows) per block
 CD_BLOCK_ROW_THREADS = 1024       # threads of one block-row block

@@ -87,6 +87,37 @@ def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
             "smem_bytes": float(smem), "form": form, "form_bytes": own}
 
 
+def cd_slab_reduce_cost(c: int, d_pad: int, m: int, *, n_src: int = 0,
+                        gather: bool = True) -> Dict[str, float]:
+    """Cost of ONE slab-reduce launch (``csrc/cd_slab.cu``) over the
+    padded (C, D_pad) layout and m block columns.
+
+    Bytes: ids (gather form), α and e read once — 12 B a slot, the ψ
+    slab's ``n_src`` rows of m floats read once; pre-gathered, α, e and
+    the (C, m, D_pad) Ψ tile, (m + 2)·4 B a slot — and Q (C, m) and P
+    (C, m, m) written. FLOPs a slot: α·e, then for each column the Q term
+    (2) and α·ψ_i (1), and the m(m+1)/2 distinct P terms (2 each)."""
+    slot = 12.0 if gather else 4.0 * (m + 2)
+    psi = 4.0 * n_src * m if gather else 0.0
+    hbm = slot * c * d_pad + psi + 4.0 * c * (m + m * m)
+    flops = float(c) * d_pad * (1 + 3 * m + m * (m + 1))
+    return {"hbm_bytes": hbm, "flops": flops, "smem_bytes": 0.0}
+
+
+def cd_resid_patch_cost(c: int, d_pad: int, m: int, *, n_src: int = 0,
+                        gather: bool = True) -> Dict[str, float]:
+    """Cost of ONE rank-m residual-patch launch (``csrc/cd_slab.cu``).
+
+    Bytes: ids (gather form) and e read and e written — 12 B a slot, the
+    ψ slab once; pre-gathered, the Ψ tile, e read and written, (m + 2)·4 B
+    a slot — and Δφ (C, m) read. FLOPs: 2m a slot."""
+    slot = 12.0 if gather else 4.0 * (m + 2)
+    psi = 4.0 * n_src * m if gather else 0.0
+    hbm = slot * c * d_pad + psi + 4.0 * c * m
+    return {"hbm_bytes": hbm, "flops": 2.0 * c * d_pad * m,
+            "smem_bytes": 0.0}
+
+
 class KernelCostRecorder:
     """Registry-bound recorder; resolve once, record per dispatch.
 

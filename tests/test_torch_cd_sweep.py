@@ -269,3 +269,18 @@ def test_sweep_budget_raises_rather_than_shrinking():
         vmem.resolve_cd_sweep_dispatch(20_000, 8)
     with pytest.raises(vmem.VmemBudgetError):
         vmem.cd_sweep_block_ctx(128, 240)
+
+
+def test_slab_check_refuses_strided_columns_whatever_the_row_count():
+    """A slab whose columns are not contiguous is refused also when it has
+    one row: the binding reads a one-row slab as contiguous."""
+    one_row = torch.zeros(8, 3).T[:1]          # (1, 8), strides (1, 3)
+    assert one_row.stride(1) != 1
+    for check in (lambda t: ops._check_slab("w_blk", t, 1, 8),
+                  lambda t: ops._check_ids_slab(
+                      t, torch.zeros((2, 4), dtype=torch.int32), 2, 4, 8)):
+        with pytest.raises(ValueError, match="columns must be contiguous"):
+            check(one_row)
+        check(one_row.contiguous())
+    ops._check_slab("w_blk", torch.zeros(3, 8).T[:, :1], 8, 1)  # one column
+    ops._check_slab("w_blk", torch.zeros(4, 12)[:, 2:10], 4, 8)  # a column slice

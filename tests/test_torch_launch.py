@@ -293,26 +293,200 @@ def test_column_update_is_one_kb1_sweep_launch(cuda):
     torch.testing.assert_close(e, re, rtol=2e-5, atol=2e-6)
 
 
+def _slab_operands(dev, c, d, m, n_src, seed, *, strided=False, past=False):
+    """Slab-reduce and residual-patch operands: a quarter of the slots is
+    padding (id 0, α = 0); ``strided`` makes the ψ and Δφ slabs column
+    slices of wider tables, ``past`` puts ids past both ends of the slab."""
+    rng = np.random.default_rng(seed)
+    alpha = (rng.random((c, d)) * 4 + 0.5).astype(np.float32)
+    ids = rng.integers(0, n_src, (c, d)).astype(np.int32)
+    pad = rng.random((c, d)) < 0.25
+    alpha[pad], ids[pad] = 0, 0
+    if past:
+        ids[:, :4] = [-7, n_src, 1000 * n_src, -1]
+    extra = 3 if strided else 0
+    tab = (0.3 * rng.normal(size=(n_src, m + extra))).astype(np.float32)
+    dphi = rng.normal(size=(c, m + extra)).astype(np.float32)
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    return dict(tab=t(tab)[:, extra:], ids=t(ids), alpha=t(alpha),
+                e=t(rng.normal(size=(c, d)).astype(np.float32)),
+                dphi=t(dphi)[:, extra:])
+
+
+def _row_tol(terms, long_rows):
+    """Per-row absolute tolerance of a sum over D_pad slots (terms (C, ...,
+    D)): the kernel-vs-oracle atol 2e-6, plus, for rows of a thousand slots
+    and more, whose sums the kernel and the plain version take in other
+    orders (fp32 error grows as u·Σ|terms|), 1e-5 of the row's Σ|terms|."""
+    tol = torch.full(terms.shape[:-1], 2e-6, device=terms.device)
+    return tol + 1e-5 * terms.abs().sum(-1) if long_rows else tol
+
+
 @pytest.mark.gpu
-def test_slice_3_and_4_sweep_forms_raise_on_cuda(cuda):
-    """The slice-4 forms (slab-reduce, residual-patch) refuse the card;
-    the slice-3 row-patch forms launch (tests below)."""
+@pytest.mark.parametrize("c,d,m,n_src,strided,past", [
+    (2_000, 128, 8, 680, False, False),    # the context side, scaled down
+    (680, 1_024, 8, 2_000, True, False),   # the item side, a strided slab
+    (301, 128, 9, 500, False, True),       # FM's m = k_b + 1, ids past the slab
+    (37, 200, 17, 90, True, True),         # m = 17: P in three column tiles
+    (5, 20_000, 8, 3_000, False, False),   # a long row
+    (3, 20_000, 17, 3_000, True, True),
+])
+def test_slab_and_patch_kernels_match_plain_on_cuda(cuda, c, d, m, n_src,
+                                                    strided, past):
+    """Kernels 6–9 against their plain versions: Q and P to rtol 2e-5 /
+    atol 2e-6 (a row-scaled atol for rows of 1,024 slots and more), P
+    symmetric bit for bit, e patched in place, each launch counted."""
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    x = _slab_operands(cuda, c, d, m, n_src, c + d + m, strided=strided,
+                       past=past)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    long_rows = d >= 1_024
+    a = x["alpha"][:, None, :]
+    q_tol = _row_tol(a * x["e"][:, None, :] * psi, long_rows)
+    p_tol = _row_tol(a[:, :, None, :] * psi[:, :, None, :] * psi[:, None, :, :],
+                     long_rows)
+    rq, rp = cr.cd_slab_reduce_ref(psi, x["alpha"], x["e"])
+    for name, first in (("cd_slab_reduce_gather", (x["tab"], x["ids"])),
+                        ("cd_slab_reduce", (psi,))):
+        fn = getattr(cs, name)
+        before = fn.launches
+        q, p = fn(*first, x["alpha"], x["e"])
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        assert torch.equal(p, p.transpose(1, 2))
+        assert bool(((q - rq).abs() <= 2e-5 * rq.abs() + q_tol).all()), name
+        assert bool(((p - rp).abs() <= 2e-5 * rp.abs() + p_tol).all()), name
+    re = cr.cd_resid_patch_ref(psi, x["e"], x["dphi"])
+    for name, first in (("cd_resid_patch_gather", (x["tab"], x["ids"])),
+                        ("cd_resid_patch", (psi,))):
+        fn = getattr(cs, name)
+        before = fn.launches
+        e = x["e"].clone()
+        assert fn(*first, e, x["dphi"]) is e
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        torch.testing.assert_close(e, re, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.gpu
+def test_slab_and_patch_kernels_refuse_what_they_do_not_take(cuda):
     from repro_torch.kernels.cd_sweep import ops as cs
 
-    t = torch.zeros((4, 2, 8), device=cuda)
-    ids = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
-    row, tab = t[:, 0], torch.zeros((3, 2), device=cuda)
-    calls = {
-        "slice 4": [lambda: cs.cd_slab_reduce(t, row, row),
-                    lambda: cs.cd_slab_reduce_gather(tab, ids, row, row),
-                    lambda: cs.cd_resid_patch(t, row.clone(), t[:, :, 0]),
-                    lambda: cs.cd_resid_patch_gather(tab, ids, row.clone(),
-                                                     t[:, :, 0])],
-    }
-    for where, fns in calls.items():
-        for fn in fns:
-            with pytest.raises(NotImplementedError, match=where):
-                fn()
+    x = _slab_operands(cuda, 8, 64, 3, 20, 1)
+    one_row = torch.zeros((3, 8), device=cuda).T[:1]   # (1, 3), strides (1, 8)
+    with pytest.raises(ValueError, match="columns must be contiguous"):
+        cs.cd_slab_reduce_gather(one_row, x["ids"][:, :], x["alpha"], x["e"])
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.cd_slab_reduce_gather(x["tab"], x["ids"], x["alpha"].T.contiguous().T,
+                                 x["e"])
+    with pytest.raises(ValueError, match="int32"):
+        cs.cd_resid_patch_gather(x["tab"], x["ids"].long(), x["e"], x["dphi"])
+    with pytest.raises(ValueError, match="dphi_blk"):
+        cs.cd_resid_patch_gather(x["tab"], x["ids"], x["e"], x["dphi"][:4])
+    with pytest.raises(ValueError, match="psi_blk"):
+        cs.cd_slab_reduce(torch.zeros((8, 3, 63), device=cuda), x["alpha"],
+                          x["e"])
+    # an empty grid launches nothing
+    before = cs.cd_slab_reduce_gather.launches
+    q, p = cs.cd_slab_reduce_gather(x["tab"], x["ids"][:0], x["alpha"][:0],
+                                    x["e"][:0])
+    assert q.shape == (0, 3) and p.shape == (0, 3, 3)
+    assert cs.cd_slab_reduce_gather.launches == before
+
+
+def _mfsi_problem(dev, seed=7, n_ctx=60, n_items=40, nnz=500):
+    from repro_torch.core import design
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(seed)
+    w = np.full((n_ctx, 3), 1 / 3, np.float32)
+    w[::4, 2] = 0
+    x = design.make_design([
+        dict(name="user", ids=np.arange(n_ctx), vocab=n_ctx),
+        dict(name="country", ids=rng.integers(0, 5, n_ctx), vocab=5),
+        dict(name="hist", vocab=n_items, weights=w, ids=np.stack(
+            [rng.choice(n_items, 3, replace=False) for _ in range(n_ctx)]))],
+        n_ctx, device=dev)
+    z = design.make_design([
+        dict(name="item", ids=np.arange(n_items), vocab=n_items),
+        dict(name="genre", ids=rng.integers(0, 4, n_items), vocab=4)],
+        n_items, device=dev)
+    cells = rng.choice(n_ctx * n_items, size=nnz, replace=False)
+    y = rng.integers(1, 4, nnz).astype(np.float64)
+    alpha = 1.3 + rng.random(nnz)
+    data = build_interactions(cells // n_items, cells % n_items, y, alpha,
+                              n_ctx, n_items, alpha0=0.3, device=dev)
+    return x, z, data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hpkw", [dict(block_k=0), dict(block_k=8, psi_dispatch="pregather"),
+                                  dict(block_k=5, multi_hot_mode="slot"),
+                                  dict(block_k=1)])
+def test_mfsi_epoch_padded_on_cuda_matches_cpu(cuda, hpkw):
+    """k = 12 (block_k 8 leaves a 4-column tail): two fused MFSI epochs on
+    the card against the same epochs through the plain versions on the
+    CPU, to the reference's fused-vs-flat tolerance (rtol 5e-4, atol
+    1e-5; e atol 5e-5)."""
+    from repro_torch.core.models import mfsi
+    from repro_torch.kernels.cd_sweep import ops as cs
+
+    rng = np.random.default_rng(8)
+    hp = mfsi.MFSIHyperParams(k=12, alpha0=0.3, l2=0.05, **hpkw)
+    counters = (cs.cd_slab_reduce, cs.cd_slab_reduce_gather, cs.cd_resid_patch,
+                cs.cd_resid_patch_gather)
+    out = {}
+    for where in ("cpu", cuda):
+        x, z, data = _mfsi_problem(where)
+        if not out:
+            w0 = (0.1 * rng.normal(size=(x.p, 12))).astype(np.float32)
+            h0 = (0.1 * rng.normal(size=(z.p, 12))).astype(np.float32)
+        pdata = mfsi.pad_interactions(data)
+        p = mfsi.params_from_numpy(w0, h0, device=where)
+        e = mfsi.residuals_padded(p, x, z, data, pdata)
+        before = [c.launches for c in counters]
+        for _ in range(2):
+            p, e = mfsi.epoch_padded(p, x, z, pdata, e, hp)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        if where == "cpu":
+            assert launched == [0, 0, 0, 0]
+        else:
+            n = 2 * 2 * -(-12 // (8 if hp.block_k == 0 else hp.block_k))
+            gather = hp.psi_dispatch == "gather"
+            assert launched == ([0, n, 0, n] if gather else [n, 0, n, 0])
+        out[str(where)] = [t.cpu() for t in (*p, e)]
+    for i, (a, b) in enumerate(zip(out[str(cuda)], out["cpu"])):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5 if i == 2 else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,rows,excl", [(257, 3_000, 0), (1_000, 34_000, 40),
+                                         (2_048, 9_000, 0), (2_048, 1_500, 8)])
+def test_large_k_matches_plain_on_cuda(cuda, k, rows, excl):
+    """K above 256 takes the kernel's large-K merge. Small-integer scores
+    are exact in any summation order and tie often: the kernel must equal
+    the plain version bit for bit, ties in ascending id, and K > n_valid
+    fills (−inf, −1)."""
+    phi, psi = _ints((19, 16), k, cuda), _ints((rows, 16), k + 1, cuda)
+    eids = None
+    if excl:
+        rng = np.random.default_rng(k)
+        eids = torch.tensor(rng.integers(95, 100 + rows, (19, excl)).astype(np.int32),
+                            device=cuda)
+    args = dict(exclude_ids=eids, id_offset=100, n_valid=rows - 7)
+    before = ops.topk_score.launches
+    s, i = ops.topk_score(phi, psi, k, **args)
+    rs, ri = ref.topk_score_ref(phi, psi, k, **args)
+    torch.cuda.synchronize()
+    assert ops.topk_score.launches == before + 1
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    if k > rows - 7:
+        assert bool((i[:, rows - 7:] == -1).all())
+        assert bool(torch.isneginf(s[:, rows - 7:]).all())
 
 
 def test_sweep_launch_form_follows_the_row_length():

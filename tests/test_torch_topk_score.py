@@ -196,8 +196,13 @@ def test_block_items_budget_raises_instead_of_shrinking():
     assert vmem.topk_block_items(16, n_items=40) == 64
     assert vmem.topk_block_items(128, n_items=10) == 128
     assert vmem.cluster_block_items(128, shard_items=17) == 128
-    with pytest.raises(vmem.VmemBudgetError, match="k_pad=512"):
-        vmem.topk_block_items(512)
+    # K above 256 takes the large-K path: chunks smaller than k_pad, whose
+    # merge levels keep every key until lists reach k_pad
+    assert vmem.topk_block_items(512) == 256
+    assert vmem.topk_block_items(1024, n_items=40) == 64
+    assert vmem.topk_block_items(vmem.TOPK_WIDE_MAX_K_PAD) == 256
+    with pytest.raises(vmem.VmemBudgetError, match="k_pad=16384"):
+        vmem.topk_block_items(16384)
     with pytest.raises(vmem.VmemBudgetError, match="minimal 8-row"):
         vmem.fit_block_rows(8 * 1024, budget=16 * 1024)
     with pytest.raises(vmem.VmemBudgetError, match="minimal"):
