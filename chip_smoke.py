@@ -15,8 +15,9 @@ Phases, one line each or more:
      rows, ragged chunks and row blocks), where ids must match exactly;
   3. serve 256 requests through ``repro_torch.launch.serve.main`` at full
      icd-mf width (200,000 × 68,000 × k=128, top-100, 2 shards × 2
-     replicas, replica (0, 0) killed) and check coverage, the kernel's
-     launch count, and 16 users' results against a plain recompute over
+     replicas, replica (0, 0) killed), after a 32-request warm-up run of
+     the same driver, and check coverage, the kernel's launch count, and
+     16 users' results against a plain recompute over
      the whole ψ table;
   4. time the top-K kernel, its plain version and
      ``torch.topk(phi @ psi.T)`` (a yardstick the port never calls) with
@@ -75,8 +76,40 @@ Phases, one line each or more:
      versions, their bounds and, for the pre-gathered forms, one
      ``torch.bmm``/``baddbmm`` over the same tile.
 
+ 16. serve the quantized IVF tier at full icd-mf width on phase 6's trained
+     factors: ``FaultTolerantRetrievalMesh(retrieval="ivf",
+     ann=AnnConfig(quant=q))`` for q in none, bf16 and int8 (2 shards × 2
+     replicas, AnnConfig's defaults: 184 clusters a shard, n_probe 46,
+     replica (0, 0) killed), 256 single-row requests with exclude lists
+     through the ``MicroBatcher``: coverage, launches per flush, req/s,
+     completion p50/p99, the oracle probe (bit-identical to the exact mesh
+     for fp32, equal to a plain recompute over the dequantized table for
+     bf16 and int8), the recall curve over n_probe and one profiled query;
+     then ``publish_delta`` of 8 patched and 8 appended rows (each
+     retrievable) and a 72-row patch that spends the index's staleness
+     budget (``ann_reindexes_total``); a ``StagedRollout`` that promotes a
+     good table and rolls back a NaN one; and a 4-shard
+     ``ShardedRetrievalCluster`` fed by a ``PsiPublisher`` over 2
+     ``mf_padded.fit`` epochs, whose top-K with a dense exclusion mask
+     (sliced per shard, read in place) equals the engine's bit for bit;
+ 17. time the top-K kernel's fp32, bf16, int8 and dense-mask forms at the
+     serving shard, the int8 form at one IVF block, and K = 10,000, each
+     beside its plain version, its bound and the yardstick
+     ``torch.topk(phi @ deq(psi).T, k)``; and the large-K merge at K = 257,
+     512, 1,000 and 8,192 likewise;
+ 18. run the serve_retrieval twin on the card (train → publish, cluster,
+     batcher, sharded eval, failover, canary rollout, IVF with int8 ψ).
+
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
-2,048, K past n_valid) in small integers, exactly.
+2,048, K past n_valid) in small integers, exactly, and its bf16, int8
+(per-row scale) and dense-mask forms: on random data at the serving shard
+(the mask also as a middle shard's strided column slice), and exactly in
+small integers (int8 with scale 1, bf16 integers up to 256, ties across
+chunks, fully masked rows), with K = 8,193, 10,000 and 20,000 over 40,000
+rows (the device-memory merge).
+
+``python3 chip_smoke.py --serve-order BEFORE`` runs only phase 3's order
+check (:func:`serve_first_runs`).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -106,6 +139,9 @@ RTOL, ATOL = 1e-5, 1e-5
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 SERVE_SHAPE = dict(b=16, rows=34_000, d=128, k=100)
+# phase 3's serve driver: icd-mf, 2 shards × 2 replicas, replica (0, 0) dead
+SERVE_ARGV = ["--arch", "icd-mf", "--device", "cuda", "--shards", "2",
+              "--replicas", "2", "--kill", "0:0"]
 
 
 def log(msg: str) -> None:
@@ -162,7 +198,7 @@ def check_exact(ops, ref, rng, dev) -> None:
         (5, 60, 8, 100, 0, 50, 0, False),                    # K > n_valid
         (4, 40, 8, 20, 80, 40, 40, True),                    # a fully excluded row
         (3, 700, 4, 256, 0, 700, 0, False),                  # the largest small K
-        (16, 34_000, 128, 257, 34_000, 33_000, 0, False),    # large K: the wide merge
+        (16, 34_000, 128, 257, 34_000, 33_000, 0, False),    # large K: device-memory merge
         (16, 34_000, 128, 1_000, 34_000, 33_000, 40, False),
         (5, 1_500, 8, 2_048, 0, 1_490, 0, False),            # large K > n_valid
         (7, 2_000, 5, 1, 10, 1_990, 3, False),               # K=1, D % 4 != 0
@@ -189,6 +225,101 @@ def check_exact(ops, ref, rng, dev) -> None:
             assert bool((i[:, n_valid:] == -1).all())
 
 
+def _forms(psi):
+    """ψ's three stored forms at the serving shard: (name, stored ψ,
+    per-row scale or None)."""
+    from repro_torch.core.quant import int8_quantize_rows
+
+    q, scale = int8_quantize_rows(psi)
+    return [("bf16", psi.bfloat16(), None), ("int8", q, scale)]
+
+
+def check_forms_random(ops, ref, gen, dev) -> dict:
+    """Phase 2, the bf16, int8 and dense-mask forms on random data at the
+    serving shard (B=16, 34,000 × 128, K=100, id_offset 34,000, n_valid
+    short of the shard), against the plain version over the same stored
+    table, at RTOL/ATOL; the mask whole (bool) and as the middle shard's
+    column slice of a (16, 3 × 34,000) mask, read at its own stride."""
+    from repro_torch.serve.cluster import _shard_exclude_mask
+
+    b, rows, d, k = (SERVE_SHAPE[x] for x in ("b", "rows", "d", "k"))
+    phi = torch.randn((b, d), generator=gen, device=dev)
+    psi = torch.randn((rows, d), generator=gen, device=dev)
+    off, n_valid = rows, rows - 1_000
+    errs = {}
+    for name, stored, scale in _forms(psi):
+        s, i = ops.topk_score(phi, stored, k, psi_scale=scale, id_offset=off,
+                              n_valid=n_valid)
+        rs, ri = ref.topk_score_ref(phi, stored, k + 1, psi_scale=scale,
+                                    id_offset=off, n_valid=n_valid)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s, rs[:, :k], rtol=RTOL, atol=ATOL)
+        ids_agree(rs[:, :k], ri[:, :k], i, rs[:, k])
+        errs[name] = float((s - rs[:, :k]).abs().max())
+    wide = torch.rand((b, 3 * rows), generator=gen, device=dev) < 0.1
+    mid = _shard_exclude_mask(wide, rows, rows)
+    assert not mid.is_contiguous() and mid.stride() == (3 * rows, 1)
+    err = 0.0
+    for mask in (wide[:, :rows].contiguous(), mid):
+        s, i = ops.topk_score(phi, psi, k, mask, id_offset=off, n_valid=n_valid)
+        rs, ri = ref.topk_score_ref(phi, psi, k + 1, mask.contiguous(),
+                                    id_offset=off, n_valid=n_valid)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s, rs[:, :k], rtol=RTOL, atol=ATOL)
+        ids_agree(rs[:, :k], ri[:, :k], i, rs[:, k])
+        hit = torch.gather(mask, 1, torch.clamp(i - off, min=0).long()) & (i >= 0)
+        assert not bool(hit.any()), "a masked id came back"
+        err = max(err, float((s - rs[:, :k]).abs().max()))
+    errs["mask"] = err
+    return errs
+
+
+def check_forms_exact(ops, ref, rng, dev) -> None:
+    """Phase 2, small integers, where every score is exact in any order, so
+    ids and scores must equal the plain version's: int8 with scale 1, bf16
+    integers up to 256, ties across chunks (rows repeated), fully masked
+    rows; and K = 8,193, 10,000 and 20,000 over 40,000 rows (the
+    device-memory merge), ties in ascending id."""
+    cases = [  # b, rows, d, k, id_offset, n_valid
+        (16, 34_000, 128, 100, 34_000, 33_000),
+        (19, 1_001, 16, 37, 5_000, 990),
+        (5, 700, 6, 257, 0, 700),         # D·itemsize off 16 B: scalar loads
+        (4, 1_500, 8, 1_000, 80, 1_490),
+    ]
+    for b, rows, d, k, off, n_valid in cases:
+        phi = torch.tensor(rng.integers(-3, 4, (b, d)), dtype=torch.float32, device=dev)
+        third = max(1, rows // 3)               # rows repeat: ties across chunks
+        q = np.concatenate([rng.integers(-3, 4, (third, d))] * 4)[:rows]
+        q8 = torch.tensor(q, dtype=torch.int8, device=dev)
+        big = np.concatenate([rng.integers(-256, 257, (third, d))] * 4)[:rows]
+        big = torch.tensor(big, dtype=torch.float32, device=dev)
+        mask = torch.tensor(rng.random((b, rows)) < 0.2, device=dev)
+        mask[0] = True                               # a fully masked row
+        forms = [("int8", q8, torch.ones(rows, device=dev), None),
+                 ("bf16", big.bfloat16(), None, None),
+                 ("mask", q8.float(), None, mask)]
+        for name, psi, scale, m in forms:
+            s, i = ops.topk_score(phi, psi, k, m, psi_scale=scale,
+                                  id_offset=off, n_valid=n_valid)
+            rs, ri = ref.topk_score_ref(phi, psi, k, m, psi_scale=scale,
+                                        id_offset=off, n_valid=n_valid)
+            torch.cuda.synchronize()
+            assert torch.equal(i, ri), f"ids differ: {name} {b, rows, d, k}"
+            assert torch.equal(s, rs), f"scores differ: {name} {b, rows, d, k}"
+            if m is not None:
+                assert bool((i[0] == -1).all()) and bool(torch.isneginf(s[0]).all())
+    phi = torch.tensor(rng.integers(-3, 4, (5, 8)), dtype=torch.float32, device=dev)
+    psi = torch.tensor(rng.integers(-3, 4, (40_000, 8)), dtype=torch.float32, device=dev)
+    for k in (8_193, 10_000, 20_000):
+        for n_valid in (40_000, 15_000):
+            s, i = ops.topk_score(phi, psi, k, id_offset=3, n_valid=n_valid)
+            rs, ri = ref.topk_score_ref(phi, psi, k, id_offset=3, n_valid=n_valid)
+            torch.cuda.synchronize()
+            assert torch.equal(i, ri) and torch.equal(s, rs), ("large K", k, n_valid)
+            if k > n_valid:
+                assert bool((i[:, n_valid:] == -1).all())
+
+
 def check_serve(ref, serve, argv, dev) -> dict:
     """Drive the serve driver in-process; check coverage and 16 users'
     results against a plain recompute over the whole ψ table."""
@@ -205,6 +336,37 @@ def check_serve(ref, serve, argv, dev) -> dict:
     torch.testing.assert_close(got_s, rs[:, :k], rtol=RTOL, atol=ATOL)
     ids_agree(rs[:, :k], ri[:, :k], got_i, rs[:, k])
     return report
+
+
+def serve_first_runs(before: str) -> None:
+    """Phase 3's order check, in a fresh process: the phase-2 checks named
+    by ``before`` (``none``; ``fp32``: the fp32 random and integer checks;
+    ``forms_random``; ``forms_exact``; ``phase2``: all of them), then the
+    256-request serve driver twice, printing each run's trace time. Run
+    as ``python3 chip_smoke.py --serve-order BEFORE``; the first run pays
+    the process's one-time costs that ``before`` has not already paid."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.topk_score import kernel, ops, ref
+    from repro_torch.launch import serve
+
+    build.build_all([kernel.LIB])
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if before in ("fp32", "phase2"):
+        check_random(ops, ref, gen, dev, exclude=False)
+        check_random(ops, ref, gen, dev, exclude=True)
+        check_exact(ops, ref, np.random.default_rng(2), dev)
+    if before in ("forms_random", "phase2"):
+        check_forms_random(ops, ref, gen, dev)
+    if before in ("forms_exact", "phase2"):
+        check_forms_exact(ops, ref, np.random.default_rng(3), dev)
+    for run in range(2):
+        r = check_serve(ref, serve, SERVE_ARGV + ["--requests", "256"], dev)
+        lat = np.asarray(r["completion_s"]) * 1e3
+        log(f"serve order: after {before}, run {run}: trace "
+            f"{r['seconds'] * 1e3:.3f} ms, completion p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms "
+            f"(CUDA_MODULE_LOADING={os.environ.get('CUDA_MODULE_LOADING', 'unset')})")
 
 
 def device_ms(fn, n: int = 50) -> float:
@@ -1458,6 +1620,358 @@ def time_slab_kernels(dev, pdata) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving tier: the quantized IVF mesh, delta publish, staged rollout, the
+# sharded cluster fed by a publisher (phase 16) and the top-K forms' times
+# (phase 17).
+# ---------------------------------------------------------------------------
+IVF_PROBES = (1, 4, 16, 46)      # AnnConfig's default at a 34,000-row shard: 46
+
+
+def _dequantized(indexes, n_items, d, dev):
+    """The (n_items, D) fp32 table the IVF indexes store (their rows
+    dequantized as the kernel does), in global id order."""
+    from repro_torch.kernels.topk_score.ref import dequantize_psi
+
+    out = torch.zeros((n_items, d), device=dev)
+    for idx in indexes:
+        live = idx.ids_global >= 0
+        deq = dequantize_psi(idx.psi_q, idx.scales)
+        out[idx.ids_global[live].long()] = deq[live]
+    return out
+
+
+def serve_ivf_full_width(dev, params, pdata) -> dict:
+    """Phase 16: the quantized IVF serving tier at full icd-mf width on
+    phase 6's trained factors."""
+    from repro_torch.core.models import mf, mf_padded
+    from repro_torch.eval.ranking import ann_recall_curve
+    from repro_torch.kernels.topk_score import ops as tops, ref as tref
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve.ann import AnnConfig, ivf_cluster_topk
+    from repro_torch.serve.batcher import MicroBatcher
+    from repro_torch.serve.cluster import ShardedRetrievalCluster
+    from repro_torch.serve.engine import RetrievalEngine, exclude_ids_from_lists
+    from repro_torch.serve.mesh import (
+        FaultInjector,
+        FaultTolerantRetrievalMesh,
+        RetryPolicy,
+    )
+    from repro_torch.serve.publish import PsiPublisher, StagedRollout, dense_table
+
+    k, n_items, d = 100, FULL["n_items"], FULL["k"]
+    psi = mf.export_psi(params)
+    phi_all = mf.build_phi(params, torch.arange(FULL["n_ctx"], device=dev)).cpu().numpy()
+    rng = np.random.default_rng(16)
+    users = rng.integers(0, FULL["n_ctx"], size=256)
+    excl = [rng.choice(n_items, size=int(rng.integers(0, 20)), replace=False)
+            for _ in users]
+    probe_users = users[:16]
+    phi16 = torch.as_tensor(phi_all[probe_users], device=dev)
+    eids16 = exclude_ids_from_lists([excl[j] for j in range(16)], device=dev)
+    exact = FaultTolerantRetrievalMesh(None, n_shards=2, n_replicas=2, k=k)
+    exact.publish(psi)
+    ex_res = exact.topk_phi(phi16, exclude_ids=eids16)
+
+    def counts():
+        return {f: getattr(tops.topk_score, f) for f in
+                ("launches", "launches_bf16", "launches_int8", "launches_mask")}
+
+    out = {"launches": {}, "meshes": {}}
+    for q in ("none", "bf16", "int8"):
+        reg = MetricsRegistry(clock=time.perf_counter)
+        inj = FaultInjector()
+        mesh = FaultTolerantRetrievalMesh(
+            None, n_shards=2, n_replicas=2, k=k, retrieval="ivf",
+            ann=AnnConfig(quant=q), injector=inj,
+            retry=RetryPolicy(max_attempts=3, deadline=2e-3), registry=reg)
+        mesh.publish(psi)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        indexes = mesh._ivf_indexes(mesh.table)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        n_c = [ix.n_clusters for ix in indexes]
+        probe = [ix.cfg.resolve_probe(c) for ix, c in zip(indexes, n_c)]
+        inj.fail(0, 0, "error")
+        batcher = MicroBatcher(
+            lambda phi, eids, m=mesh: m.topk_phi(phi, exclude_ids=eids),
+            max_batch=16, max_delay=2e-3, clock=time.perf_counter,
+            version_fn=lambda m=mesh: m.version, registry=reg)
+        for f in counts():
+            setattr(tops.topk_score, f, 0)
+        t0 = time.perf_counter()
+        tickets = []
+        for u, e in zip(users, excl):
+            tickets.append(batcher.submit(phi_all[u], exclude=e,
+                                          key=("user", int(u))))
+            batcher.step()
+        batcher.flush()
+        dt = time.perf_counter() - t0
+        launched = counts()
+        out["launches"][q] = launched
+        flushes = batcher.stats["flushes"]
+        lat = [batcher.completed_at(tk) - t0 for tk in tickets]
+        cov = min(batcher.result(tk).coverage for tk in tickets)
+        assert cov == 1.0, (q, cov)
+        ms = mesh.stats
+        assert ms["faults"] >= 1 and ms["failovers"] >= 1, dict(ms)
+        probes = reg.get("ann_probed_blocks_total")
+        assert launched["launches"] == probes, (launched, probes)
+        # the oracle probe: every block, no pruning
+        full = ivf_cluster_topk(mesh.table, indexes, phi16, k,
+                                n_probe=max(n_c), exclude_ids=eids16)
+        if q == "none":
+            assert torch.equal(full.ids, ex_res.ids) and torch.equal(
+                full.scores, ex_res.scores), "oracle probe != exact mesh"
+            oracle = "bit-identical to the exact mesh"
+        else:
+            deq = _dequantized(indexes, n_items, d, dev)
+            rs, ri = tref.topk_score_ref(phi16, deq, k + 1, exclude_ids=eids16)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(full.scores, rs[:, :k], rtol=RTOL, atol=ATOL)
+            ids_agree(rs[:, :k], ri[:, :k], full.ids, rs[:, k])
+            oracle = (f"equals a plain recompute over the dequantized table "
+                      f"(max |err| {float((full.scores - rs[:, :k]).abs().max()):.3g})")
+        curve = ann_recall_curve(
+            indexes[0], torch.as_tensor(phi_all[users], device=dev),
+            psi[: mesh.table.rows_per], k=k, n_probes=IVF_PROBES + (n_c[0],))
+        flush_profile = epoch_breakdown(
+            lambda m=mesh: m.topk_phi(phi16, exclude_ids=eids16))
+        log(f"phase 16 ivf {q}: 2 shards x 2 replicas, replica (0, 0) killed; "
+            f"{n_c} clusters, n_probe {probe}, block_rows "
+            f"{[ix.block_rows for ix in indexes]}, index build {build_s:.3f}s; "
+            f"256 requests in {flushes} flushes: {256 / dt:.1f} req/s, "
+            f"completion p50 {np.percentile(lat, 50) * 1e3:.3f} ms p99 "
+            f"{np.percentile(lat, 99) * 1e3:.3f} ms, coverage {cov}; "
+            f"{launched['launches']} launches ({launched['launches'] / flushes:.1f} "
+            f"per flush; bf16 {launched['launches_bf16']}, int8 "
+            f"{launched['launches_int8']}), {ms['dispatches']} dispatches, "
+            f"{ms['faults']} faults, {ms['failovers']} failovers, "
+            f"{2 * flushes} probe-mask copies to the host; oracle probe "
+            f"{oracle}; recall@{k} of shard 0 over the 256 users by n_probe "
+            + ", ".join(f"{pt['n_probe']}: {pt[f'recall@{k}']:.4f}" for pt in curve))
+        log(f"phase 16 ivf {q} one 16-row query (torch.profiler): {flush_profile}")
+        out["meshes"][q] = mesh
+        out.setdefault("block_rows", {})[q] = (indexes[0].block_rows,
+                                               int(np.median(indexes[0].counts)))
+        out.setdefault("serve", {})[q] = dict(req_s=256 / dt, flushes=flushes,
+                                               launches=launched["launches"])
+
+    # delta publish into the fp32 IVF mesh: 8 patched rows (both shards)
+    # and 8 appended ids, each retrievable by its own direction
+    mesh, reg = out["meshes"]["none"], out["meshes"]["none"].registry
+    g = torch.Generator(device=dev).manual_seed(17)
+    half = n_items // 2                    # shard 1 starts here
+    patch_ids = np.asarray([5, n_items // 7, n_items // 3, half - 1, half,
+                            3 * n_items // 5, 8 * n_items // 9, n_items - 1])
+    ids = np.concatenate([patch_ids, np.arange(n_items, n_items + 8)])
+    rows = 50.0 * torch.randn((16, d), generator=g, device=dev)
+    v = mesh.publish_delta(rows, ids)
+    assert mesh.n_items == n_items + 8
+    idx2 = mesh._ivf_indexes(mesh.table)
+    top_oracle = ivf_cluster_topk(mesh.table, idx2, rows, 1,
+                                  n_probe=max(ix.n_clusters for ix in idx2))
+    assert torch.equal(top_oracle.ids[:, 0].cpu(), torch.as_tensor(ids, dtype=torch.int32)), \
+        "a delta row is not retrievable"
+    top_served = mesh.topk_phi(rows, k=1).ids[:, 0].cpu().numpy()
+    # a patch-only delta of 72 rows into shard 0 keeps the geometry: the
+    # indexes fold it, and the staleness budget (64) forces a rebuild
+    patch72 = 100 + np.arange(72) * ((half - 200) // 72)
+    mesh.publish_delta(
+        dense_table(mesh.table)[torch.as_tensor(patch72, device=dev)] * 1.5,
+        patch72)
+    reindexes = reg.get("ann_reindexes_total")
+    assert reindexes == 1, reindexes
+    log(f"phase 16 delta: 8 patched + 8 appended rows -> v{v}, n_items "
+        f"{mesh.n_items} (the geometry changed, so the indexes were rebuilt "
+        f"lazily); all 16 top-1 for their own direction at the oracle probe, "
+        f"{int((top_served == ids).sum())}/16 at the served n_probe; a "
+        f"72-row patch into shard 0 folded and spent the staleness budget: "
+        f"ann_reindexes_total {reindexes:.0f}")
+
+    # staged rollout on the same mesh: a good table, then a NaN table
+    rollout = StagedRollout(mesh, mirror_phi=phi16)
+    live_v = mesh.version
+    ok, _ = rollout.publish(dense_table(mesh.table) * 0.5)
+    bad = torch.full((mesh.n_items, d), float("nan"), device=dev)
+    ok_bad, report = rollout.publish(bad)
+    assert ok and not ok_bad and mesh.version == live_v + 1, (ok, ok_bad, report)
+    assert not report["checks"]["scores_finite"]
+    assert not any(r.canary for row in mesh.replica_set.replicas for r in row)
+    log(f"phase 16 rollout: good table promoted (v{live_v} -> v{mesh.version}), "
+        f"NaN table rolled back (checks {report['checks']})")
+
+    # the sharded cluster fed by a publisher over 2 mf_padded epochs; its
+    # top-K, with a dense exclusion mask sliced per shard, is the engine's
+    out.pop("meshes")
+    del exact, mesh, idx2, rollout
+    hp = mf.MFHyperParams(k=d, alpha0=FULL["alpha0"], l2=FULL["l2"])
+    cluster = ShardedRetrievalCluster(None, n_shards=4, k=k)
+    pub = PsiPublisher(cluster, mf.export_psi)
+    mask16 = torch.zeros((16, n_items), dtype=torch.bool, device=dev)
+    for r in range(16):
+        mask16[r, torch.as_tensor(excl[r], device=dev).long()] = True
+    tops.topk_score.launches_mask = 0
+    p2 = mf_padded.fit(params, pdata, hp, 2, callback=pub)
+    engine = RetrievalEngine(mf.export_psi(p2), None, k=k)
+    a = cluster.topk_phi(phi16, exclude_mask=mask16)
+    b = engine.topk_phi(phi16, exclude_mask=mask16)
+    torch.cuda.synchronize()
+    out["launches"]["mask"] = tops.topk_score.launches_mask
+    assert [v for _, v in pub.versions] == [1, 2], pub.versions
+    assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
+    c = cluster.topk_phi(phi16, exclude_ids=eids16)
+    assert torch.equal(c.ids, a.ids) and torch.equal(c.scores, a.scores)
+    log(f"phase 16 cluster: 4 shards fed by a PsiPublisher over 2 "
+        f"mf_padded.fit epochs, versions {pub.versions}; top-{k} with a dense "
+        f"(16, {n_items}) mask (4 shard slices, {out['launches']['mask']} "
+        f"mask-form launches with the engine's) bit-identical to the engine "
+        f"and to the exclude-id form")
+    return out
+
+
+def _time_form(ops, tref, phi, tables, k, *, scale_of=None, mask=None,
+               n_valid=None, block_items=None, n=50):
+    """(kernel ms, plain ms, yardstick ms) of one top-K form, rotating over
+    ``tables`` (their total past the L2 cache where they are large)."""
+    sc = scale_of or (lambda j: None)
+    kw = dict(n_valid=n_valid)
+    kern = device_ms(lambda j: ops.topk_score(
+        phi, tables[j % len(tables)], k, mask, psi_scale=sc(j),
+        block_items=block_items, **kw), n=n)
+    plain = device_ms(lambda j: tref.topk_score_ref(
+        phi, tables[j % len(tables)], k, mask, psi_scale=sc(j), **kw), n=n)
+
+    def yard(j):
+        s = phi @ tref.dequantize_psi(tables[j % len(tables)], sc(j)).T
+        if mask is not None:
+            s = s.masked_fill(mask, float("-inf"))
+        return torch.topk(s, min(k, s.shape[1]))
+
+    return kern, plain, device_ms(yard, n=n)
+
+
+def time_topk_forms(dev, block) -> dict:
+    """Phase 17: CUDA-event times of the top-K forms at the serving shard
+    (B=16, 34,000 × 128, K=100) and the int8 form at one IVF block, each
+    beside its plain version, its bound (ψ at the stored width) and the
+    yardstick ``torch.topk(phi @ deq(psi).T, k)`` (dequantization
+    included), which the port never calls; K = 10,000; and the large-K
+    merge at K = 257, 512, 1,000 and 8,192."""
+    from repro_torch.core.quant import int8_quantize_rows
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.topk_score import ops, ref as tref
+    from repro_torch.obs.costs import topk_score_cost
+
+    b, rows, d, k = (SERVE_SHAPE[x] for x in ("b", "rows", "d", "k"))
+    gen = torch.Generator(device=dev).manual_seed(18)
+    phi = torch.randn((b, d), generator=gen, device=dev)
+    fp32 = [torch.randn((rows, d), generator=gen, device=dev) for _ in range(4)]
+    quant = [int8_quantize_rows(t) for t in fp32]
+    out = {}
+
+    def put(name, t, nbytes, flops, label):
+        bms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
+        by = "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS else "operations"
+        out[name] = dict(ms=t[0], plain=t[1], lib=t[2], bound=bms, bound_by=by)
+        log(f"phase 17 time {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+            f"yardstick torch.topk(phi @ deq(psi).T) {t[2]:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}: {nbytes:.0f} B, {flops:.0f} FLOP)")
+
+    def cost(n_rows, k_, **kw):
+        # B = 16 is one φ block, so the model reads ψ once at its stored
+        # width (psi_row_bytes), φ, the (B, k) outputs and the mask
+        c = topk_score_cost(b, n_rows, d, k_, **kw)
+        return c["hbm_bytes"], c["flops"]
+
+    put("fp32", _time_form(ops, tref, phi, fp32, k), *cost(rows, k),
+        "fp32 psi (34,000 x 128)")
+    # distinct copies, so that the rotation's total passes the 50 MB L2
+    bf = [fp32[j % 4].bfloat16() for j in range(12)]
+    put("bf16", _time_form(ops, tref, phi, bf, k), *cost(rows, k, psi_bytes=2),
+        "bf16 psi")
+    q8 = [quant[j % 4][0].clone() for j in range(24)]
+    put("int8", _time_form(ops, tref, phi, q8, k,
+                           scale_of=lambda j: quant[j % 4][1]),
+        *cost(rows, k, psi_bytes=1, per_row_scale=True),
+        "int8 psi + per-row scale")
+    del bf, q8
+    mask = torch.rand((b, rows), generator=gen, device=dev) < 0.01
+    put("mask", _time_form(ops, tref, phi, fp32, k, mask=mask),
+        *cost(rows, k, mask=True), "fp32 psi, dense (16, 34,000) bool mask")
+    # one IVF block: a probed block's launch reads its valid rows only;
+    # the whole padded block (what a launch would read without the slice)
+    # is timed beside it
+    block_rows, n_valid = block
+    blocks = [q[:block_rows].contiguous() for q, _ in quant]
+    bscale = [s[:block_rows].contiguous() for _, s in quant]
+    put("int8_block", _time_form(ops, tref, phi, [x[:n_valid] for x in blocks], k,
+                                 scale_of=lambda j: bscale[j % 4][:n_valid],
+                                 block_items=vmem.TOPK_MAX_CHUNK),
+        *cost(n_valid, k, psi_bytes=1, per_row_scale=True),
+        f"int8 at one IVF block's {n_valid} valid rows, as PsiIndex.topk "
+        "launches it (L2-resident)")
+    t = _time_form(ops, tref, phi, [x[:n_valid] for x in blocks], k,
+                   scale_of=lambda j: bscale[j % 4][:n_valid])
+    log(f"phase 17 time int8 at the same {n_valid} rows in the wrapper's "
+        f"default chunk for a small table ({vmem.topk_block_items(vmem.topk_k_pad(k), n_items=n_valid)} "
+        f"rows): kernel {t[0]:.4f} ms")
+    put("int8_block_padded", _time_form(ops, tref, phi, blocks, k, n_valid=n_valid,
+                                        scale_of=lambda j: bscale[j % 4]),
+        *cost(block_rows, k, psi_bytes=1, per_row_scale=True),
+        f"int8 over the whole padded IVF block ({block_rows} rows, {n_valid} "
+        "valid; L2-resident)")
+    put("k10000", _time_form(ops, tref, phi, fp32, 10_000, n=10),
+        *cost(rows, 10_000), "fp32 psi, K = 10,000 (device-memory merge)")
+    out.update(time_large_k(dev))
+    return out
+
+
+def run_serve_retrieval(dev) -> dict:
+    """Phase 18: the serve_retrieval twin on the card, with the same
+    assertions as the CPU test of it."""
+    from repro_torch.examples import serve_retrieval
+
+    t = time.perf_counter()
+    lines = []
+    out = serve_retrieval.run(device=dev, log=lines.append)
+    assert out["versions"] == [1, 2] and out["mesh_version"] == 2, out
+    assert out["recall_curve"][-1]["recall@100"] == 1.0, out["recall_curve"]
+    assert out["int8_recall"] > 0.9 and out["degraded_coverage"] == 0.75, out
+    for ln in lines:
+        log(f"phase 18 serve_retrieval: {ln}")
+    log(f"phase 18 serve_retrieval twin on the card passed in "
+        f"{time.perf_counter() - t:.1f}s")
+    return out
+
+
+def time_large_k(dev, ks=(257, 512, 1_000, 8_192)) -> dict:
+    """Phase 17, the large-K merge at the serving shard (B=16, 34,000 ×
+    128, fp32): CUDA-event times of ``ops.topk_score`` at each K beside
+    its plain version, the yardstick ``torch.topk(phi @ psi.T, k)`` and
+    its bound."""
+    from repro_torch.kernels.topk_score import ops, ref as tref
+    from repro_torch.obs.costs import topk_score_cost
+
+    b, rows, d = (SERVE_SHAPE[x] for x in ("b", "rows", "d"))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    phi = torch.randn((b, d), generator=gen, device=dev)
+    tables = [torch.randn((rows, d), generator=gen, device=dev) for _ in range(4)]
+    out = {}
+    for kk in ks:
+        kern = device_ms(lambda j: ops.topk_score(phi, tables[j % 4], kk), n=20)
+        plain = device_ms(lambda j: tref.topk_score_ref(phi, tables[j % 4], kk), n=10)
+        yard = device_ms(lambda j: torch.topk(phi @ tables[j % 4].T, kk), n=10)
+        c = topk_score_cost(b, rows, d, kk)
+        bms = max(c["hbm_bytes"] / H100_BYTES_PER_S, c["flops"] / H100_FP32_FLOPS) * 1e3
+        out[f"k{kk}"] = dict(ms=kern, plain=plain, lib=yard, bound=bms)
+        log(f"phase 17 time large K = {kk}: kernel {kern:.4f} ms, plain "
+            f"{plain:.4f} ms, yardstick torch.topk(phi @ psi.T) {yard:.4f} ms, "
+            f"bound {bms:.4f} ms ({c['hbm_bytes']:.0f} B, {c['flops']:.0f} FLOP)")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1493,12 +2007,23 @@ def main() -> None:
     log(f"phase 2 hold: random fp32 at B=16 x 34000 x 128, K=100 (both "
         f"forms) max |score err| = {err:.3g} (rtol {RTOL}, atol {ATOL}); "
         f"integer cases exact")
+    form_errs = check_forms_random(ops, ref, gen, dev)
+    check_forms_exact(ops, ref, np.random.default_rng(3), dev)
+    log(f"phase 2 hold forms: random at the same shard, max |score err| "
+        f"bf16 {form_errs['bf16']:.3g}, int8 {form_errs['int8']:.3g}, dense "
+        f"mask (whole and a middle shard's strided slice) "
+        f"{form_errs['mask']:.3g} (rtol {RTOL}, atol {ATOL}); small-integer "
+        f"int8 (scale 1), bf16 (|x| <= 256), ties across chunks, fully "
+        f"masked rows, and K = 8193, 10000, 20000 over 40000 rows exact")
 
-    # 3. the serving path at full icd-mf width
+    # 3. the serving path at full icd-mf width. A first, shorter run of the
+    # same driver takes the process's one-time costs (CUDA modules load at
+    # a kernel's first launch, the allocator's first blocks), which would
+    # otherwise land in the timed run by an amount that depends on what
+    # ran before it; the timed run then measures serving alone
+    warm = check_serve(ref, serve, SERVE_ARGV + ["--requests", "32"], dev)
     ops.topk_score.launches = 0
-    report = check_serve(ref, serve, ["--arch", "icd-mf", "--device", "cuda",
-                                      "--requests", "256", "--shards", "2",
-                                      "--replicas", "2", "--kill", "0:0"], dev)
+    report = check_serve(ref, serve, SERVE_ARGV + ["--requests", "256"], dev)
     launches = ops.topk_score.launches
     ms = report["mesh_stats"]
     assert launches >= 1 and launches == ms["dispatches"] - ms["faults"], (
@@ -1509,7 +2034,8 @@ def main() -> None:
         f"{launches} kernel launches ({launches / flushes:.2f} per flush), "
         f"{ms['dispatches']} dispatches, {ms['faults']} faults, "
         f"coverage 1.0, 16 users match the plain recompute; "
-        f"{256 / report['seconds']:.1f} req/s, completion "
+        f"{256 / report['seconds']:.1f} req/s (after a 32-request warm-up "
+        f"run of {warm['seconds'] * 1e3:.3f} ms), completion "
         f"p50 {np.percentile(report['completion_s'], 50) * 1e3:.3f} ms "
         f"p99 {np.percentile(report['completion_s'], 99) * 1e3:.3f} ms")
 
@@ -1527,8 +2053,8 @@ def main() -> None:
     library_ms = device_ms(lambda j: torch.topk(phi @ slabs[j % 4].T, k))
     log(f"phase 4 breakdown (torch.profiler, per call): "
         f"{kernel_breakdown(serve_call)}")
-    # the large-K path at the same shard (K = 1,000: four merge levels'
-    # worth of keys per φ row in one 128 KB block)
+    # the large-K path at the same shard (K = 1,000: whole sorted chunks,
+    # pairwise merge levels in device memory)
     wide_ms = device_ms(lambda j: ops.topk_score(phi, slabs[j % 4], 1_000,
                                                  id_offset=rows, n_valid=rows), n=20)
     wide_plain = device_ms(lambda j: ref.topk_score_ref(
@@ -1548,7 +2074,7 @@ def main() -> None:
         f"{report['seconds'] * 1e3:.3f} ms trace "
         f"({100 * launches * kernel_ms / (report['seconds'] * 1e3):.1f}%)")
 
-    del phi, slabs, report
+    del phi, slabs, report, warm
 
     # 5.-8. the training slice
     t0 = time.perf_counter()
@@ -1599,6 +2125,19 @@ def main() -> None:
     log(f"phase 15 done in {time.perf_counter() - t0:.1f}s")
     del fm["pdata"]
 
+    # 16.-17. the quantized IVF serving tier, delta publish, rollout
+    t0 = time.perf_counter()
+    ivf = serve_ivf_full_width(dev, tr["params"], tr["pdata"])
+    log(f"phase 16 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    form_times = time_topk_forms(dev, ivf["block_rows"]["int8"])
+    log(f"phase 17 done in {time.perf_counter() - t0:.1f}s")
+    run_serve_retrieval(dev)
+    form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
+                     "int8": ivf["launches"]["int8"]["launches_int8"],
+                     "mask": ivf["launches"]["mask"]}
+    assert all(n > 0 for n in form_launches.values()), form_launches
+
     def row(name, source, replaces, launches, err, t, library):
         """A kernel's JSON row; times are per launch, averaged over the
         two sides' launches an epoch makes."""
@@ -1646,7 +2185,16 @@ def main() -> None:
             slab_errs[name], slab_times[name],
             None if name.endswith("gather") else slab_times[name]["lib"])
         for name, line in (("cd_slab_reduce", 275), ("cd_slab_reduce_gather", 585),
-                           ("cd_resid_patch", 331), ("cd_resid_patch_gather", 646))]}))
+                           ("cd_resid_patch", 331), ("cd_resid_patch_gather", 646))] + [{
+        "name": f"topk_score_{form}", "route": "cuda",
+        "source": "src/repro_torch/kernels/topk_score/csrc/topk_score.cu",
+        "replaces": "src/repro/kernels/topk_score/kernel.py:159",
+        "launches": form_launches[form], "max_abs_err": form_errs[form],
+        "ms": form_times[form]["ms"], "plain_ms": form_times[form]["plain"],
+        "bound_ms": form_times[form]["bound"],
+        "bound_by": form_times[form]["bound_by"],
+        "library_ms": form_times[form]["lib"]}
+        for form in ("bf16", "int8", "mask")]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1657,4 +2205,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--serve-order"] and len(sys.argv) == 3:
+        serve_first_runs(sys.argv[2])
+    else:
+        main()

@@ -11,8 +11,9 @@ id-list form. The per-row metric math is shared with the dense path
 
 ``cluster=`` runs the same loop against a sharded table or the
 fault-tolerant mesh (``serve/mesh.py``); the metrics then carry its
-``coverage`` and ``dead_ranges``. ``foldin_ranking_eval``,
-``model_eval_callback`` and ``ann_recall_curve`` are not ported yet.
+``coverage`` and ``dead_ranges``. :func:`ann_recall_curve` holds an IVF
+index (``serve/ann.py``) against the exact kernel. ``foldin_ranking_eval``
+and ``model_eval_callback`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -86,6 +87,26 @@ def overlap_recall(approx_ids, oracle_ids) -> float:
         total += len(truth)
         hit += len(truth & set(int(i) for i in approx_ids[r]))
     return hit / total if total else 1.0
+
+
+def ann_recall_curve(index, phi: torch.Tensor, psi: torch.Tensor, *,
+                     k: int = 100, n_probes: Sequence[int] = (1, 2, 4, 8),
+                     exclude: Optional[Sequence] = None) -> list:
+    """Recall-vs-probe curve of one :class:`~repro_torch.serve.ann.PsiIndex`:
+    for each ``n_probe``, :func:`overlap_recall` of the index's top-K
+    against the exact kernel over the (n_items, D) table ``psi``, on φ's
+    device. ``exclude`` takes the same per-row id lists as
+    :func:`ranking_eval`."""
+    eids = None
+    if exclude is not None:
+        eids = exclude_ids_from_lists(exclude, device=phi.device)
+    _, oracle = topk_score(phi, psi, k, exclude_ids=eids)
+    out = []
+    for p in n_probes:
+        _, ids = index.topk(phi, k, n_probe=int(p), exclude_ids=eids)
+        out.append({"n_probe": int(p),
+                    f"recall@{k}": overlap_recall(ids, oracle)})
+    return out
 
 
 def fit_eval_callback(export: Callable, true_items, *, k: int = 100,

@@ -36,21 +36,30 @@
 // come from shifts and masks: no integer division on the sorting path.
 // The register sort holds 256 keys a row, so a chunk is at most 256 rows.
 //
-// Large K (k_pad > TOPK_MAX_CHUNK, up to TOPK_WIDE_KEYS / 2): a chunk then
-// holds fewer rows than k_pad, so pass 1 keeps its whole sorted chunk, and
-// the merge levels run in dynamic shared memory (TOPK_WIDE_KEYS keys, 128
-// KB, opted into at launch) with as many lists a block as fit: two sorted
-// lists of length n < k_pad merge into one of 2n (a flip and half-cleaners,
-// keeping every key) until lists reach k_pad, and from there keep the
-// k_pad smallest, as the small-K merge does. Fewer lists a block for longer
-// lists, so a level of k_pad = 8,192 merges two.
+// Large K (k_pad > TOPK_MAX_CHUNK): a chunk then holds fewer rows than
+// k_pad, so pass 1 keeps its whole sorted chunk, and the merge levels run in
+// device memory, any K: lists merge in pairs, a thread takes one key and
+// places it at its index in its own list plus its rank in the partner list
+// (a binary search, lower bound from the left list and upper bound from the
+// right, so equal keys keep their order), keeping the first k_pad.
 // Because one key orders "descending score, then ascending id" exactly,
 // the result does not depend on the order in which blocks finish.
 // Inadmissible candidates carry the largest key, which decodes to
 // (−inf, −1). A −0.0 score is stored as +0.0 so that it ties with +0.0,
-// as it does in the plain version's sort.
+// as it does in the plain version's sort. A NaN score keeps a key below
+// KEY_NONE and decodes back to NaN with its id, so a NaN table shows as NaN
+// scores, never as empty slots.
 //
-// Interface: a plain C function bound with ctypes. It launches on the
+// ψ storage (the TPU kernel's quantized forms, dequantized per tile in
+// VMEM): fp32, bf16, or int8 with an optional per-row fp32 scale. Only the
+// loads change: a thread loads the stored elements (16 bytes a load where
+// the rows allow it), converts each to fp32, multiplies it by its row's
+// scale, and stores fp32 into the transposed slab; the products stay fp32
+// FMAs. Exclusion comes as −1-padded global-id lists or as a dense (B,
+// n_rows) byte mask with its own row stride (a column slice of a wider
+// mask is read in place).
+//
+// Interface: one plain C function bound with ctypes. It launches on the
 // caller's stream, allocates nothing (outputs and the candidate scratch
 // come from the wrapper) and returns cudaGetLastError().
 
@@ -59,7 +68,7 @@
 #include <stdint.h>
 
 #if !defined(TOPK_ROWS) || !defined(TOPK_DSLAB) || !defined(TOPK_MAX_CHUNK) || \
-    !defined(TOPK_MERGE_SLOTS) || !defined(TOPK_MERGE_THREADS) || !defined(TOPK_WIDE_KEYS)
+    !defined(TOPK_MERGE_SLOTS) || !defined(TOPK_MERGE_THREADS)
 #error "build through repro_torch/kernels/topk_score/kernel.py, which passes the tile sizes"
 #endif
 
@@ -90,6 +99,36 @@ __device__ __forceinline__ float desc_score(uint32_t hi) {
     u = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
     return __uint_as_float(u);
 }
+
+// Slot value of a merged key: (score, id), or (−inf, −1) for an empty slot
+// or an admissible −inf score (indistinguishable from an excluded one).
+__device__ __forceinline__ void decode_key(key_t64 key, float& score, int& id) {
+    score = -INFINITY;
+    id = -1;
+    if (key != KEY_NONE) {
+        score = desc_score((uint32_t)(key >> 32));
+        id = isinf(score) && score < 0.0f ? -1 : (int)(uint32_t)key;
+    }
+}
+
+// ψ storage types: float, uint16_t (bf16 bits) and int8_t. word_elem reads
+// element e of a 32-bit word of stored elements (little-endian), load_elem
+// one stored element, both as fp32 (bf16 → fp32 is exact: the high half).
+template <typename T> __device__ __forceinline__ float word_elem(uint32_t w, int e);
+template <> __device__ __forceinline__ float word_elem<float>(uint32_t w, int) {
+    return __uint_as_float(w);
+}
+template <> __device__ __forceinline__ float word_elem<uint16_t>(uint32_t w, int e) {
+    return __uint_as_float(e ? (w & 0xFFFF0000u) : (w << 16));
+}
+template <> __device__ __forceinline__ float word_elem<int8_t>(uint32_t w, int e) {
+    return (float)((int)(w << (24 - 8 * e)) >> 24);
+}
+__device__ __forceinline__ float load_elem(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_elem(const uint16_t* p) {
+    return __uint_as_float((uint32_t)*p << 16);
+}
+__device__ __forceinline__ float load_elem(const int8_t* p) { return (float)*p; }
 
 // Sorts the 256 keys a warp holds, 8 per lane (lane l holds elements
 // 8l .. 8l+7), ascending, with no shared memory and no barrier: partners
@@ -126,19 +165,25 @@ __device__ __forceinline__ void warp_sort256(key_t64 (&x)[8], int lane) {
 }
 
 // Pass 1. grid = (n_chunks, ceil(B / TOPK_ROWS)), blockDim.x = chunk = 1 << lchunk.
-// VEC: D % 4 == 0 and ψ 16-byte aligned, so ψ moves as float4.
-template <bool VEC>
+// T is the ψ storage type; VEC: D·sizeof(T) % 16 == 0 and ψ 16-byte aligned,
+// so ψ moves in 16-byte loads. scale (n_rows,) multiplies each row after the
+// conversion to fp32 (nullptr: none). mask (B rows of mask_stride bytes,
+// nullptr: none) and excl (B × L global ids) exclude candidates. Each chunk
+// writes its best 1 << lk_keep keys.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(TOPK_MAX_CHUNK)
-topk_chunk_kernel(const float* __restrict__ phi, const float* __restrict__ psi,
-                  const int* __restrict__ excl, int B, int n_rows, int D, int L,
-                  int id_offset, int n_valid, int lchunk, int lk_pad,
-                  key_t64* __restrict__ cand) {
+topk_chunk_kernel(const float* __restrict__ phi, const T* __restrict__ psi,
+                  const float* __restrict__ scale, const int* __restrict__ excl, int L,
+                  const unsigned char* __restrict__ mask, long long mask_stride,
+                  int B, int n_rows, int D, int id_offset, int n_valid, int lchunk,
+                  int lk_pad, key_t64* __restrict__ cand) {
     __shared__ __align__(16) float phi_s[TOPK_DSLAB][TOPK_ROWS];
     __shared__ __align__(16) unsigned char pool[POOL_BYTES];
     float* psi_s = reinterpret_cast<float*>(pool);      // [TOPK_DSLAB][chunk + 1]
     key_t64* keys = reinterpret_cast<key_t64*>(pool);   // [TOPK_ROWS][KEY_PITCH]
 
-    constexpr int VW = VEC ? 4 : 1;                     // floats per load
+    constexpr int EPW = 4 / (int)sizeof(T);             // stored elements a 32-bit word
+    constexpr int VW = VEC ? 4 * EPW : 1;               // elements a load
     constexpr int PER_ITEM = TOPK_DSLAB / VW;           // loads per ψ row and slab
     const int chunk = 1 << lchunk;
     const int t = threadIdx.x;
@@ -148,8 +193,10 @@ topk_chunk_kernel(const float* __restrict__ phi, const float* __restrict__ psi,
     const int pitch = chunk + 1;
 
     // the next ψ slab rides in registers while the current one is used:
-    // each thread holds PER_ITEM loads (a warp covers whole 128-byte rows)
-    float4 reg4[VEC ? PER_ITEM : 1];
+    // each thread holds PER_ITEM loads (a warp covers whole 128-byte rows
+    // of fp32, or several rows' 32-byte slab segments of bf16 and int8)
+    uint4 reg4[VEC ? PER_ITEM : 1];
+    float sc4[VEC ? PER_ITEM : 1];
     float reg1[VEC ? 1 : PER_ITEM];
     auto load = [&](int d0) {
 #pragma unroll
@@ -158,24 +205,31 @@ topk_chunk_kernel(const float* __restrict__ phi, const float* __restrict__ psi,
             const int g = item0 + i / PER_ITEM, d = d0 + (i % PER_ITEM) * VW;
             const bool in = g < n_rows && d < D;
             if constexpr (VEC) {
-                reg4[j] = in ? __ldg(reinterpret_cast<const float4*>(psi + (size_t)g * D + d))
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                reg4[j] = in ? __ldg(reinterpret_cast<const uint4*>(psi + (size_t)g * D + d))
+                             : make_uint4(0u, 0u, 0u, 0u);
+                if (scale != nullptr) sc4[j] = in ? __ldg(scale + g) : 0.0f;
             } else {
-                reg1[j] = in ? __ldg(psi + (size_t)g * D + d) : 0.0f;
+                float v = in ? load_elem(psi + (size_t)g * D + d) : 0.0f;
+                if (scale != nullptr && in) v *= __ldg(scale + g);
+                reg1[j] = v;
             }
         }
     };
-    // transposed store; pitch = chunk + 1 puts a warp's stores on distinct banks
+    // transposed fp32 store (dequantized: q·scale, element by element);
+    // pitch = chunk + 1 puts a warp's stores on distinct banks
     auto store = [&]() {
 #pragma unroll
         for (int j = 0; j < PER_ITEM; ++j) {
             const int i = t + (j << lchunk);
             const int it = i / PER_ITEM, dd = (i % PER_ITEM) * VW;
             if constexpr (VEC) {
-                psi_s[(dd + 0) * pitch + it] = reg4[j].x;
-                psi_s[(dd + 1) * pitch + it] = reg4[j].y;
-                psi_s[(dd + 2) * pitch + it] = reg4[j].z;
-                psi_s[(dd + 3) * pitch + it] = reg4[j].w;
+                const uint32_t w[4] = {reg4[j].x, reg4[j].y, reg4[j].z, reg4[j].w};
+#pragma unroll
+                for (int e = 0; e < VW; ++e) {
+                    float v = word_elem<T>(w[e / EPW], e % EPW);
+                    if (scale != nullptr) v *= sc4[j];
+                    psi_s[(dd + e) * pitch + it] = v;
+                }
             } else {
                 psi_s[dd * pitch + it] = reg1[j];
             }
@@ -221,7 +275,7 @@ topk_chunk_kernel(const float* __restrict__ phi, const float* __restrict__ psi,
         const int row = r0 + r;
         key_t64 key = KEY_NONE;
         if (in_range && row < B) {
-            bool hit = false;
+            bool hit = mask != nullptr && mask[(size_t)row * mask_stride + local] != 0;
             for (int l = 0; l < L; ++l) hit |= (__ldg(&excl[(size_t)row * L + l]) == gid);
             if (!hit) key = ((key_t64)desc_bits(acc[r]) << 32) | (uint32_t)gid;
         }
@@ -292,109 +346,55 @@ topk_merge_kernel(const key_t64* __restrict__ in, int n_lists, int B, int lk_pad
     }
 
     if (FINAL) {
-        for (int s = t; s < K; s += blockDim.x) {
-            const key_t64 key = slots[s];
-            float score = -INFINITY;
-            int id = -1;
-            if (key != KEY_NONE) {
-                score = desc_score((uint32_t)(key >> 32));
-                id = isinf(score) && score < 0.0f ? -1 : (int)(uint32_t)key;
-            }
-            out_s[(size_t)row * K + s] = score;
-            out_i[(size_t)row * K + s] = id;
-        }
+        for (int s = t; s < K; s += blockDim.x)
+            decode_key(slots[s], out_s[(size_t)row * K + s], out_i[(size_t)row * K + s]);
     } else {
         for (int s = t; s < k_pad; s += blockDim.x)
             out[((size_t)g * B + row) * k_pad + s] = slots[s];
     }
 }
 
-// Large-K merge level. grid = (ceil(n_lists / G), B), G = 1 << lg lists of
-// lin = 1 << llin keys a block in dynamic shared memory. Lists shorter than
-// k_pad merge pairwise into sorted lists of twice the length; lists of k_pad
-// keep their k_pad smallest. The block's result (length min(G·lin, k_pad))
-// goes to `out` as (groups, B, lout) lists, or, FINAL, is decoded into the
-// K slots (past the merged length: −inf, −1).
-template <bool FINAL>
-__global__ void __launch_bounds__(TOPK_MERGE_THREADS)
-topk_merge_wide_kernel(const key_t64* __restrict__ in, int n_lists, int B, int lg,
-                       int llin, int lk_pad, key_t64* __restrict__ out, int K,
-                       float* __restrict__ out_s, int* __restrict__ out_i) {
-    extern __shared__ key_t64 wide[];
-    const int g = blockIdx.x, row = blockIdx.y, t = threadIdx.x;
-    const int lin = 1 << llin, k_pad = 1 << lk_pad;
-    for (int p = t; p < (1 << (lg + llin)); p += blockDim.x) {
-        const int c = (g << lg) + (p >> llin), s = p & (lin - 1);
-        wide[p] = c < n_lists ? in[((size_t)c * B + row) * lin + s] : KEY_NONE;
+// Device-memory merge level (k_pad > chunk). grid = (ceil(pairs ·
+// 2·lin / 256), B): lists (n_lists, B, lin) merge in pairs into (pairs, B,
+// lout) lists, lout = min(2·lin, k_pad); the odd last list's partner is
+// empty (all KEY_NONE). A thread places one key at its index in its own list
+// plus its rank in the partner: keys below it from the right list, keys not
+// above it from the left, so equal keys (KEY_NONE) keep left before right
+// and every output slot is written exactly once.
+__global__ void __launch_bounds__(256)
+topk_merge_global_kernel(const key_t64* __restrict__ in, int n_lists, int B, int llin,
+                         int llout, key_t64* __restrict__ out) {
+    const int row = blockIdx.y;
+    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const int pairs = (n_lists + 1) >> 1;
+    if (p >= ((long long)pairs << (llin + 1))) return;
+    const int lin = 1 << llin;
+    const int pair = (int)(p >> (llin + 1));
+    const int side = (int)(p >> llin) & 1;  // 0: the left list, 1: the right
+    const int i = (int)(p & (lin - 1));
+    const int own = 2 * pair + side, other = 2 * pair + 1 - side;
+    const key_t64 x = own < n_lists ? in[((size_t)own * B + row) * lin + i] : KEY_NONE;
+    const key_t64* o = other < n_lists ? in + ((size_t)other * B + row) * lin : nullptr;
+    int lo = 0, hi = lin;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const key_t64 y = o != nullptr ? o[mid] : KEY_NONE;
+        if (side == 0 ? y < x : y <= x) lo = mid + 1; else hi = mid;
     }
-    __syncthreads();
-    int llen = llin;  // log2 of the length of each list at this level
-    for (int lw = 0; lw < lg; ++lw) {
-        const int lspan = llin + lw;          // slots a list occupies
-        const int pairs = 1 << (lg - lw - 1);
-        const int len = 1 << llen;
-        if (llen < lk_pad) {
-            // keep every key: flip-compare A[i] with B[len-1-i], then sort
-            // both bitonic halves; the merged list is [base, base + 2·len)
-            for (int p = t; p < (pairs << llen); p += blockDim.x) {
-                key_t64* a = wide + ((size_t)(p >> llen) << (lspan + 1));
-                const int i = p & (len - 1), j = 2 * len - 1 - i;
-                const key_t64 x = a[i], y = a[j];
-                if (x > y) { a[i] = y; a[j] = x; }
-            }
-            __syncthreads();
-            for (int lj = llen - 1; lj >= 0; --lj) {
-                for (int p = t; p < (pairs << llen); p += blockDim.x) {
-                    key_t64* a = wide + ((size_t)(p >> llen) << (lspan + 1));
-                    const int q = p & (len - 1);
-                    const int h = q >> (llen - 1);  // which half
-                    const int qq = q & ((len >> 1) - 1);
-                    key_t64* b = a + (h << llen);
-                    const int i = ((qq >> lj) << (lj + 1)) | (qq & ((1 << lj) - 1));
-                    const key_t64 x = b[i], y = b[i + (1 << lj)];
-                    if (x > y) { b[i] = y; b[i + (1 << lj)] = x; }
-                }
-                __syncthreads();
-            }
-            ++llen;
-        } else {
-            // keep the k_pad smallest of A and B (B at base + span)
-            for (int p = t; p < (pairs << lk_pad); p += blockDim.x) {
-                key_t64* a = wide + ((size_t)(p >> lk_pad) << (lspan + 1));
-                const int i = p & (k_pad - 1);
-                const key_t64 x = a[i], y = a[(1 << lspan) + k_pad - 1 - i];
-                a[i] = x < y ? x : y;
-            }
-            __syncthreads();
-            for (int lj = lk_pad - 1; lj >= 0; --lj) {
-                for (int p = t; p < (pairs << (lk_pad - 1)); p += blockDim.x) {
-                    key_t64* a = wide + ((size_t)(p >> (lk_pad - 1)) << (lspan + 1));
-                    const int q = p & ((k_pad >> 1) - 1);
-                    const int i = ((q >> lj) << (lj + 1)) | (q & ((1 << lj) - 1));
-                    const key_t64 x = a[i], y = a[i + (1 << lj)];
-                    if (x > y) { a[i] = y; a[i + (1 << lj)] = x; }
-                }
-                __syncthreads();
-            }
-        }
-    }
-    const int len = 1 << llen;
-    if (FINAL) {
-        for (int s = t; s < K; s += blockDim.x) {
-            const key_t64 key = s < len ? wide[s] : KEY_NONE;
-            float score = -INFINITY;
-            int id = -1;
-            if (key != KEY_NONE) {
-                score = desc_score((uint32_t)(key >> 32));
-                id = isinf(score) && score < 0.0f ? -1 : (int)(uint32_t)key;
-            }
-            out_s[(size_t)row * K + s] = score;
-            out_i[(size_t)row * K + s] = id;
-        }
-    } else {
-        for (int s = t; s < len; s += blockDim.x)
-            out[((size_t)g * B + row) * len + s] = wide[s];
-    }
+    const int pos = i + lo;
+    if (pos < (1 << llout)) out[(((size_t)pair * B + row) << llout) + pos] = x;
+}
+
+// The device-memory merge's last step: the first K keys of the one list
+// (B, 1 << llen) a row, decoded (nullptr: no list, every slot empty).
+__global__ void __launch_bounds__(256)
+topk_decode_kernel(const key_t64* __restrict__ in, int B, int llen, int K,
+                   float* __restrict__ out_s, int* __restrict__ out_i) {
+    const int row = blockIdx.y, s = blockIdx.x * blockDim.x + threadIdx.x;
+    if (s >= K) return;
+    const key_t64 key = in != nullptr && s < (1 << llen) ? in[((size_t)row << llen) + s]
+                                                          : KEY_NONE;
+    decode_key(key, out_s[(size_t)row * K + s], out_i[(size_t)row * K + s]);
 }
 
 static int log2_exact(int x) {
@@ -404,112 +404,102 @@ static int log2_exact(int x) {
     return l;
 }
 
-// cand holds (n_chunks, B, k_pad) keys and cand2 (ceil(n_chunks / SLOTS), B,
-// k_pad); merge levels ping-pong between them until one list per row is left.
-extern "C" int topk_score_f32(const float* phi, const float* psi, const int* excl,
-                              int B, int n_rows, int D, int L, int id_offset,
-                              int n_valid, int K, int k_pad, int chunk,
-                              key_t64* cand, key_t64* cand2, float* out_s,
-                              int* out_i, void* stream) {
-    const int lk_pad = log2_exact(k_pad), lchunk = log2_exact(chunk);
-    if (B < 1 || B > 65535 || n_rows < 0 || D < 1 || L < 0 || K < 1 || K > k_pad ||
-        lk_pad < 0 || lchunk < 5 || chunk < k_pad || chunk > TOPK_MAX_CHUNK ||
-        n_valid < 0 || n_valid > n_rows)
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSuccess;
-    cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+static cudaError_t launch_chunks(const float* phi, const void* psi, const float* scale,
+                                 const int* excl, int L, const unsigned char* mask,
+                                 long long mask_stride, int B, int n_rows, int D,
+                                 int id_offset, int n_valid, int lchunk, int lk_keep,
+                                 key_t64* cand, cudaStream_t st) {
+    const int chunk = 1 << lchunk;
     const int n_chunks = (n_rows + chunk - 1) / chunk;
-    if (n_chunks > 0) {
-        dim3 grid(n_chunks, (B + TOPK_ROWS - 1) / TOPK_ROWS);
-        const bool vec = D % 4 == 0 && ((uintptr_t)psi & 15) == 0;
-        if (vec)
-            topk_chunk_kernel<true><<<grid, chunk, 0, st>>>(
-                phi, psi, excl, B, n_rows, D, L, id_offset, n_valid, lchunk, lk_pad, cand);
-        else
-            topk_chunk_kernel<false><<<grid, chunk, 0, st>>>(
-                phi, psi, excl, B, n_rows, D, L, id_offset, n_valid, lchunk, lk_pad, cand);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    const key_t64* src = cand;
-    key_t64* bufs[2] = {cand2, cand};
-    int n = n_chunks, level = 0;
-    while (n > TOPK_MERGE_SLOTS) {
-        const int groups = (n + TOPK_MERGE_SLOTS - 1) / TOPK_MERGE_SLOTS;
-        key_t64* dst = bufs[level++ & 1];
-        topk_merge_kernel<false><<<dim3(groups, B), TOPK_MERGE_THREADS, 0, st>>>(
-            src, n, B, lk_pad, dst, K, out_s, out_i);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        src = dst;
-        n = groups;
-    }
-    topk_merge_kernel<true><<<dim3(1, B), TOPK_MERGE_THREADS, 0, st>>>(
-        src, n, B, lk_pad, nullptr, K, out_s, out_i);
-    return (int)cudaGetLastError();
+    if (n_chunks == 0) return cudaSuccess;
+    const T* p = static_cast<const T*>(psi);
+    dim3 grid(n_chunks, (B + TOPK_ROWS - 1) / TOPK_ROWS);
+    const bool vec = ((size_t)D * sizeof(T)) % 16 == 0 && ((uintptr_t)p & 15) == 0;
+    if (vec)
+        topk_chunk_kernel<T, true><<<grid, chunk, 0, st>>>(
+            phi, p, scale, excl, L, mask, mask_stride, B, n_rows, D, id_offset, n_valid,
+            lchunk, lk_keep, cand);
+    else
+        topk_chunk_kernel<T, false><<<grid, chunk, 0, st>>>(
+            phi, p, scale, excl, L, mask, mask_stride, B, n_rows, D, id_offset, n_valid,
+            lchunk, lk_keep, cand);
+    return cudaGetLastError();
 }
 
-// Large K: chunk < k_pad ≤ TOPK_WIDE_KEYS / 2. cand and cand2 each hold
-// `scratch` keys a φ row: pass 1 writes (n_chunks, B, chunk) whole sorted
-// chunks, and each merge level (groups, B, lout) lists, at most half the
-// keys it reads, since lout ≤ k_pad ≤ TOPK_WIDE_KEYS / 2.
-extern "C" int topk_score_wide_f32(const float* phi, const float* psi, const int* excl,
-                                   int B, int n_rows, int D, int L, int id_offset,
-                                   int n_valid, int K, int k_pad, int chunk, long long scratch,
-                                   key_t64* cand, key_t64* cand2, float* out_s, int* out_i,
-                                   void* stream) {
+// Two merges, by the chunk: chunk ≥ k_pad, each chunk keeps its best k_pad
+// keys, cand holds (n_chunks, B, k_pad) keys and cand2 (ceil(n_chunks /
+// SLOTS), B, k_pad), and the shared-memory levels ping-pong between them;
+// chunk < k_pad (large K), pass 1 writes (n_chunks, B, chunk) whole sorted
+// chunks, cand and cand2 each hold `scratch` keys a φ row, and the
+// device-memory levels ping-pong between them. psi_type: 0 fp32, 1 bf16,
+// 2 int8.
+extern "C" int topk_score_run(const float* phi, const void* psi, int psi_type,
+                              const float* scale, const int* excl, int L,
+                              const unsigned char* mask, long long mask_stride, int B,
+                              int n_rows, int D, int id_offset, int n_valid, int K,
+                              int k_pad, int chunk, long long scratch,
+                              key_t64* cand, key_t64* cand2, float* out_s, int* out_i,
+                              void* stream) {
     const int lk_pad = log2_exact(k_pad), lchunk = log2_exact(chunk);
     if (B < 1 || B > 65535 || n_rows < 0 || D < 1 || L < 0 || K < 1 || K > k_pad ||
-        lk_pad < 0 || lchunk < 5 || chunk >= k_pad || chunk > TOPK_MAX_CHUNK ||
-        2 * k_pad > TOPK_WIDE_KEYS || n_valid < 0 || n_valid > n_rows)
+        lk_pad < 0 || lchunk < 5 || chunk > TOPK_MAX_CHUNK || n_valid < 0 ||
+        n_valid > n_rows || psi_type < 0 || psi_type > 2 ||
+        (mask != nullptr && B > 1 && mask_stride < n_rows))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSuccess;
     cudaStream_t st = (cudaStream_t)stream;
     const int n_chunks = (n_rows + chunk - 1) / chunk;
-    if ((long long)n_chunks * chunk > scratch) return (int)cudaErrorInvalidValue;
-    if (n_chunks > 0) {
-        dim3 grid(n_chunks, (B + TOPK_ROWS - 1) / TOPK_ROWS);
-        const bool vec = D % 4 == 0 && ((uintptr_t)psi & 15) == 0;
-        if (vec)
-            topk_chunk_kernel<true><<<grid, chunk, 0, st>>>(
-                phi, psi, excl, B, n_rows, D, L, id_offset, n_valid, lchunk, lchunk, cand);
-        else
-            topk_chunk_kernel<false><<<grid, chunk, 0, st>>>(
-                phi, psi, excl, B, n_rows, D, L, id_offset, n_valid, lchunk, lchunk, cand);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    const size_t smem = sizeof(key_t64) * TOPK_WIDE_KEYS;
-    err = cudaFuncSetAttribute(topk_merge_wide_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(topk_merge_wide_kernel<true>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const bool large_k = chunk < k_pad;
+    if (large_k && (long long)n_chunks * chunk > scratch) return (int)cudaErrorInvalidValue;
+    const int lk_keep = large_k ? lchunk : lk_pad;
+    if (psi_type == 0)
+        err = launch_chunks<float>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows, D,
+                                   id_offset, n_valid, lchunk, lk_keep, cand, st);
+    else if (psi_type == 1)
+        err = launch_chunks<uint16_t>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows,
+                                      D, id_offset, n_valid, lchunk, lk_keep, cand, st);
+    else
+        err = launch_chunks<int8_t>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows,
+                                    D, id_offset, n_valid, lchunk, lk_keep, cand, st);
     if (err != cudaSuccess) return (int)err;
     const key_t64* src = cand;
     key_t64* bufs[2] = {cand2, cand};
-    int n = n_chunks, llin = lchunk, level = 0;
-    for (;;) {
-        const int lg = log2_exact(TOPK_WIDE_KEYS) - llin;  // lists a block holds
-        if (n <= (1 << lg)) break;
-        const int groups = (n + (1 << lg) - 1) >> lg;
-        const int llout = llin + lg < lk_pad ? llin + lg : lk_pad;
+    int n = n_chunks, level = 0;
+
+    if (!large_k) {
+        while (n > TOPK_MERGE_SLOTS) {
+            const int groups = (n + TOPK_MERGE_SLOTS - 1) / TOPK_MERGE_SLOTS;
+            key_t64* dst = bufs[level++ & 1];
+            topk_merge_kernel<false><<<dim3(groups, B), TOPK_MERGE_THREADS, 0, st>>>(
+                src, n, B, lk_pad, dst, K, out_s, out_i);
+            err = cudaGetLastError();
+            if (err != cudaSuccess) return (int)err;
+            src = dst;
+            n = groups;
+        }
+        topk_merge_kernel<true><<<dim3(1, B), TOPK_MERGE_THREADS, 0, st>>>(
+            src, n, B, lk_pad, nullptr, K, out_s, out_i);
+        return (int)cudaGetLastError();
+    }
+
+    int llen = lchunk;
+    while (n > 1) {
+        const int llout = llen + 1 < lk_pad ? llen + 1 : lk_pad;
+        const int groups = (n + 1) >> 1;
         if ((long long)groups << llout > scratch) return (int)cudaErrorInvalidValue;
         key_t64* dst = bufs[level++ & 1];
-        topk_merge_wide_kernel<false><<<dim3(groups, B), TOPK_MERGE_THREADS,
-                                        sizeof(key_t64) << (lg + llin), st>>>(
-            src, n, B, lg, llin, lk_pad, dst, K, out_s, out_i);
+        const long long threads = (long long)groups << (llen + 1);
+        topk_merge_global_kernel<<<dim3((unsigned)((threads + 255) / 256), B), 256, 0,
+                                   st>>>(src, n, B, llen, llout, dst);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         src = dst;
         n = groups;
-        llin = llout;
+        llen = llout;
     }
-    int lg = 0;
-    while ((1 << lg) < n) ++lg;
-    topk_merge_wide_kernel<true><<<dim3(1, B), TOPK_MERGE_THREADS,
-                                   sizeof(key_t64) << (lg + llin), st>>>(
-        src, n, B, lg, llin, lk_pad, nullptr, K, out_s, out_i);
+    topk_decode_kernel<<<dim3((K + 255) / 256, B), 256, 0, st>>>(
+        n > 0 ? src : nullptr, B, llen, K, out_s, out_i);
     return (int)cudaGetLastError();
 }
 

@@ -23,35 +23,44 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"topk_score: {msg}")
 
 
+_PSI_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
+
+
 def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
-               id_offset=0, n_valid=None, block_items=None):
+               psi_scale=None, id_offset=0, n_valid=None, block_items=None):
     """Fused top-K over the ψ table: ``(scores (B, k) f32, ids (B, k) i32)``.
 
     ``exclude_ids`` (B, L) int32 is a −1-padded list of GLOBAL excluded ids
-    per φ row; ``exclude_mask`` (B, n_rows) is the dense form, taken only
-    by the plain version for now. Local rows ≥ ``n_valid`` are
-    inadmissible, ids come back as ``id_offset + local``, and slots with
-    no admissible candidate are (−inf, −1). Ties rank in ascending id.
+    per φ row; ``exclude_mask`` (B, n_rows) bool, int8 or uint8, nonzero ⇒
+    excluded, is the dense form (one of the two, not both). Local rows ≥
+    ``n_valid`` are inadmissible, ids come back as ``id_offset + local``,
+    and slots with no admissible candidate are (−inf, −1). Ties rank in
+    ascending id.
+
+    ψ is fp32, bf16, or int8 with its per-row fp32 ``psi_scale`` (n_rows,)
+    (``core.quant.int8_quantize_rows``); each stored row is dequantized as
+    ``q·scale`` before the fp32 products, as in the reference.
 
     On CUDA, ``block_items`` is the ψ rows per pass-1 block (a power of
-    two; default :func:`~repro_torch.kernels.vmem.topk_block_items`). K
-    above 256 takes the kernel's large-K merge, up to
-    ``vmem.TOPK_WIDE_MAX_K_PAD`` (8,192). The dense ``exclude_mask`` and
-    bf16/int8 ψ raise ``NotImplementedError`` there; nothing falls back to
-    the plain version."""
-    if not on_cuda(phi, psi, exclude_mask, exclude_ids):
+    two; default :func:`~repro_torch.kernels.vmem.topk_block_items`). Any K
+    runs; a K whose key buffers exceed the card's free memory raises. The mask may be a column slice
+    of a wider mask (its rows are read at their own stride). Nothing falls
+    back to the plain version."""
+    if exclude_mask is not None and exclude_ids is not None:
+        raise ValueError("pass exclude_mask OR exclude_ids, not both")
+    if psi.dtype == torch.int8 and psi_scale is None:
+        raise ValueError("int8 psi needs psi_scale (per-row dequant scales)")
+    if psi_scale is not None and psi_scale.shape[0] != psi.shape[0]:
+        raise ValueError(
+            f"psi_scale has {psi_scale.shape[0]} rows, psi has {psi.shape[0]}")
+    if not on_cuda(phi, psi, exclude_mask, exclude_ids, psi_scale):
         return topk_score_ref(phi, psi, k, exclude_mask,
-                              exclude_ids=exclude_ids, id_offset=id_offset,
-                              n_valid=n_valid)
-    if exclude_mask is not None:
-        raise NotImplementedError(
-            "topk_score on CUDA takes exclude_ids; the dense exclude_mask "
-            "form is not ported to the kernel yet")
-    if psi.dtype != torch.float32:
-        raise NotImplementedError(
-            f"topk_score on CUDA takes fp32 psi; {psi.dtype} storage is not "
-            "ported to the kernel yet")
+                              exclude_ids=exclude_ids, psi_scale=psi_scale,
+                              id_offset=id_offset, n_valid=n_valid)
     _check(phi.dtype == torch.float32, f"phi must be float32, got {phi.dtype}")
+    _check(psi.dtype in _PSI_DTYPES,
+           f"psi must be float32, bfloat16 or int8, got {psi.dtype}")
     _check(phi.dim() == 2 and psi.dim() == 2 and phi.shape[1] == psi.shape[1],
            f"phi (B, D) and psi (n_rows, D) disagree: {tuple(phi.shape)} vs "
            f"{tuple(psi.shape)}")
@@ -59,6 +68,11 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
            "phi and psi must be contiguous")
     b, d = phi.shape
     n_rows = psi.shape[0]
+    if psi_scale is not None:
+        _check(psi_scale.dtype == torch.float32 and psi_scale.dim() == 1
+               and psi_scale.is_contiguous(),
+               f"psi_scale must be a contiguous float32 (n_rows,) tensor, got "
+               f"{psi_scale.dtype} {tuple(psi_scale.shape)}")
     if exclude_ids is not None:
         _check(exclude_ids.dtype == torch.int32,
                f"exclude_ids must be int32, got {exclude_ids.dtype}")
@@ -66,45 +80,79 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
                and exclude_ids.is_contiguous(),
                f"exclude_ids must be a contiguous (B={b}, L) tensor, got "
                f"{tuple(exclude_ids.shape)}")
+    mask, mask_stride = None, 0
+    if exclude_mask is not None:
+        _check(exclude_mask.dtype in _MASK_DTYPES,
+               f"exclude_mask must be bool, int8 or uint8, got "
+               f"{exclude_mask.dtype}")
+        _check(tuple(exclude_mask.shape) == (b, n_rows),
+               f"exclude_mask must be (B={b}, n_rows={n_rows}), got "
+               f"{tuple(exclude_mask.shape)}")
+        # a column slice of a wider mask is read in place at its row
+        # stride; its columns must be adjacent bytes
+        _check(n_rows <= 1 or exclude_mask.stride(1) == 1,
+               f"exclude_mask columns must be contiguous, got strides "
+               f"{exclude_mask.stride()}")
+        mask = exclude_mask.view(torch.uint8)
+        mask_stride = exclude_mask.stride(0) if b > 1 else n_rows
+        _check(b <= 1 or mask_stride >= n_rows,
+               f"exclude_mask rows overlap: row stride {mask_stride} < "
+               f"{n_rows} columns")
     n_valid = n_rows if n_valid is None else max(0, min(int(n_valid), n_rows))
     id_offset = int(id_offset)
     _check(0 <= id_offset and id_offset + n_rows < 2**31,
            f"global ids must fit int32 (id_offset={id_offset})")
     k_pad = vmem.topk_k_pad(k)
+    large_k = k_pad > vmem.TOPK_MAX_CHUNK
     chunk = block_items or vmem.topk_block_items(k_pad, n_items=n_rows)
-    wide = k_pad > vmem.TOPK_MAX_CHUNK
-    lo = 32 if wide else max(32, k_pad)
+    lo = 32 if large_k else max(32, k_pad)
     _check(chunk & (chunk - 1) == 0 and lo <= chunk <= vmem.TOPK_MAX_CHUNK,
-           f"block_items={chunk} must be a power of two in "
-           f"[{lo}, {vmem.TOPK_MAX_CHUNK}]")
-    _check(k_pad <= vmem.TOPK_WIDE_MAX_K_PAD,
-           f"k={k} exceeds the kernel's largest K, {vmem.TOPK_WIDE_MAX_K_PAD}")
+           f"block_items={chunk} must be a power of two in [{lo}, "
+           f"{vmem.TOPK_MAX_CHUNK}]")
     scores = torch.empty((b, k), dtype=torch.float32, device=phi.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=phi.device)
     if b == 0:
         return scores, ids
     _check(b <= 65535, f"B={b} rows exceed one launch's grid")
     n_chunks = -(-n_rows // chunk)
-    if wide:
-        # pass 1 writes every chunk's keys; a merge level writes at most
-        # half what it reads (lists of k_pad ≤ TOPK_WIDE_KEYS / 2 from
-        # blocks of TOPK_WIDE_KEYS keys), so each buffer needs as many
-        keys = n_chunks * chunk
-        cand, cand2 = (torch.empty((b * keys,), dtype=torch.int64,
-                                   device=phi.device) for _ in range(2))
-    else:
+    if not large_k:
         n_level2 = max(1, -(-n_chunks // vmem.TOPK_MERGE_SLOTS))
         cand = torch.empty((n_chunks, b, k_pad), dtype=torch.int64,
                            device=phi.device)
         cand2 = torch.empty((n_level2, b, k_pad), dtype=torch.int64,
                             device=phi.device)
-    kernel.launch(phi, psi, exclude_ids, k, k_pad, chunk, id_offset, n_valid,
-                  scores, ids, cand, cand2, wide=wide)
+    else:
+        keys = vmem.topk_large_k_keys(n_chunks, chunk, k_pad)
+        nbytes = 2 * 8 * b * keys
+        # free device memory, plus what PyTorch's cache holds unused
+        free = (torch.cuda.mem_get_info(phi.device)[0]
+                + torch.cuda.memory_reserved(phi.device)
+                - torch.cuda.memory_allocated(phi.device))
+        if nbytes > free:
+            raise RuntimeError(
+                f"topk_score: k={k} at B={b} over {n_rows} rows needs "
+                f"{nbytes} bytes of candidate keys, more than the {free} "
+                f"bytes free on {phi.device}")
+        cand, cand2 = (torch.empty((b * keys,), dtype=torch.int64,
+                                   device=phi.device) for _ in range(2))
+    kernel.launch(phi, psi, psi_scale, exclude_ids, mask, mask_stride, k,
+                  k_pad, chunk, id_offset, n_valid, scores, ids, cand, cand2)
     topk_score.launches += 1
+    if psi.dtype == torch.bfloat16:
+        topk_score.launches_bf16 += 1
+    elif psi.dtype == torch.int8:
+        topk_score.launches_int8 += 1
+    if mask is not None:
+        topk_score.launches_mask += 1
     return scores, ids
 
 
-topk_score.launches = 0  # CUDA kernel launches (chip_smoke.py reads it)
+# CUDA kernel launches (chip_smoke.py reads them): all forms, then the
+# bf16-ψ, int8-ψ and dense-mask forms among them
+topk_score.launches = 0
+topk_score.launches_bf16 = 0
+topk_score.launches_int8 = 0
+topk_score.launches_mask = 0
 
 
 def topk_merge_shards(shard_scores, shard_ids, k: int):

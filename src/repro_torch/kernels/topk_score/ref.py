@@ -34,15 +34,27 @@ def exclude_ids_to_mask(exclude_ids, n_items: int, *, id_offset: int = 0):
     return mask
 
 
+def dequantize_psi(psi, psi_scale=None) -> torch.Tensor:
+    """The fp32 table the kernel scores against: bf16 and int8 storage
+    cast to fp32, then, with ``psi_scale`` (n_rows,), each row multiplied
+    by its scale (int8's per-row form), element by element."""
+    psi = psi.float()
+    if psi_scale is not None:
+        psi = psi * psi_scale.float()[:, None]
+    return psi
+
+
 def topk_score_ref(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
-                   id_offset: int = 0, n_valid=None):
+                   psi_scale=None, id_offset: int = 0, n_valid=None):
     """Dense top-K with the kernel's semantics: ``(scores (B, k) f32,
     ids (B, k) i32)``. ``exclude_mask`` (B, n_rows) nonzero and
     ``exclude_ids`` (B, L) global ids are the two exclusion forms; local
-    rows ≥ ``n_valid`` are inadmissible and ids are ``id_offset + local``."""
+    rows ≥ ``n_valid`` are inadmissible and ids are ``id_offset + local``.
+    ψ may be fp32, bf16, or int8 with its per-row ``psi_scale``
+    (:func:`dequantize_psi`)."""
     n_rows = psi.shape[0]
     n_valid = n_rows if n_valid is None else max(0, min(int(n_valid), n_rows))
-    scores = phi.float() @ psi.float().T
+    scores = phi.float() @ dequantize_psi(psi, psi_scale).T
     if exclude_ids is not None:
         if exclude_mask is not None:
             raise ValueError("pass exclude_mask OR exclude_ids, not both")

@@ -108,12 +108,20 @@ def topk_max_chunk() -> int:
 TOPK_MAX_CHUNK = topk_max_chunk()
 
 
-# Large K (k_pad > TOPK_MAX_CHUNK): the merge levels hold up to
-# TOPK_WIDE_KEYS keys a block in dynamic shared memory (128 KB), two lists of
-# k_pad at least, so k_pad stops at TOPK_WIDE_KEYS / 2.
-TOPK_WIDE_KEYS = 16_384
-TOPK_WIDE_MAX_K_PAD = TOPK_WIDE_KEYS // 2
-assert _KEY_BYTES * TOPK_WIDE_KEYS <= SMEM_BLOCK_MAX
+# Large K (k_pad > TOPK_MAX_CHUNK): pass 1 keeps whole sorted chunks and the
+# merge levels, pairwise in device memory, keep every key until lists reach
+# k_pad, then the first k_pad.
+def topk_large_k_keys(n_chunks: int, chunk: int, k_pad: int) -> int:
+    """Keys a φ row needs in each of the two candidate buffers of the
+    large-K merge. A level merges lists in pairs into lists of
+    min(2·len, k_pad), an odd last list against an empty partner, so a
+    level may write more than it read: the buffers hold the largest."""
+    keys = n_chunks * chunk
+    n, length = n_chunks, chunk
+    while n > 1:
+        length, n = min(2 * length, k_pad), -(-n // 2)
+        keys = max(keys, n * length)
+    return keys
 
 
 def topk_block_items(k_pad: int, *, n_items: int | None = None) -> int:
@@ -122,22 +130,32 @@ def topk_block_items(k_pad: int, *, n_items: int | None = None) -> int:
 
     Up to TOPK_MAX_CHUNK, a block keeps the best ``k_pad`` keys of its
     chunk, so the chunk is at least ``k_pad``, and pass 2 holds
-    TOPK_MERGE_SLOTS lists of ``k_pad`` keys. Above it (the large-K path)
-    a chunk keeps all its rows and is smaller than ``k_pad``; the merge
-    levels keep every key until lists reach ``k_pad``, in blocks of
-    TOPK_WIDE_KEYS keys. ``n_items`` shrinks the chunk for a small table
-    (one block, fewer idle threads). Raises :class:`VmemBudgetError` when
-    ``k_pad`` exceeds TOPK_WIDE_MAX_K_PAD."""
+    TOPK_MERGE_SLOTS lists of ``k_pad`` keys. Above it (large K) a chunk
+    keeps all its rows and is smaller than ``k_pad``
+    (:func:`topk_large_k_keys`). ``n_items`` shrinks the chunk for a small
+    table (one block, fewer idle threads). Any K fits: the device memory
+    of the key buffers is the only limit, and the wrapper checks it."""
     chunk = TOPK_MAX_CHUNK
-    if k_pad > TOPK_WIDE_MAX_K_PAD:
-        raise VmemBudgetError(
-            f"k_pad={k_pad} does not fit the topk_score blocks: a large-K "
-            f"merge block holds {TOPK_WIDE_KEYS} keys, two lists of at most "
-            f"{TOPK_WIDE_MAX_K_PAD}")
     lo = max(k_pad, 32) if k_pad <= chunk else 32
     if n_items is not None:
         chunk = min(chunk, max(lo, _pow2_ceil(max(1, n_items))))
     return chunk
+
+
+def psi_row_bytes(d: int, *, psi_bytes: int = 4,
+                  per_row_scale: bool = False) -> int:
+    """Device-memory bytes one ψ catalogue row occupies in serving
+    storage: ``d·psi_bytes`` plus the fp32 per-row scale (int8 form)."""
+    return d * psi_bytes + (4 if per_row_scale else 0)
+
+
+def shard_capacity_rows(hbm_bytes: int, d: int, *, psi_bytes: int = 4,
+                        per_row_scale: bool = False) -> int:
+    """ψ rows one shard device can hold in ``hbm_bytes`` of slab budget:
+    int8 with its per-row scale at D = 128 holds 512/132 ≈ 3.9× the fp32
+    rows."""
+    return hbm_bytes // psi_row_bytes(
+        d, psi_bytes=psi_bytes, per_row_scale=per_row_scale)
 
 
 def cluster_block_items(k_pad: int, *, shard_items: int) -> int:

@@ -23,24 +23,25 @@ from repro_torch.obs.metrics import resolve_registry
 
 
 def topk_score_cost(b: int, n_rows: int, d: int, k: int, *,
-                    excl_l: int = 0) -> Dict[str, float]:
-    """Cost of ONE ``topk_score`` kernel call over ``n_rows`` fp32 ψ rows.
+                    psi_bytes: int = 4, per_row_scale: bool = False,
+                    excl_l: int = 0, mask: bool = False) -> Dict[str, float]:
+    """Cost of ONE ``topk_score`` kernel call over ``n_rows`` stored ψ rows.
 
-    Bytes: the ψ shard read once per 16-row φ block (pass 1 stages ψ per
-    φ block), φ read once, the (B, k) scores and ids written, and the
-    exclude-id lists read. The (chunks, B, k_pad) candidate keys that pass
-    1 writes and pass 2 reads back are left out. FLOPs: the score
-    product's ``2·B·n_rows·D``."""
+    Bytes: the ψ shard at its stored width
+    (:func:`~repro_torch.kernels.vmem.psi_row_bytes`: ``psi_bytes`` a value,
+    plus the fp32 scale of the int8 form) read once per 16-row φ block
+    (pass 1 stages ψ per φ block), φ read once, the (B, k) scores and ids
+    written, the exclude-id lists read, and the dense (B, n_rows) byte mask
+    read (``mask``). The candidate keys that pass 1 writes and pass 2 reads
+    back are left out. FLOPs: the score product's ``2·B·n_rows·D``."""
     row_blocks = -(-b // vmem.TOPK_ROW_BLOCK)
-    hbm = (4.0 * row_blocks * n_rows * d + 4.0 * b * d + 8.0 * b * k
-           + 4.0 * b * excl_l)
-    try:
-        chunk = vmem.topk_block_items(vmem.topk_k_pad(k), n_items=n_rows)
-        smem = float(vmem.topk_smem_bytes(chunk))
-    except vmem.VmemBudgetError:  # k the kernel does not take (CPU only)
-        smem = float(vmem.SMEM_STATIC_BYTES)
+    row = vmem.psi_row_bytes(d, psi_bytes=psi_bytes,
+                             per_row_scale=per_row_scale)
+    hbm = (float(row_blocks) * n_rows * row + 4.0 * b * d + 8.0 * b * k
+           + 4.0 * b * excl_l + (float(b) * n_rows if mask else 0.0))
+    chunk = vmem.topk_block_items(vmem.topk_k_pad(k), n_items=n_rows)
     return {"hbm_bytes": hbm, "flops": 2.0 * b * n_rows * d,
-            "smem_bytes": smem}
+            "smem_bytes": float(vmem.topk_smem_bytes(chunk))}
 
 
 def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
@@ -161,8 +162,12 @@ class KernelCostRecorder:
         smem_g.set(cost.get("smem_bytes", 0.0))
 
     def record_topk(self, b: int, n_rows: int, d: int, k: int, *,
-                    kernel: str = "topk_score", excl_l: int = 0) -> None:
-        self.record(kernel, topk_score_cost(b, n_rows, d, k, excl_l=excl_l))
+                    kernel: str = "topk_score", psi_bytes: int = 4,
+                    per_row_scale: bool = False, excl_l: int = 0,
+                    mask: bool = False) -> None:
+        self.record(kernel, topk_score_cost(
+            b, n_rows, d, k, psi_bytes=psi_bytes,
+            per_row_scale=per_row_scale, excl_l=excl_l, mask=mask))
 
     def record_cd_sweep(self, c: int, d_pad: int, k: int, k_b: int, *,
                         kernel: str = "cd_sweep", sweeps: int = 1,

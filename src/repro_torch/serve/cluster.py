@@ -14,19 +14,26 @@ Exclusion: a dense (B, n_items) mask is sliced to the shard's row range;
 the ``exclude_ids`` form is passed whole (global ids, so a shard simply
 never matches ids outside its range).
 
-``shard_map_topk`` and ``ShardedRetrievalCluster`` are not ported yet
-(slice 5); the fault-tolerant mesh (``serve/mesh.py``) builds on the
-functions here.
+:class:`ShardedRetrievalCluster` is the service over these functions:
+versioned, double-buffered publishes (``serve/publish.py``), delta
+publishes, ``devices=`` placement, the IVF tier (``retrieval='ivf'``,
+``serve/ann.py``) and kernel cost recording. The fault-tolerant mesh
+(``serve/mesh.py``) builds on the same functions. :func:`shard_map_topk`,
+the reference's one-program ``shard_map`` path, waits for slice 7
+(``torch.distributed``) and raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import resolve_device, vmem
 from repro_torch.kernels.topk_score.ops import topk_merge_shards, topk_score
+
+_SLICE7 = ("the shard_map path is not ported yet: one program over several "
+           "devices comes with torch.distributed in slice 7")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,9 +160,27 @@ class PsiShardSet:
     def n_shards(self) -> int:
         return len(self.shards)
 
+    @property
+    def d(self) -> int:
+        return int(self.shards[0].shape[1])
+
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        return tuple(s * self.rows_per for s in range(self.n_shards))
+
     def valid_rows(self, s: int) -> int:
         """Admissible rows of shard ``s`` (< rows_per only on the last)."""
         return max(0, min(self.rows_per, self.n_items - s * self.rows_per))
+
+    def stacked(self) -> torch.Tensor:
+        """(S, rows_per, D) on the first shard's device, memoized on the
+        snapshot (immutable: a publish makes a NEW shard set)."""
+        cached = getattr(self, "_stacked_cache", None)
+        if cached is None:
+            dev = self.shards[0].device
+            cached = torch.stack([sh.to(dev) for sh in self.shards])
+            object.__setattr__(self, "_stacked_cache", cached)
+        return cached
 
 
 def shard_psi(
@@ -252,3 +277,175 @@ def cluster_topk(
         torch.stack(colocate_parts(parts_i)), k,
     )
     return TopKResult(ms, mi, coverage, ranges)
+
+
+def shard_map_topk(mesh, table: PsiShardSet, phi_rows, k: int, *,
+                   exclude_ids=None, block_items: Optional[int] = None):
+    """The reference's one-program path over a device mesh. Not ported:
+    it comes with ``torch.distributed`` in slice 7."""
+    raise NotImplementedError(_SLICE7)
+
+
+class ShardedRetrievalCluster:
+    """Sharded retrieval service: versioned ψ shards + merge + refresh::
+
+        cluster = ShardedRetrievalCluster(
+            lambda ctx: mf.build_phi(params, ctx), n_shards=4, k=100)
+        cluster.publish(mf.export_psi(params))      # version 1 live
+        scores, ids = cluster.topk(user_ids)        # == engine, bit-exact
+        cluster.publish(mf.export_psi(new_params))  # version 2; in-flight
+                                                    # queries finish on v1
+
+    ``publish`` is double-buffered and versioned (``serve/publish.py``):
+    each ``topk`` grabs the active :class:`PsiShardSet` once and serves
+    the whole request from that snapshot. ``devices=`` places shard s on
+    ``devices[s % len(devices)]``. ``mesh=`` (the one-program path) raises
+    until slice 7.
+    """
+
+    def __init__(self, phi_fn: Optional[Callable[..., torch.Tensor]] = None,
+                 *, n_shards: int = 2, k: int = 100,
+                 block_items: Optional[int] = None,
+                 devices: Optional[Sequence] = None, psi_table=None,
+                 retrieval: str = "exact", ann=None, registry=None):
+        from repro_torch.obs.costs import KernelCostRecorder
+        from repro_torch.obs.metrics import next_instance_id, resolve_registry
+        from repro_torch.serve.publish import VersionedTable
+
+        self.phi_fn = phi_fn
+        self.n_shards = int(n_shards)
+        self.k = int(k)
+        self.block_items = block_items
+        self.devices = devices
+        if retrieval not in ("exact", "ivf"):
+            raise ValueError(f"retrieval must be 'exact' or 'ivf', got {retrieval!r}")
+        self.retrieval = retrieval
+        self.ann = ann
+        self._ivf: dict = {}      # table version → per-shard PsiIndex tuple
+        self._table = VersionedTable()
+        self.registry = resolve_registry(registry)
+        self._costs = KernelCostRecorder(self.registry)
+        self._m_queries = self.registry.counter(
+            "serve_cluster_queries_total", "cluster topk_phi requests",
+            labels=("instance",)).labels(instance=next_instance_id())
+        if psi_table is not None:
+            self.publish(psi_table)
+
+    # ------------------------------------------------------------- publish
+    def publish(self, psi_table) -> int:
+        """Shard + version a fresh ψ snapshot and flip it live; returns the
+        new version. Never disturbs in-flight readers (double buffer)."""
+        return self._table.publish(
+            lambda version: shard_psi(psi_table, self.n_shards,
+                                      devices=self.devices, version=version))
+
+    def publish_delta(self, rows, ids) -> int:
+        """Incremental publish: patch/append ψ ``rows`` at global item
+        ``ids`` onto the active table and flip the result live under a
+        normal version bump. Appends (ids ≥ n_items) grow the catalogue.
+
+        With ``retrieval='ivf'`` the delta also FOLDS into the live
+        per-shard indexes (``serve.ann.fold_delta_indexes``) instead of
+        re-running k-means; a delta that changes the shard geometry
+        (rows_per) leaves the indexes to a lazy full rebuild. Returns the
+        new version."""
+        from repro_torch.serve.publish import apply_delta, dense_table
+
+        old_table = self.table
+        old_indexes = self._ivf.get(old_table.version)
+        version = self.publish(apply_delta(dense_table(old_table), rows, ids))
+        if self.retrieval == "ivf" and old_indexes is not None:
+            from repro_torch.serve.ann import fold_delta_indexes
+
+            new_table = self.table
+            if (new_table.rows_per == old_table.rows_per
+                    and new_table.n_shards == old_table.n_shards):
+                self._ivf = {version: fold_delta_indexes(
+                    old_indexes, new_table, rows, ids, self._ann_cfg(),
+                    registry=self.registry)}
+        return version
+
+    def _ann_cfg(self):
+        from repro_torch.serve.ann import AnnConfig
+
+        return self.ann or AnnConfig()
+
+    def _ivf_indexes(self, table: PsiShardSet):
+        """Per-shard IVF indexes for one table snapshot, built lazily and
+        memoized on the publish version; only the latest is kept."""
+        cached = self._ivf.get(table.version)
+        if cached is None:
+            from repro_torch.serve.ann import build_shard_indexes
+
+            cached = build_shard_indexes(table, self._ann_cfg())
+            self._ivf = {table.version: cached}
+        return cached
+
+    @property
+    def table(self) -> PsiShardSet:
+        """The active (latest published) shard set."""
+        return self._table.active
+
+    @property
+    def version(self) -> int:
+        return self._table.version
+
+    @property
+    def n_items(self) -> int:
+        return self.table.n_items
+
+    # -------------------------------------------------------------- query
+    def phi(self, *query) -> torch.Tensor:
+        return torch.as_tensor(self.phi_fn(*query), dtype=torch.float32)
+
+    def topk(self, *query, k: Optional[int] = None, exclude_mask=None,
+             exclude_ids=None, mesh=None) -> TopKResult:
+        """(scores, ids) :class:`TopKResult`, both (B, k), for a query
+        batch (coverage always 1.0: the unreplicated cluster has no
+        failure detector; see ``serve/mesh.py`` for the degraded path)."""
+        return self.topk_phi(self.phi(*query), k=k, exclude_mask=exclude_mask,
+                             exclude_ids=exclude_ids, mesh=mesh)
+
+    def topk_phi(self, phi_rows, *, k: Optional[int] = None,
+                 exclude_mask=None, exclude_ids=None, mesh=None) -> TopKResult:
+        """Like :meth:`topk` from pre-built φ rows (batcher / eval path).
+
+        ``retrieval='ivf'`` routes through the per-shard IVF indexes: each
+        shard prunes to its ``n_probe`` cluster blocks and re-ranks them
+        with the exact kernel; the cross-shard merge is unchanged. A dense
+        ``exclude_mask`` is sliced per shard on the exact path and refused
+        under IVF, as in the reference."""
+        table = self.table  # ONE snapshot: version-consistent whole request
+        k = k or self.k
+        self._m_queries.inc()
+        if mesh is not None:
+            raise NotImplementedError(_SLICE7)
+        dev = table.shards[0].device
+        phi_rows = torch.as_tensor(phi_rows, dtype=torch.float32).to(dev)
+        if exclude_ids is not None:
+            exclude_ids = torch.as_tensor(exclude_ids, dtype=torch.int32).to(dev)
+        if self.retrieval == "ivf":
+            if exclude_mask is not None:
+                raise ValueError(
+                    "retrieval='ivf' takes exclude_ids (global id lists), "
+                    "not a dense exclude_mask")
+            from repro_torch.serve.ann import ivf_cluster_topk
+
+            return ivf_cluster_topk(
+                table, self._ivf_indexes(table), phi_rows, k,
+                exclude_ids=exclude_ids, registry=self.registry)
+        from repro_torch.obs.costs import topk_score_cost
+
+        b = int(phi_rows.shape[0])
+        excl_l = 0 if exclude_ids is None else int(exclude_ids.shape[1])
+        cost = topk_score_cost(b, table.rows_per, table.d, k, excl_l=excl_l,
+                               mask=exclude_mask is not None)
+        # one kernel call per shard: S× the streams, the same block
+        self._costs.record("topk_score", {
+            "hbm_bytes": cost["hbm_bytes"] * table.n_shards,
+            "flops": cost["flops"] * table.n_shards,
+            "smem_bytes": cost["smem_bytes"],
+        }, calls=table.n_shards)
+        return cluster_topk(table, phi_rows, k, exclude_mask=exclude_mask,
+                            exclude_ids=exclude_ids,
+                            block_items=self.block_items)

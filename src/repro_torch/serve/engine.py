@@ -14,11 +14,14 @@ Exclusion forms:
   * ``exclude_ids`` (B, L) int32, −1-padded per-row GLOBAL id lists
     (:func:`exclude_ids_from_lists`) — the form the kernel takes;
   * ``exclude_mask`` (B, n_items) bool (:func:`exclude_mask_from_lists`)
-    — the dense form, for the plain version and test-sized batches (the
-    kernel does not take it yet).
+    — the dense form, for query-batch-sized test and oracle use.
+
+``retrieval='ivf'`` indexes the ψ table once at construction
+(``serve/ann.py``) and serves through centroid pruning and the exact
+kernel over the probed blocks; it takes the ``exclude_ids`` form only.
 
 Not ported yet: ``RetrievalEngine.from_model`` and ``fold_in_phi``
-(fold-in, with the Model API), and ``retrieval='ivf'`` (slice 5).
+(fold-in, with the Model API).
 """
 from __future__ import annotations
 
@@ -78,10 +81,7 @@ class RetrievalEngine:
                  phi_fn: Callable[..., torch.Tensor], *, k: int = 100,
                  block_items: Optional[int] = None, retrieval: str = "exact",
                  ann=None, registry=None):
-        if retrieval == "ivf":
-            raise NotImplementedError(
-                "retrieval='ivf' is not ported yet: slice 5")
-        if retrieval != "exact":
+        if retrieval not in ("exact", "ivf"):
             raise ValueError(
                 f"retrieval must be 'exact' or 'ivf', got {retrieval!r}")
         self.psi = torch.as_tensor(psi_table).float().contiguous()
@@ -89,9 +89,17 @@ class RetrievalEngine:
         self.k = k
         self.block_items = block_items
         self.retrieval = retrieval
-        self.ann = ann
         self.registry = resolve_registry(registry)
         self._costs = KernelCostRecorder(self.registry)
+        self.index = None
+        self.ann = ann
+        if retrieval == "ivf":
+            # the engine's ψ is fixed at construction, so the IVF tier
+            # indexes it once, eagerly
+            from repro_torch.serve.ann import AnnConfig, PsiIndex
+
+            self.ann = ann or AnnConfig()
+            self.index = PsiIndex.build(self.psi, self.ann)
 
     @classmethod
     def from_model(cls, model, params, **kw) -> "RetrievalEngine":
@@ -118,11 +126,28 @@ class RetrievalEngine:
 
     def topk_phi(self, phi_rows, *, k: Optional[int] = None,
                  exclude_mask=None, exclude_ids=None) -> TopKResult:
-        """Like :meth:`topk` but from pre-built φ rows (the eval path)."""
+        """Like :meth:`topk` but from pre-built φ rows (the eval path).
+
+        ``retrieval='ivf'`` routes through the engine's
+        :class:`~repro_torch.serve.ann.PsiIndex`; with ``ann.n_probe >=
+        n_clusters`` the result is the exact path's. The IVF tier takes
+        ``exclude_ids`` only: a dense mask is indexed by catalogue position,
+        which an approximate tier must not depend on."""
+        if self.retrieval == "ivf":
+            if exclude_mask is not None:
+                raise ValueError(
+                    "retrieval='ivf' takes exclude_ids (global id lists), "
+                    "not a dense exclude_mask")
+            s, i = self.index.topk(phi_rows, k or self.k,
+                                   exclude_ids=exclude_ids,
+                                   block_items=self.block_items,
+                                   registry=self.registry)
+            return TopKResult(s, i)
         b = int(phi_rows.shape[0])
         excl_l = 0 if exclude_ids is None else int(exclude_ids.shape[1])
         self._costs.record_topk(b, self.n_items, int(self.psi.shape[1]),
-                                k or self.k, excl_l=excl_l)
+                                k or self.k, excl_l=excl_l,
+                                mask=exclude_mask is not None)
         s, i = topk_score(phi_rows, self.psi, k or self.k, exclude_mask,
                           exclude_ids=exclude_ids,
                           block_items=self.block_items)

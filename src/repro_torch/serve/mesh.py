@@ -30,11 +30,23 @@ graceful degradation over the sharded cluster (port of
     :class:`~repro_torch.serve.cluster.TopKResult` reports
     ``coverage < 1.0`` and the dead global-id ranges.
 
+  staged rollout — ``publish.StagedRollout`` drives the canary protocol
+    (:meth:`~FaultTolerantRetrievalMesh.begin_canary` →
+    :meth:`~FaultTolerantRetrievalMesh.mirror_check` →
+    :meth:`~FaultTolerantRetrievalMesh.promote_canary` /
+    :meth:`~FaultTolerantRetrievalMesh.rollback_canary`): the next ψ table
+    is installed on ONE canary replica per shard, off the routing path,
+    health-checked under mirrored traffic, and promoted or dropped.
+
+  IVF tier — ``retrieval='ivf'`` serves each shard through its
+    ``serve.ann.PsiIndex`` (built lazily per table version and shared by
+    the shard's replicas, which hold the same content); the failover,
+    retry and health machinery wraps both paths alike. ``publish_delta``
+    folds a delta into the live indexes.
+
 Everything is single-process and clock-injectable, so tests drive
 simulated clocks and the :class:`FaultInjector` instead of killing
-processes. The IVF tier (``retrieval='ivf'``), ``publish_delta`` and the
-canary rollout are not ported yet (slice 5) and raise
-``NotImplementedError``.
+processes.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ import itertools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.topk_score.ops import topk_merge_shards
@@ -60,8 +73,6 @@ from repro_torch.serve.cluster import (
     shard_psi,
     shard_topk,
 )
-
-_SLICE5 = "slice 5"
 
 
 # ------------------------------------------------------------------ failures
@@ -178,6 +189,7 @@ class Replica:
     device: Optional[object]
     version: int
     alive: bool = True
+    canary: bool = False          # staged next-version copy; not routed
     outstanding: int = 0          # in-flight dispatches (least_outstanding)
     served: int = 0
     failures: int = 0             # consecutive failures (reset on success)
@@ -248,7 +260,7 @@ class ReplicaSet:
         return self.table.version
 
     def live(self, s: int) -> List[Replica]:
-        return [r for r in self.replicas[s] if r.alive]
+        return [r for r in self.replicas[s] if r.alive and not r.canary]
 
     def dead_shards(self) -> List[int]:
         return [s for s in range(self.n_shards) if not self.live(s)]
@@ -367,17 +379,17 @@ class FaultTolerantRetrievalMesh:
         sleep: Optional[Callable[[float], None]] = None,
         psi_table: Optional[torch.Tensor] = None,
         retrieval: str = "exact",
+        ann=None,                                  # serve.ann.AnnConfig
         registry=None,
         tracer=None,
     ):
         from repro_torch.serve.publish import VersionedTable
 
-        if retrieval == "ivf":
-            raise NotImplementedError(
-                f"retrieval='ivf' is not ported yet ({_SLICE5})")
-        if retrieval != "exact":
+        if retrieval not in ("exact", "ivf"):
             raise ValueError(f"retrieval must be 'exact' or 'ivf', got {retrieval!r}")
         self.retrieval = retrieval
+        self.ann = ann
+        self._ivf: Dict[int, tuple] = {}   # table version → per-shard indexes
         self.phi_fn = phi_fn
         self.n_shards = int(n_shards)
         self.n_replicas = int(n_replicas)
@@ -393,6 +405,7 @@ class FaultTolerantRetrievalMesh:
         self.clock = clock
         self.sleep = sleep if sleep is not None else (lambda dt: None)
         self._set = VersionedTable()
+        self._canary: Optional[PsiShardSet] = None
         # counters live on the metrics registry with a per-instance label;
         # ``self.stats`` is the live read-only view. ``tracer`` opts into
         # dispatch/retry/failover/merge spans under the batcher's flush span.
@@ -432,6 +445,12 @@ class FaultTolerantRetrievalMesh:
                                "dispatches (real wall time + injected "
                                "fault latency)"),
             "heals": ("serve_mesh_heals_total", "heal() invocations"),
+            "canary_staged": ("serve_mesh_canary_staged_total",
+                              "canary tables staged"),
+            "canary_promoted": ("serve_mesh_canary_promoted_total",
+                                "canaries promoted live"),
+            "canary_rolled_back": ("serve_mesh_canary_rolled_back_total",
+                                   "canaries rolled back"),
         }
         self._m = {key: _c(name, help_text)
                    for key, (name, help_text) in counter_specs.items()}
@@ -459,7 +478,8 @@ class FaultTolerantRetrievalMesh:
     # ------------------------------------------------------------- publish
     def publish(self, psi_table) -> int:
         """Shard, replicate, version, and atomically flip a ψ snapshot
-        live. Returns the new version."""
+        live (the unstaged path — see :meth:`begin_canary` for the staged
+        rollout). Returns the new version."""
         version = self._set.publish(
             lambda version: ReplicaSet(
                 shard_psi(psi_table, self.n_shards, version=version),
@@ -470,7 +490,51 @@ class FaultTolerantRetrievalMesh:
         return version
 
     def publish_delta(self, rows, ids) -> int:
-        raise NotImplementedError(f"publish_delta is not ported yet ({_SLICE5})")
+        """Incremental publish: patch/append ψ ``rows`` at global item
+        ``ids`` onto the authoritative table copy and flip the rebuilt
+        ReplicaSet live under a normal version bump. Every replica is
+        rebuilt at the new version, so the stale-refusal guard keeps
+        holding; a staged canary must be resolved first (its row geometry
+        may no longer match after an append). Under ``retrieval='ivf'``
+        the delta folds into the live indexes unless the shard geometry
+        changed. Returns the new version."""
+        from repro_torch.serve.publish import apply_delta, dense_table
+
+        if self._canary is not None:
+            raise RuntimeError(
+                "cannot delta-publish with a canary staged — promote or "
+                "roll it back first")
+        old_table = self.table
+        old_indexes = self._ivf.get(old_table.version)
+        version = self.publish(apply_delta(dense_table(old_table), rows, ids))
+        if self.retrieval == "ivf" and old_indexes is not None:
+            from repro_torch.serve.ann import fold_delta_indexes
+
+            new_table = self.table
+            if (new_table.rows_per == old_table.rows_per
+                    and new_table.n_shards == old_table.n_shards):
+                self._ivf = {version: fold_delta_indexes(
+                    old_indexes, new_table, rows, ids, self._ann_cfg(),
+                    registry=self.registry)}
+        return version
+
+    def _ann_cfg(self):
+        from repro_torch.serve.ann import AnnConfig
+
+        return self.ann or AnnConfig()
+
+    def _ivf_indexes(self, table: PsiShardSet) -> tuple:
+        """Per-shard IVF indexes for one snapshot, built lazily and keyed
+        on the publish version. Shared by every replica of a shard: the
+        index is a function of the shard's content, which replicas mirror
+        exactly, so failover never changes the index either."""
+        cached = self._ivf.get(table.version)
+        if cached is None:
+            from repro_torch.serve.ann import build_shard_indexes
+
+            cached = build_shard_indexes(table, self._ann_cfg())
+            self._ivf = {table.version: cached}
+        return cached
 
     @property
     def replica_set(self) -> ReplicaSet:
@@ -560,8 +624,17 @@ class FaultTolerantRetrievalMesh:
         if exclude_ids is not None:
             exclude_ids = torch.as_tensor(exclude_ids, dtype=torch.int32).to(dev)
         b = int(phi_rows.shape[0])
+        indexes = None
         block_items = self.block_items
-        if block_items is None:
+        if self.retrieval == "ivf":
+            if exclude_mask is not None:
+                raise ValueError(
+                    "retrieval='ivf' takes exclude_ids (global id lists), "
+                    "not a dense exclude_mask")
+            # IVF blocks size their own chunks; the replica failover,
+            # retry and health machinery below is retrieval-agnostic
+            indexes = self._ivf_indexes(table)
+        elif block_items is None:
             block_items = resolve_cluster_block_items(table, k)
         self._m["queries"].inc()
         budget = self.retry.deadline if budget is None else budget
@@ -569,7 +642,7 @@ class FaultTolerantRetrievalMesh:
         for s in range(table.n_shards):
             out = self._query_shard(
                 rs, s, phi_rows, k, exclude_mask, exclude_ids,
-                block_items, budget,
+                block_items, budget, indexes=indexes,
             )
             if out is None:
                 dead.append(s)
@@ -600,10 +673,11 @@ class FaultTolerantRetrievalMesh:
 
     # ----------------------------------------------------------- internals
     def _query_shard(self, rs, s, phi_rows, k, exclude_mask, exclude_ids,
-                     block_items, budget):
+                     block_items, budget, indexes=None):
         """One shard's dispatch with failover + bounded deadline-aware
         retries. Returns (scores, ids) or None (shard unavailable for this
-        request — the degradation path)."""
+        request — the degradation path). ``indexes`` (IVF) swaps the exact
+        slab call for the shard's index, shared by its replicas."""
         spent = 0.0       # latency burned: real + injected + backoff
         attempt = 0
         tr = self.tracer
@@ -631,17 +705,27 @@ class FaultTolerantRetrievalMesh:
                         f"replica ({s}, {rep.idx}) serves table v"
                         f"{rep.version}, live is v{rs.version}"
                     )
-                self._costs.record_topk(
-                    int(phi_rows.shape[0]), rs.table.rows_per,
-                    int(rep.slab.shape[1]), k,
-                    excl_l=0 if exclude_ids is None
-                    else int(exclude_ids.shape[1]),
-                )
-                ss, ii = shard_topk(
-                    rs.table, s, phi_rows, k, slab=rep.slab,
-                    exclude_mask=exclude_mask, exclude_ids=exclude_ids,
-                    block_items=block_items,
-                )
+                if indexes is not None:
+                    if indexes[s] is None:   # shard owns no valid rows
+                        ss, ii = empty_topk(int(phi_rows.shape[0]), k,
+                                            device=phi_rows.device)
+                    else:
+                        ss, ii = indexes[s].topk(
+                            phi_rows, k, exclude_ids=exclude_ids,
+                            registry=self.registry)
+                else:
+                    self._costs.record_topk(
+                        int(phi_rows.shape[0]), rs.table.rows_per,
+                        int(rep.slab.shape[1]), k,
+                        excl_l=0 if exclude_ids is None
+                        else int(exclude_ids.shape[1]),
+                        mask=exclude_mask is not None,
+                    )
+                    ss, ii = shard_topk(
+                        rs.table, s, phi_rows, k, slab=rep.slab,
+                        exclude_mask=exclude_mask, exclude_ids=exclude_ids,
+                        block_items=block_items,
+                    )
                 lat = self.clock() - t0
                 self.monitor.observe(rep.key, lat)
                 self._replica_latency(s, rep.idx).observe(lat)
@@ -704,16 +788,125 @@ class FaultTolerantRetrievalMesh:
 
     # ----------------------------------------------------- staged rollout
     def begin_canary(self, psi_table) -> int:
-        raise NotImplementedError(f"the canary rollout is not ported yet ({_SLICE5})")
+        """Stage the next ψ table on ONE canary replica per shard (off the
+        routing path). Readers keep hitting the live version; nothing
+        observable changes until :meth:`promote_canary`. Returns the
+        staged version number."""
+        if self._canary is not None:
+            raise RuntimeError(
+                "a canary is already staged — promote or roll it back first")
+        rs = self._set.active
+        staged = shard_psi(psi_table, self.n_shards, version=self.version + 1)
+        self._canary = staged
+        for s in range(staged.n_shards):
+            dev = rs._device_for(s, self.n_replicas)
+            src = staged.shards[s]
+            slab = src if dev is None else src.to(dev)
+            rs.replicas[s].append(Replica(
+                shard=s, idx=max(r.idx for r in rs.replicas[s]) + 1,
+                slab=slab, device=dev, version=staged.version, canary=True))
+        self._m["canary_staged"].inc()
+        return staged.version
 
-    def canary_topk_phi(self, phi_rows, *, k=None, exclude_ids=None):
-        raise NotImplementedError(f"the canary rollout is not ported yet ({_SLICE5})")
+    def canary_topk_phi(self, phi_rows, *, k=None,
+                        exclude_ids=None) -> TopKResult:
+        """Query the CANARY replicas only (mirrored traffic, never routed
+        to users), so the rollout can check the staged table under real
+        query shapes before anyone sees it."""
+        if self._canary is None:
+            raise RuntimeError("no canary staged")
+        staged = self._canary
+        k = k or self.k
+        dev = staged.shards[0].device
+        phi_rows = torch.as_tensor(phi_rows, dtype=torch.float32).to(dev)
+        if exclude_ids is not None:
+            exclude_ids = torch.as_tensor(exclude_ids, dtype=torch.int32).to(dev)
+        block_items = self.block_items
+        if block_items is None:
+            block_items = resolve_cluster_block_items(staged, k)
+        parts_s, parts_i = [], []
+        rs = self._set.active
+        for s in range(staged.n_shards):
+            canaries = [r for r in rs.replicas[s] if r.canary]
+            slab = canaries[0].slab if canaries else staged.shards[s]
+            ss, ii = shard_topk(staged, s, phi_rows, k, slab=slab,
+                                exclude_ids=exclude_ids,
+                                block_items=block_items)
+            parts_s.append(ss)
+            parts_i.append(ii)
+        if len(parts_s) == 1:
+            return TopKResult(parts_s[0], parts_i[0])
+        ms, mi = topk_merge_shards(
+            torch.stack(colocate_parts(parts_s)),
+            torch.stack(colocate_parts(parts_i)), k)
+        return TopKResult(ms, mi)
 
-    def mirror_check(self, phi_rows, *, k=None, validate=None) -> dict:
-        raise NotImplementedError(f"the canary rollout is not ported yet ({_SLICE5})")
+    def mirror_check(self, phi_rows, *, k: Optional[int] = None,
+                     validate: Optional[Callable[[TopKResult, TopKResult],
+                                                 bool]] = None) -> dict:
+        """Health-check the canary under mirrored traffic: run ``phi_rows``
+        against BOTH the live table and the canary replicas and judge the
+        canary's answers. Built-in checks: well-formed shapes, no NaN or
+        ±inf score on an admissible slot, ids in catalogue range, not all
+        empty. ``validate(live_result, canary_result)`` adds a caller
+        policy. ``report["healthy"]`` is the promote/rollback verdict."""
+        if self._canary is None:
+            raise RuntimeError("no canary staged")
+        k = k or self.k
+        live_res = self.topk_phi(phi_rows, k=k)
+        t0 = self.clock()
+        canary_res = self.canary_topk_phi(phi_rows, k=k)
+        latency = self.clock() - t0
+        ids = canary_res.ids.cpu().numpy()
+        scores = canary_res.scores.cpu().numpy()
+        n_items = self._canary.n_items
+        admissible = ids >= 0
+        checks = {
+            "shape_ok": ids.shape == tuple(live_res.ids.shape),
+            "ids_in_range": bool(((ids >= -1) & (ids < n_items)).all()),
+            "scores_finite": bool(
+                np.isfinite(scores[admissible]).all()
+                if admissible.any() else True),
+            "not_all_empty": bool(admissible.any()),
+        }
+        if validate is not None:
+            checks["validate_ok"] = bool(validate(live_res, canary_res))
+        return {
+            "healthy": all(checks.values()),
+            "checks": checks,
+            "staged_version": self._canary.version,
+            "live_version": self.version,
+            "mirror_rows": int(phi_rows.shape[0]),
+            "canary_latency_s": latency,
+        }
 
     def promote_canary(self) -> int:
-        raise NotImplementedError(f"the canary rollout is not ported yet ({_SLICE5})")
+        """Flip the staged table live everywhere: the staged slabs seed a
+        fresh ReplicaSet — one atomic swap; in-flight queries finish on
+        the old snapshot."""
+        if self._canary is None:
+            raise RuntimeError("no canary staged")
+        staged = self._canary
+
+        def build(version: int) -> ReplicaSet:
+            table = PsiShardSet(shards=staged.shards, n_items=staged.n_items,
+                                rows_per=staged.rows_per, version=version)
+            return ReplicaSet(table, self.n_replicas, devices=self.devices,
+                              policy=self.policy)
+
+        version = self._set.publish(build)
+        self._canary = None
+        self._m["canary_promoted"].inc()
+        self._m_version.set(version)
+        return version
 
     def rollback_canary(self) -> None:
-        raise NotImplementedError(f"the canary rollout is not ported yet ({_SLICE5})")
+        """Drop the staged table: remove the canary replicas and keep
+        serving the live version untouched."""
+        if self._canary is None:
+            raise RuntimeError("no canary staged")
+        rs = self._set.active
+        for s in range(rs.n_shards):
+            rs.replicas[s] = [r for r in rs.replicas[s] if not r.canary]
+        self._canary = None
+        self._m["canary_rolled_back"].inc()

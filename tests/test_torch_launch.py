@@ -173,14 +173,126 @@ def test_kernel_matches_plain_on_cuda(cuda, exclude):
 
 @pytest.mark.gpu
 def test_unported_forms_raise_on_cuda(cuda):
+    """Every form the reference takes now launches; what the kernel
+    refuses is malformed input, with a ValueError naming it."""
     phi, psi = torch.zeros(2, 8, device=cuda), torch.zeros(16, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="exclude_mask"):
-        ops.topk_score(phi, psi, 4, torch.zeros(2, 16, device=cuda))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ops.topk_score(phi, psi.bfloat16(), 4)
+    mask = torch.zeros(2, 16, dtype=torch.bool, device=cuda)
+    s, i = ops.topk_score(phi, psi.bfloat16(), 4, mask)
+    torch.cuda.synchronize()
+    assert (i == torch.arange(4, device=cuda)).all() and (s == 0).all()
     with pytest.raises(ValueError, match="int32"):
         ops.topk_score(phi, psi, 4, exclude_ids=torch.zeros(
             2, 3, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="psi_scale"):
+        ops.topk_score(phi, psi.to(torch.int8), 4)
+    with pytest.raises(ValueError, match="psi_scale has 3 rows"):
+        ops.topk_score(phi, psi.to(torch.int8), 4,
+                       psi_scale=torch.ones(3, device=cuda))
+    with pytest.raises(ValueError, match="not both"):
+        ops.topk_score(phi, psi, 4, mask, exclude_ids=torch.zeros(
+            2, 3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="columns must be contiguous"):
+        ops.topk_score(phi, psi, 4, torch.zeros(16, 2, dtype=torch.bool,
+                                                device=cuda).T)
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
+        ops.topk_score(phi, psi.double(), 4)
+
+
+def _small_int_forms(dev, b, rows, d, seed):
+    """φ and ψ in small integers and ψ's three stored forms: fp32, bf16
+    (integers up to 256 are exact in bf16) and int8 with scale 1, and
+    int8 with power-of-two scales (exact products). Every score is an
+    exact integer, so the kernel must equal the plain version bit for bit
+    whatever the summation order."""
+    rng = np.random.default_rng(seed)
+    phi = torch.tensor(rng.integers(-3, 4, (b, d)), dtype=torch.float32, device=dev)
+    q = rng.integers(-3, 4, (rows, d))
+    big = torch.tensor(rng.integers(-256, 257, (rows, d)), dtype=torch.float32,
+                       device=dev)
+    q8 = torch.tensor(q, dtype=torch.int8, device=dev)
+    pow2 = torch.tensor(2.0 ** rng.integers(-2, 3, rows), dtype=torch.float32,
+                        device=dev)
+    return phi, {
+        "fp32": (q8.float(), None), "bf16": (big.bfloat16(), None),
+        "int8": (q8, torch.ones(rows, device=dev)), "int8_pow2": (q8, pow2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,rows,d,k", [(16, 2_000, 128, 100), (19, 1_001, 16, 37),
+                                        (5, 300, 6, 257), (3, 700, 5, 1)])
+def test_quantized_psi_forms_exact_on_cuda(cuda, b, rows, d, k):
+    """bf16 and int8 ψ (D·itemsize multiples of 16 take the 16-byte loads,
+    D = 6 and 5 the scalar ones), with ties across chunks and exclusions,
+    equal the plain version bit for bit, and each form counts its
+    launches."""
+    phi, forms = _small_int_forms(cuda, b, rows, d, b + rows)
+    eids = torch.tensor(np.random.default_rng(rows).integers(
+        4_990, 5_000 + rows, (b, 6)), dtype=torch.int32, device=cuda)
+    for name, (psi, scale) in forms.items():
+        before = {f: getattr(ops.topk_score, f) for f in
+                  ("launches", "launches_bf16", "launches_int8", "launches_mask")}
+        args = dict(exclude_ids=eids, psi_scale=scale, id_offset=5_000,
+                    n_valid=rows - 7)
+        s, i = ops.topk_score(phi, psi, k, **args)
+        rs, ri = ref.topk_score_ref(phi, psi, k, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ri) and torch.equal(s, rs), name
+        after = {f: getattr(ops.topk_score, f) - v for f, v in before.items()}
+        assert after == {"launches": 1, "launches_mask": 0,
+                         "launches_bf16": int(name == "bf16"),
+                         "launches_int8": int(name.startswith("int8"))}, name
+
+
+@pytest.mark.gpu
+def test_dense_mask_forms_on_cuda(cuda):
+    """The dense mask in bool, int8 and uint8, whole and as a middle
+    shard's column slice of a wider mask (rows read at their own stride),
+    with fully masked rows: equal to the plain version bit for bit."""
+    from repro_torch.serve.cluster import _shard_exclude_mask
+
+    b, n_items, d, rows_per = 9, 3_000, 16, 1_000
+    phi, forms = _small_int_forms(cuda, b, n_items, d, 60)
+    psi = forms["fp32"][0]
+    rng = np.random.default_rng(61)
+    wide = torch.tensor(rng.random((b, n_items)) < 0.2, device=cuda)
+    wide[3] = True                                  # a fully masked row
+    for dtype in (torch.bool, torch.int8, torch.uint8):
+        m = wide.to(dtype)
+        before = ops.topk_score.launches_mask
+        s, i = ops.topk_score(phi, psi, 50, m)
+        rs, ri = ref.topk_score_ref(phi, psi, 50, m)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+        assert ops.topk_score.launches_mask == before + 1
+        assert (i[3] == -1).all() and torch.isneginf(s[3]).all()
+    lo = rows_per                                   # the middle shard
+    view = _shard_exclude_mask(wide, lo, rows_per)
+    assert not view.is_contiguous() and view.stride() == (n_items, 1)
+    shard = psi[lo:lo + rows_per].contiguous()
+    args = dict(id_offset=lo, n_valid=rows_per - 3)
+    s, i = ops.topk_score(phi, shard, 40, view, **args)
+    rs, ri = ref.topk_score_ref(phi, shard, 40, view.contiguous(), **args)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8_193, 20_000])
+def test_topk_above_8192_exact_on_cuda(cuda, k):
+    """K past 8,192 (k_pad 16,384 and 32,768) through the device-memory
+    merge: exact in small integers over 40,000 rows, ties in ascending id,
+    K past n_valid padded with (−inf, −1)."""
+    rng = np.random.default_rng(k)
+    phi = torch.tensor(rng.integers(-3, 4, (5, 8)), dtype=torch.float32, device=cuda)
+    psi = torch.tensor(rng.integers(-3, 4, (40_000, 8)), dtype=torch.float32,
+                       device=cuda)
+    for n_valid in (40_000, min(k - 100, 40_000)):
+        s, i = ops.topk_score(phi, psi, k, n_valid=n_valid, id_offset=7)
+        rs, ri = ref.topk_score_ref(phi, psi, k, n_valid=n_valid, id_offset=7)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+        if k > n_valid:
+            assert (i[:, n_valid:] == -1).all()
 
 
 def _sweep_operands(dev, c, d, kb, n_src, k, seed):
@@ -753,3 +865,17 @@ def test_quickstart_twin_on_cuda(cuda):
     out = quickstart.main([])
     assert out["recall"] > out["recall_pop"]
     assert out["params"].w.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_serve_retrieval_twin_on_cuda(cuda):
+    """The serve_retrieval twin's default path: on the card, where the
+    cluster, the engine and the IVF oracle must agree bit for bit."""
+    from repro_torch.examples import serve_retrieval
+
+    before = ops.topk_score.launches_int8
+    out = serve_retrieval.main([])
+    assert out["versions"] == [1, 2] and out["mesh_version"] == 2
+    assert out["recall_curve"][-1]["recall@100"] == 1.0
+    assert out["int8_recall"] > 0.9 and out["degraded_coverage"] == 0.75
+    assert ops.topk_score.launches_int8 > before

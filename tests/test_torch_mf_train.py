@@ -237,8 +237,18 @@ def test_ranking_eval_and_engine_match_reference():
     assert overlap_recall(i, i) == 1.0
     with pytest.raises(NotImplementedError, match="fold-in"):
         eng.fold_in_phi([1, 2])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        RetrievalEngine(mf.export_psi(tp), None, retrieval="ivf")
+    # the IVF tier: probing every cluster is the exact engine's answer,
+    # and the dense mask form is refused there, as in the reference
+    from repro_torch.serve.ann import AnnConfig
+
+    ivf = RetrievalEngine(mf.export_psi(tp), lambda c: mf.build_phi(tp, c),
+                          k=10, retrieval="ivf",
+                          ann=AnnConfig(n_clusters=4, n_probe=4))
+    si, ii = ivf.topk(torch.arange(40), exclude_ids=eids)
+    np.testing.assert_array_equal(ii.numpy(), i.numpy())
+    np.testing.assert_allclose(si.numpy(), s.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="exclude_mask"):
+        ivf.topk(torch.arange(40), exclude_mask=mask)
     psi = mf.export_psi(tp)
     out = bulk_score(mf_retrieval_score_fn(phi[0], psi), torch.arange(120),
                      chunk=50)

@@ -172,14 +172,30 @@ def test_mesh_deadline_budget_and_stale_refusal():
 
 
 def test_unported_mesh_parts_raise():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        FaultTolerantRetrievalMesh(retrieval="ivf")
-    pm = FaultTolerantRetrievalMesh(n_shards=1, n_replicas=1)
-    for call in (lambda: pm.publish_delta(np.zeros((1, 8)), [0]),
-                 lambda: pm.begin_canary(np.zeros((4, 8))),
-                 pm.promote_canary, pm.rollback_canary):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            call()
+    """The mesh's IVF tier, delta publish and canary, once refused, now
+    serve (held against the JAX mesh in ``test_torch_ann.py``); what stays
+    unported on this tier, the cluster's one-program ``mesh=`` path,
+    still raises."""
+    from repro_torch.serve.ann import AnnConfig
+    from repro_torch.serve.cluster import ShardedRetrievalCluster
+
+    jp, tp = _params(12)
+    phi = mf.build_phi(tp, np.arange(6))
+    pm = FaultTolerantRetrievalMesh(n_shards=2, n_replicas=1, k=7,
+                                    retrieval="ivf",
+                                    ann=AnnConfig(n_clusters=3, n_probe=3))
+    pm.publish(mf.export_psi(tp))
+    _same(pm.topk_phi(phi), topk_score_ref(phi, tp.h, 7))
+    row = torch.full((K_DIM,), 3.0)
+    assert pm.publish_delta(row, [N_ITEMS]) == 2 and pm.n_items == N_ITEMS + 1
+    assert int(pm.topk_phi(row[None]).ids[0, 0]) == N_ITEMS
+    assert pm.begin_canary(mf.export_psi(tp)) == 3
+    pm.rollback_canary()
+    assert pm.begin_canary(mf.export_psi(tp)) == 3
+    assert pm.promote_canary() == 3 and pm.n_items == N_ITEMS
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        ShardedRetrievalCluster(n_shards=2, k=3, psi_table=tp.h).topk_phi(
+            phi, mesh=object())
 
 
 # ------------------------------------------------------------- batcher ---

@@ -200,9 +200,21 @@ def test_block_items_budget_raises_instead_of_shrinking():
     # merge levels keep every key until lists reach k_pad
     assert vmem.topk_block_items(512) == 256
     assert vmem.topk_block_items(1024, n_items=40) == 64
-    assert vmem.topk_block_items(vmem.TOPK_WIDE_MAX_K_PAD) == 256
-    with pytest.raises(vmem.VmemBudgetError, match="k_pad=16384"):
-        vmem.topk_block_items(16384)
+    assert vmem.topk_block_items(8192) == 256
+    # K past 8,192 no longer raises: k_pad 16,384 merges in device memory,
+    # whose two key buffers hold the largest level a row writes
+    assert vmem.topk_block_items(16384) == 256
+    # 40,000 rows: 157 chunks of 256 (40,192 keys); an odd list's empty
+    # partner pads each level, and the sixth writes 3 lists of 16,384
+    assert vmem.topk_large_k_keys(157, 256, 16384) == 3 * 16384
+    # at k_pad 8,192 the second level writes 40 lists of 1,024 (40,960
+    # keys), more than pass 1's 40,192
+    assert vmem.topk_large_k_keys(157, 256, 8192) == 40 * 1024
+    assert vmem.topk_large_k_keys(1, 256, 512) == 256
+    assert vmem.psi_row_bytes(128, psi_bytes=1, per_row_scale=True) == 132
+    assert vmem.shard_capacity_rows(512 * 132, 128, psi_bytes=1,
+                                    per_row_scale=True) == 512
+    assert vmem.shard_capacity_rows(512 * 132, 128) == 132
     with pytest.raises(vmem.VmemBudgetError, match="minimal 8-row"):
         vmem.fit_block_rows(8 * 1024, budget=16 * 1024)
     with pytest.raises(vmem.VmemBudgetError, match="minimal"):
