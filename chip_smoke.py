@@ -25,7 +25,8 @@ Phases, one line each or more:
   5. hold the Gram and block-sweep kernels against their plain versions:
      at the full-width dispatch shapes (Gram of 200,000 × 128 and
      68,000 × 128, weighted and not, in small integers, where the sums are
-     exact, and in random fp32; the gather sweep on both sides and the
+     exact, and in random fp32, two calls giving the same bits; the odd
+     shapes (7, 16), (1,000, 12), (130, 130), (0, 8), (33, 1); the gather sweep on both sides and the
      pre-gathered sweep on the context side), and at small edge cases (k
      not divisible by k_b, row counts off the row tile, all-zero-α rows
      with l2 = 0 and α₀ = 0, padding ids, η ≠ 1, k_b = 1, and a whole
@@ -38,7 +39,9 @@ Phases, one line each or more:
      and a streaming ranking evaluation of the trained model through the
      top-K kernel, held against the plain version;
   7. time the Gram and sweep kernels at the full-width shapes beside their
-     plain versions, the library call where one exists, and their bounds;
+     plain versions, the library call where one exists (``torch.mm(x.T,
+     x)`` for the Gram), and their bounds, and the Gram at 1, 2, 4 and 8
+     diagonal blocks an SM;
   8. run the quickstart twin on the card (iCD-MF must beat popularity);
   9. hold the row-patch block sweeps (kernels 4 and 5) against their plain
      versions: both routings at the full-width user-side shape (C =
@@ -81,7 +84,9 @@ Phases, one line each or more:
      ann=AnnConfig(quant=q))`` for q in none, bf16 and int8 (2 shards × 2
      replicas, AnnConfig's defaults: 184 clusters a shard, n_probe 46,
      replica (0, 0) killed), 256 single-row requests with exclude lists
-     through the ``MicroBatcher``: coverage, launches per flush, req/s,
+     through the ``MicroBatcher``: coverage, the top-K kernel's IVF launch
+     chains (one a live shard and flush, and no other launch), probed
+     blocks per flush, req/s,
      completion p50/p99, the oracle probe (bit-identical to the exact mesh
      for fp32, equal to a plain recompute over the dequantized table for
      bf16 and int8), the recall curve over n_probe and one profiled query;
@@ -93,10 +98,13 @@ Phases, one line each or more:
      ``mf_padded.fit`` epochs, whose top-K with a dense exclusion mask
      (sliced per shard, read in place) equals the engine's bit for bit;
  17. time the top-K kernel's fp32, bf16, int8 and dense-mask forms at the
-     serving shard, the int8 form at one IVF block, and K = 10,000, each
-     beside its plain version, its bound and the yardstick
-     ``torch.topk(phi @ deq(psi).T, k)``; and the large-K merge at K = 257,
-     512, 1,000 and 8,192 likewise;
+     serving shard and K = 10,000, each beside its plain version, its bound
+     and the yardstick ``torch.topk(phi @ deq(psi).T, k)``; its IVF form
+     over phase 16's shard-0 index of each storage form (16 rows, n_probe
+     46), held against its plain version and timed beside the yardstick
+     ``torch.topk`` over the masked dense scores; tables of 9, 40 and 100
+     rows in their narrowest chunk and in the full one; and the large-K merge
+     at K = 257, 512, 1,000 and 8,192 likewise;
  18. run the serve_retrieval twin on the card (train → publish, cluster,
      batcher, sharded eval, failover, canary rollout, IVF with int8 ψ).
 
@@ -109,7 +117,8 @@ chunks, fully masked rows), with K = 8,193, 10,000 and 20,000 over 40,000
 rows (the device-memory merge).
 
 ``python3 chip_smoke.py --serve-order BEFORE`` runs only phase 3's order
-check (:func:`serve_first_runs`).
+check (:func:`serve_first_runs`); ``--gram-tune`` only the Gram's variants
+(:func:`gram_tune`).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -487,7 +496,8 @@ def hold_sweep(cs, cr, gen, dev, c, d, kb, n_src, *, gather=True, k=None,
 
 def hold_gram(gops, gref, gen, dev, rows, k, weighted) -> float:
     """Gram kernel against the plain version: exact on small integers,
-    to a tolerance on random fp32; returns the random case's |error|."""
+    to a tolerance on random fp32, the same bits from two calls; returns
+    the random case's |error|."""
     xi = torch.randint(-3, 4, (rows, k), generator=gen, device=dev).float()
     wi = (torch.randint(0, 3, (rows,), generator=gen, device=dev).float()
           if weighted else None)
@@ -498,7 +508,9 @@ def hold_gram(gops, gref, gen, dev, rows, k, weighted) -> float:
     w = (torch.rand((rows,), generator=gen, device=dev) * 4
          if weighted else None)
     got, ref = gops.gram(x, weights=w), gref.gram_ref(x, w)
+    again = gops.gram(x, weights=w)
     torch.cuda.synchronize()
+    assert torch.equal(got, again), f"two Gram calls differ at {rows}x{k}"
     torch.testing.assert_close(got, ref, rtol=GRAM_RTOL,
                                atol=GRAM_ATOL_REL * float(ref.abs().max()))
     return float((got - ref).abs().max())
@@ -774,7 +786,10 @@ def time_training_kernels(dev, pdata, params) -> dict:
         g["bound"].append(bound(4 * rows * k + 4 * k * k, rows * k * (k + 1)))
         log(f"phase 7 gram {rows}x{k}: kernel {g['ms'][-1]:.4f} ms, plain "
             f"{g['plain'][-1]:.4f} ms, torch.mm(x.T, x) {g['lib'][-1]:.4f} ms, "
-            f"bound {g['bound'][-1][0]:.4f} ms ({g['bound'][-1][1]})")
+            f"bound {g['bound'][-1][0]:.4f} ms ({g['bound'][-1][1]}); "
+            f"by row splits (diagonal blocks a launch): "
+            + ", ".join(f"{n} {device_ms(gram_at_splits(xs, n)):.4f} ms"
+                        for n in GRAM_SPLIT_SWEEP))
     out["gram"] = g
     for disp in ("gather", "pregather"):
         r = {"ms": [], "plain": [], "bound": []}
@@ -810,6 +825,88 @@ def time_training_kernels(dev, pdata, params) -> dict:
             del es
         out[disp] = r
     return out
+
+
+# phase 7's sweep of the Gram's row splits: 1, 2, 4 (vmem's choice) and 8
+# diagonal blocks an SM
+GRAM_SPLIT_SWEEP = (132, 264, 528, 1056)
+
+
+def gram_at_splits(xs, target: int):
+    """One Gram launch over ``xs[j % 2]`` cut into about ``target`` row
+    splits (a whole number of staged chunks each), through the kernel's
+    binding: the wrapper's choice is ``vmem.gram_row_splits``."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.gram import kernel as gk
+
+    rows, k = xs[0].shape
+    chunks = -(-rows // vmem.GRAM_CHUNK)
+    per = -(-chunks // min(target, chunks)) * vmem.GRAM_CHUNK
+    splits = -(-rows // per)
+    partial = torch.empty((splits, k, k), device=xs[0].device)
+    out = torch.empty((k, k), device=xs[0].device)
+    return lambda j: gk.launch(xs[j % 2], None, splits, per, partial, out)
+
+
+# --gram-tune: (blocks an SM, ring stages, chunk rows) of the Gram variants
+GRAM_TUNE = ((4, 3, 32), (3, 3, 32), (3, 4, 32), (2, 4, 32), (2, 6, 32),
+             (3, 6, 16))
+
+
+def gram_tune() -> None:
+    """``python3 chip_smoke.py --gram-tune``: build ``gram.cu`` once for each
+    of GRAM_TUNE's (blocks an SM, stages, chunk) and time each at phase 7's
+    two shapes (random fp32, k = 128) and several row-split counts, beside
+    ``torch.mm(x.T, x)``; each variant is held against it first."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gram import kernel as gk
+
+    dev = torch.device("cuda", 0)
+    libs = [build.CudaLibrary("gram", gk.LIB.source, bind=gk._bind, defines={
+        **gk.LIB.defines, "GRAM_MIN_BLOCKS": b, "GRAM_STAGES": st,
+        "GRAM_CHUNK": ch}) for b, st, ch in GRAM_TUNE]
+    build.build_all(libs)
+    for lib, v in zip(libs, GRAM_TUNE):
+        entry, seen = "", []
+        for ln in lib.build_log.splitlines():
+            if "Compiling entry" in ln:
+                entry = ln
+            elif "gram_diag_kernelILb1ELb0E" in entry and (
+                    "registers" in ln or "spill" in ln):
+                seen.append(ln.split(":")[-1].strip())
+        log(f"gram-tune build {v}: gram_diag_kernel<true, false>: "
+            + " | ".join(seen))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    for rows in (68_000, 200_000):
+        xs = [0.1 * torch.randn((rows, 128), generator=gen, device=dev)
+              for _ in range(2)]
+        mm = device_ms(lambda j: torch.mm(xs[j % 2].T, xs[j % 2]))
+        want = torch.mm(xs[0].T, xs[0])
+        for lib, (b, st, ch) in zip(libs, GRAM_TUNE):
+            fn = lib.load().gram_f32
+            parts = []
+            for target in (132, 264, 396, 528, 792):
+                chunks = -(-rows // ch)
+                per = -(-chunks // min(target, chunks)) * ch
+                splits = -(-rows // per)
+                partial = torch.empty((splits, 128, 128), device=dev)
+                out = torch.empty((128, 128), device=dev)
+
+                def call(j, splits=splits, per=per, partial=partial, out=out):
+                    lib.check(fn(xs[j % 2].data_ptr(), 128, None, rows, 128,
+                                 splits, per, partial.data_ptr(),
+                                 out.data_ptr(), ctypes.c_void_p(stream())),
+                              "gram")
+                call(0)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out, want, rtol=GRAM_RTOL,
+                                           atol=GRAM_ATOL_REL * float(want.abs().max()))
+                parts.append(f"{splits} splits {device_ms(call):.4f}")
+            log(f"gram-tune {rows}x128 blocks/SM {b} stages {st} chunk {ch}: "
+                + ", ".join(parts) + f" ms; torch.mm {mm:.4f} ms")
 
 
 def bound(nbytes: float, flops: float):
@@ -1641,6 +1738,37 @@ def _dequantized(indexes, n_items, d, dev):
     return out
 
 
+def ivf_block_loop(idx, phi, k, n_probe, eids):
+    """The IVF query as the reference runs it: one ``topk_score`` launch a
+    probed block over its valid rows (exclusions mapped to positions), the
+    rows that did not probe the block masked, positions mapped to global
+    ids, then the merge by (−score, global id)."""
+    from repro_torch.kernels.topk_score import ops
+
+    b, c = phi.shape[0], idx.n_clusters
+    cs = phi @ idx.centroids.T
+    sel = torch.sort(cs, dim=1, descending=True, stable=True).indices[:, :n_probe]
+    probe = torch.zeros((b, c), dtype=torch.bool, device=phi.device)
+    probe.scatter_(1, sel, True)
+    e = eids.long() - idx.id_offset
+    ok = (eids >= 0) & (e >= 0) & (e < idx.n_rows)
+    epos = torch.where(ok, idx.inv_pos[e.clamp(0, idx.n_rows - 1)], -1)
+    epos = epos.to(torch.int32).contiguous()
+    parts_s, parts_i = [], []
+    for cl in probe.any(dim=0).nonzero()[:, 0].tolist():
+        lo, n = cl * idx.block_rows, int(idx.counts[cl])
+        if n == 0:
+            continue
+        ss, ii = ops.topk_score(
+            phi, idx.psi_q[lo:lo + n], k, exclude_ids=epos, id_offset=lo,
+            psi_scale=None if idx.scales is None else idx.scales[lo:lo + n])
+        m = probe[:, cl][:, None]
+        parts_s.append(torch.where(m, ss, float("-inf")))
+        parts_i.append(torch.where(m & (ii >= 0),
+                                   idx.ids_global[ii.clamp(min=0).long()], -1))
+    return ops.topk_merge_shards(torch.stack(parts_s), torch.stack(parts_i), k)
+
+
 def serve_ivf_full_width(dev, params, pdata) -> dict:
     """Phase 16: the quantized IVF serving tier at full icd-mf width on
     phase 6's trained factors."""
@@ -1675,7 +1803,8 @@ def serve_ivf_full_width(dev, params, pdata) -> dict:
 
     def counts():
         return {f: getattr(tops.topk_score, f) for f in
-                ("launches", "launches_bf16", "launches_int8", "launches_mask")}
+                ("launches", "launches_bf16", "launches_int8", "launches_mask",
+                 "launches_ivf")}
 
     out = {"launches": {}, "meshes": {}}
     for q in ("none", "bf16", "int8"):
@@ -1716,8 +1845,12 @@ def serve_ivf_full_width(dev, params, pdata) -> dict:
         assert cov == 1.0, (q, cov)
         ms = mesh.stats
         assert ms["faults"] >= 1 and ms["failovers"] >= 1, dict(ms)
+        # one IVF launch chain a live shard and call (both shards answer
+        # every flush; the killed replica's dispatch fails before its
+        # launch), and no other launch of the top-K kernel
         probes = reg.get("ann_probed_blocks_total")
-        assert launched["launches"] == probes, (launched, probes)
+        assert launched["launches_ivf"] == 2 * flushes == launched["launches"] \
+            == ms["dispatches"] - ms["faults"], (launched, flushes, dict(ms))
         # the oracle probe: every block, no pruning
         full = ivf_cluster_topk(mesh.table, indexes, phi16, k,
                                 n_probe=max(n_c), exclude_ids=eids16)
@@ -1736,6 +1869,19 @@ def serve_ivf_full_width(dev, params, pdata) -> dict:
         curve = ann_recall_curve(
             indexes[0], torch.as_tensor(phi_all[users], device=dev),
             psi[: mesh.table.rows_per], k=k, n_probes=IVF_PROBES + (n_c[0],))
+        # the one-chain IVF form equals the reference's per-block loop bit
+        # for bit (the same FMAs a row; ties by global id either way) for
+        # the 256 users in batches of 16, at n_probe 46 and 184
+        eids_all = exclude_ids_from_lists(excl, device=dev)
+        for lo in range(0, len(users), 16):
+            phi_b = torch.as_tensor(phi_all[users[lo:lo + 16]], device=dev)
+            for p in (probe[0], n_c[0]):
+                got = indexes[0].topk(phi_b, k, n_probe=p,
+                                      exclude_ids=eids_all[lo:lo + 16])
+                want = ivf_block_loop(indexes[0], phi_b, k, p,
+                                      eids_all[lo:lo + 16])
+                assert torch.equal(got[1], want[1]) and torch.equal(
+                    got[0], want[0]), (q, lo, p)
         flush_profile = epoch_breakdown(
             lambda m=mesh: m.topk_phi(phi16, exclude_ids=eids16))
         log(f"phase 16 ivf {q}: 2 shards x 2 replicas, replica (0, 0) killed; "
@@ -1744,17 +1890,20 @@ def serve_ivf_full_width(dev, params, pdata) -> dict:
             f"256 requests in {flushes} flushes: {256 / dt:.1f} req/s, "
             f"completion p50 {np.percentile(lat, 50) * 1e3:.3f} ms p99 "
             f"{np.percentile(lat, 99) * 1e3:.3f} ms, coverage {cov}; "
-            f"{launched['launches']} launches ({launched['launches'] / flushes:.1f} "
-            f"per flush; bf16 {launched['launches_bf16']}, int8 "
-            f"{launched['launches_int8']}), {ms['dispatches']} dispatches, "
-            f"{ms['faults']} faults, {ms['failovers']} failovers, "
-            f"{2 * flushes} probe-mask copies to the host; oracle probe "
+            f"{launched['launches_ivf']} IVF launch chains "
+            f"({launched['launches_ivf'] / flushes:.1f} per flush, one a shard; "
+            f"bf16 {launched['launches_bf16']}, int8 "
+            f"{launched['launches_int8']}) over {probes:.0f} probed blocks "
+            f"({probes / flushes:.1f} per flush), {ms['dispatches']} dispatches, "
+            f"{ms['faults']} faults, {ms['failovers']} failovers, no host copy "
+            f"before a launch; the 256 users' results at n_probe "
+            f"{probe[0]} and {n_c[0]} equal one launch a probed block, bit for "
+            f"bit; oracle probe "
             f"{oracle}; recall@{k} of shard 0 over the 256 users by n_probe "
             + ", ".join(f"{pt['n_probe']}: {pt[f'recall@{k}']:.4f}" for pt in curve))
         log(f"phase 16 ivf {q} one 16-row query (torch.profiler): {flush_profile}")
         out["meshes"][q] = mesh
-        out.setdefault("block_rows", {})[q] = (indexes[0].block_rows,
-                                               int(np.median(indexes[0].counts)))
+        out.setdefault("index", {})[q] = indexes[0]     # phase 17 times it
         out.setdefault("serve", {})[q] = dict(req_s=256 / dt, flushes=flushes,
                                                launches=launched["launches"])
 
@@ -1819,6 +1968,7 @@ def serve_ivf_full_width(dev, params, pdata) -> dict:
     b = engine.topk_phi(phi16, exclude_mask=mask16)
     torch.cuda.synchronize()
     out["launches"]["mask"] = tops.topk_score.launches_mask
+    out["query"] = (phi16, eids16)
     assert [v for _, v in pub.versions] == [1, 2], pub.versions
     assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
     c = cluster.topk_phi(phi16, exclude_ids=eids16)
@@ -1852,13 +2002,14 @@ def _time_form(ops, tref, phi, tables, k, *, scale_of=None, mask=None,
     return kern, plain, device_ms(yard, n=n)
 
 
-def time_topk_forms(dev, block) -> dict:
+def time_topk_forms(dev, ivf) -> dict:
     """Phase 17: CUDA-event times of the top-K forms at the serving shard
-    (B=16, 34,000 × 128, K=100) and the int8 form at one IVF block, each
-    beside its plain version, its bound (ψ at the stored width) and the
-    yardstick ``torch.topk(phi @ deq(psi).T, k)`` (dequantization
-    included), which the port never calls; K = 10,000; and the large-K
-    merge at K = 257, 512, 1,000 and 8,192."""
+    (B=16, 34,000 × 128, K=100), each beside its plain version, its bound
+    (ψ at the stored width) and the yardstick ``torch.topk(phi @
+    deq(psi).T, k)`` (dequantization included), which the port never
+    calls; the IVF form at the serving shard's index (:func:`time_ivf_form`);
+    the chunk of small tables (:func:`time_small_tables`); K = 10,000; and
+    the large-K merge at K = 257, 512, 1,000 and 8,192."""
     from repro_torch.core.quant import int8_quantize_rows
     from repro_torch.kernels import vmem
     from repro_torch.kernels.topk_score import ops, ref as tref
@@ -1900,31 +2051,101 @@ def time_topk_forms(dev, block) -> dict:
     mask = torch.rand((b, rows), generator=gen, device=dev) < 0.01
     put("mask", _time_form(ops, tref, phi, fp32, k, mask=mask),
         *cost(rows, k, mask=True), "fp32 psi, dense (16, 34,000) bool mask")
-    # one IVF block: a probed block's launch reads its valid rows only;
-    # the whole padded block (what a launch would read without the slice)
-    # is timed beside it
-    block_rows, n_valid = block
-    blocks = [q[:block_rows].contiguous() for q, _ in quant]
-    bscale = [s[:block_rows].contiguous() for _, s in quant]
-    put("int8_block", _time_form(ops, tref, phi, [x[:n_valid] for x in blocks], k,
-                                 scale_of=lambda j: bscale[j % 4][:n_valid],
-                                 block_items=vmem.TOPK_MAX_CHUNK),
-        *cost(n_valid, k, psi_bytes=1, per_row_scale=True),
-        f"int8 at one IVF block's {n_valid} valid rows, as PsiIndex.topk "
-        "launches it (L2-resident)")
-    t = _time_form(ops, tref, phi, [x[:n_valid] for x in blocks], k,
-                   scale_of=lambda j: bscale[j % 4][:n_valid])
-    log(f"phase 17 time int8 at the same {n_valid} rows in the wrapper's "
-        f"default chunk for a small table ({vmem.topk_block_items(vmem.topk_k_pad(k), n_items=n_valid)} "
-        f"rows): kernel {t[0]:.4f} ms")
-    put("int8_block_padded", _time_form(ops, tref, phi, blocks, k, n_valid=n_valid,
-                                        scale_of=lambda j: bscale[j % 4]),
-        *cost(block_rows, k, psi_bytes=1, per_row_scale=True),
-        f"int8 over the whole padded IVF block ({block_rows} rows, {n_valid} "
-        "valid; L2-resident)")
+    for name, e in time_ivf_form(dev, ivf, put).items():
+        out[name]["err"] = e
+    out["small"] = time_small_tables(dev, phi)
     put("k10000", _time_form(ops, tref, phi, fp32, 10_000, n=10),
         *cost(rows, 10_000), "fp32 psi, K = 10,000 (device-memory merge)")
     out.update(time_large_k(dev))
+    return out
+
+
+def time_ivf_form(dev, ivf, put) -> dict:
+    """Phase 17, the IVF form at the serving shard: phase 16's shard-0
+    index of each storage form (34,000 rows in 184 clusters), phase 16's 16
+    φ rows with their exclude lists, K = 100, probes at n_probe 46 (built
+    outside the timed calls, as ``PsiIndex.topk`` builds them before its
+    launch). Kernel: one ``topk_score_ivf`` call (plan, pass 1, merges);
+    plain: its plain version; yardstick: ``torch.topk`` over the dense
+    scores with the inadmissible pairs masked (the mask built outside the
+    timed call), which the port never calls. The bound counts the rows
+    the batch probed. Each form is also held against its plain version;
+    returns the max |score error| by form."""
+    from repro_torch.kernels.topk_score import ops, ref as tref
+    from repro_torch.obs.costs import topk_score_ivf_cost
+
+    phi, eids = ivf["query"]
+    k = SERVE_SHAPE["k"]
+    errs = {}
+    for q, idx in ivf["index"].items():
+        c, br = idx.n_clusters, idx.block_rows
+        cs = phi @ idx.centroids.T
+        sel = torch.sort(cs, dim=1, descending=True,
+                         stable=True).indices[:, :idx.cfg.resolve_probe(c)]
+        probe = torch.zeros((phi.shape[0], c), dtype=torch.bool, device=dev)
+        probe.scatter_(1, sel, True)
+        args = dict(probe_mask=probe, counts=idx.counts_dev,
+                    ids_global=idx.ids_global, block_rows=br,
+                    exclude_ids=eids, psi_scale=idx.scales)
+        got = ops.topk_score_ivf(phi, idx.psi_q, k, **args)
+        want = tref.topk_score_ivf_ref(phi, idx.psi_q, k + 1, **args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0][:, :k], rtol=RTOL, atol=ATOL)
+        ids_agree(want[0][:, :k], want[1][:, :k], got[1], want[0][:, k])
+        err = float((got[0] - want[0][:, :k]).nan_to_num(0, 0, 0).abs().max())
+        slot = torch.arange(c * br, device=dev)
+        live = (slot % br < idx.counts_dev.long()[slot // br])[None] \
+            & probe[:, slot // br]
+        ex = tref.exclude_ids_to_mask(eids, idx.n_rows, id_offset=idx.id_offset)
+        gid = (idx.ids_global.long() - idx.id_offset).clamp(min=0)
+        inadmissible = ~live | ex[:, gid]
+
+        def yard(j):
+            s = (phi @ tref.dequantize_psi(idx.psi_q, idx.scales).T
+                 ).masked_fill(inadmissible, float("-inf"))
+            return torch.topk(s, k)
+
+        t = (device_ms(lambda j: ops.topk_score_ivf(phi, idx.psi_q, k, **args)),
+             device_ms(lambda j: tref.topk_score_ivf_ref(phi, idx.psi_q, k,
+                                                         **args), n=10),
+             device_ms(yard))
+        live_c = probe.any(dim=0) & (idx.counts_dev > 0)
+        rows = int(idx.counts_dev[live_c].sum())
+        cost = topk_score_ivf_cost(
+            phi.shape[0], rows, idx.d, k, c,
+            psi_bytes={"none": 4, "bf16": 2, "int8": 1}[q],
+            per_row_scale=q == "int8", excl_l=int(eids.shape[1]))
+        put(f"ivf_{q}", t, cost["hbm_bytes"], cost["flops"],
+            f"IVF form, {q} psi, shard 0's index ({c} clusters of {br} rows, "
+            f"{int(live_c.sum())} probed holding {rows} rows; max |score err| "
+            f"{err:.3g})")
+        errs[f"ivf_{q}"] = err
+    return errs
+
+
+def time_small_tables(dev, phi) -> dict:
+    """Phase 17, the chunk of small tables: ``topk_score`` over n rows at
+    B = 1 and 16, K = 10, in the narrowest chunk that holds the table (at
+    least 32 rows and k_pad) and in the kernel's full chunk (256, the
+    wrapper's choice, ``vmem.topk_block_items``)."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.topk_score import ops
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    parts = []
+    for n in (9, 40, 100):
+        tables = [torch.randn((n, phi.shape[1]), generator=gen, device=dev)
+                  for _ in range(4)]
+        chunk = max(32, vmem.topk_k_pad(10), 1 << (n - 1).bit_length())
+        for b in (1, 16):
+            t = [device_ms(lambda j: ops.topk_score(phi[:b], tables[j % 4], 10,
+                                                    block_items=ch))
+                 for ch in (chunk, vmem.TOPK_MAX_CHUNK)]
+            out[(n, b)] = (chunk, *t)
+            parts.append(f"n {n} B {b}: chunk {chunk} {t[0]:.4f} ms, "
+                         f"chunk {vmem.TOPK_MAX_CHUNK} {t[1]:.4f} ms")
+    log("phase 17 small tables (K = 10): " + "; ".join(parts))
     return out
 
 
@@ -2130,12 +2351,17 @@ def main() -> None:
     ivf = serve_ivf_full_width(dev, tr["params"], tr["pdata"])
     log(f"phase 16 done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    form_times = time_topk_forms(dev, ivf["block_rows"]["int8"])
+    form_times = time_topk_forms(dev, ivf)
     log(f"phase 17 done in {time.perf_counter() - t0:.1f}s")
     run_serve_retrieval(dev)
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
-                     "mask": ivf["launches"]["mask"]}
+                     "mask": ivf["launches"]["mask"],
+                     "ivf": sum(ivf["launches"][q]["launches_ivf"]
+                                for q in ("none", "bf16", "int8"))}
+    form_times["ivf"] = form_times["ivf_none"]
+    form_errs["ivf"] = max(form_times[f"ivf_{q}"]["err"]
+                           for q in ("none", "bf16", "int8"))
     assert all(n > 0 for n in form_launches.values()), form_launches
 
     def row(name, source, replaces, launches, err, t, library):
@@ -2194,7 +2420,7 @@ def main() -> None:
         "bound_ms": form_times[form]["bound"],
         "bound_by": form_times[form]["bound_by"],
         "library_ms": form_times[form]["lib"]}
-        for form in ("bf16", "int8", "mask")]}))
+        for form in ("bf16", "int8", "mask", "ivf")]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -2207,5 +2433,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-order"] and len(sys.argv) == 3:
         serve_first_runs(sys.argv[2])
+    elif sys.argv[1:] == ["--gram-tune"]:
+        gram_tune()
     else:
         main()

@@ -20,7 +20,10 @@ def _bind(lib) -> None:
 
 LIB = CudaLibrary(
     "gram", Path(__file__).resolve().parent / "csrc" / "gram.cu",
-    defines={"GRAM_TILE": vmem.GRAM_TILE, "GRAM_CHUNK": vmem.GRAM_CHUNK},
+    defines={"GRAM_PANEL": vmem.GRAM_PANEL, "GRAM_CHUNK": vmem.GRAM_CHUNK,
+             "GRAM_STAGES": vmem.GRAM_STAGES,
+             "GRAM_REDUCE_RUNS": vmem.GRAM_REDUCE_RUNS,
+             "GRAM_MIN_BLOCKS": vmem.GRAM_BLOCKS_PER_SM},
     bind=_bind,
 )
 

@@ -50,6 +50,19 @@
 // KEY_NONE and decodes back to NaN with its id, so a NaN table shows as NaN
 // scores, never as empty slots.
 //
+// The IVF form (the reference's serving tier launches the TPU kernel once
+// per probed cluster block and merges the blocks by global id): one chain
+// a shard and query. The plan kernel builds, on the device, the list of
+// (cluster, chunk) pairs of the clusters that any φ row probed; pass 1 runs
+// over that list (the blocks past its live length exit at once), scoring
+// only each cluster's valid rows, and a (φ row, row) pair is admissible only
+// if the row probed the cluster; each key carries the row's GLOBAL id
+// (ids_global), so the merge levels, sized on the host for an upper bound
+// of the list and reading its live length, order ties as the reference's
+// merge does. Within a cluster's block positions ascend with global id, so
+// this top-K over the union equals the reference's per-block top-K and
+// merge.
+//
 // ψ storage (the TPU kernel's quantized forms, dequantized per tile in
 // VMEM): fp32, bf16, or int8 with an optional per-row fp32 scale. Only the
 // loads change: a thread loads the stored elements (16 bytes a load where
@@ -164,19 +177,36 @@ __device__ __forceinline__ void warp_sort256(key_t64 (&x)[8], int lane) {
     }
 }
 
+// The IVF form's block list (see topk_ivf_plan_kernel): entry e of `list`
+// is cluster e / chunks_per_block, chunk e % chunks_per_block of its block;
+// the first *n_active entries are live. A cluster's block starts at row
+// cluster · block_rows and holds counts[cluster] valid rows; ids_global maps
+// a row to its global id and probe (B, n_clusters) says which φ rows probed
+// which cluster.
+struct IvfArgs {
+    const int* ids_global;
+    const int* counts;
+    const int* list;
+    const int* n_active;
+    const unsigned char* probe;
+    int n_clusters, block_rows, chunks_per_block;
+};
+
 // Pass 1. grid = (n_chunks, ceil(B / TOPK_ROWS)), blockDim.x = chunk = 1 << lchunk.
 // T is the ψ storage type; VEC: D·sizeof(T) % 16 == 0 and ψ 16-byte aligned,
 // so ψ moves in 16-byte loads. scale (n_rows,) multiplies each row after the
 // conversion to fp32 (nullptr: none). mask (B rows of mask_stride bytes,
 // nullptr: none) and excl (B × L global ids) exclude candidates. Each chunk
-// writes its best 1 << lk_keep keys.
-template <typename T, bool VEC>
+// writes its best 1 << lk_keep keys. IVF: blockIdx.x walks the block list
+// instead of the table's chunks; a pair is admissible only if its φ row
+// probed the cluster and the row is below the cluster's count.
+template <typename T, bool VEC, bool IVF>
 __global__ void __launch_bounds__(TOPK_MAX_CHUNK)
 topk_chunk_kernel(const float* __restrict__ phi, const T* __restrict__ psi,
                   const float* __restrict__ scale, const int* __restrict__ excl, int L,
                   const unsigned char* __restrict__ mask, long long mask_stride,
                   int B, int n_rows, int D, int id_offset, int n_valid, int lchunk,
-                  int lk_pad, key_t64* __restrict__ cand) {
+                  int lk_pad, key_t64* __restrict__ cand, IvfArgs ivf) {
     __shared__ __align__(16) float phi_s[TOPK_DSLAB][TOPK_ROWS];
     __shared__ __align__(16) unsigned char pool[POOL_BYTES];
     float* psi_s = reinterpret_cast<float*>(pool);      // [TOPK_DSLAB][chunk + 1]
@@ -189,8 +219,19 @@ topk_chunk_kernel(const float* __restrict__ phi, const T* __restrict__ psi,
     const int t = threadIdx.x;
     const int c = blockIdx.x;
     const int r0 = blockIdx.y * TOPK_ROWS;
-    const int item0 = c << lchunk;
     const int pitch = chunk + 1;
+    // rows this block scores: [item0, row_end), admissible below valid_end
+    int item0 = c << lchunk, row_end = n_rows, valid_end = n_valid, cl = 0;
+    if constexpr (IVF) {
+        // list entry c is (cluster, chunk of its block); past the live
+        // entries, nothing to score (the merges read live lists only)
+        if (c >= __ldg(ivf.n_active)) return;
+        const int entry = __ldg(ivf.list + c);
+        cl = entry / ivf.chunks_per_block;
+        const int base = cl * ivf.block_rows;
+        item0 = base + ((entry - cl * ivf.chunks_per_block) << lchunk);
+        row_end = valid_end = base + __ldg(ivf.counts + cl);
+    }
 
     // the next ψ slab rides in registers while the current one is used:
     // each thread holds PER_ITEM loads (a warp covers whole 128-byte rows
@@ -203,7 +244,7 @@ topk_chunk_kernel(const float* __restrict__ phi, const T* __restrict__ psi,
         for (int j = 0; j < PER_ITEM; ++j) {
             const int i = t + (j << lchunk);
             const int g = item0 + i / PER_ITEM, d = d0 + (i % PER_ITEM) * VW;
-            const bool in = g < n_rows && d < D;
+            const bool in = g < row_end && d < D;
             if constexpr (VEC) {
                 reg4[j] = in ? __ldg(reinterpret_cast<const uint4*>(psi + (size_t)g * D + d))
                              : make_uint4(0u, 0u, 0u, 0u);
@@ -268,13 +309,15 @@ topk_chunk_kernel(const float* __restrict__ phi, const T* __restrict__ psi,
 
     // the ψ slab is dead: the pool now holds the keys
     const int local = item0 + t;
-    const bool in_range = local < n_valid;
-    const int gid = id_offset + local;
+    const bool in_range = local < valid_end;
+    // the key carries the GLOBAL id, so ties order as the reference's
+    // final merge by global id orders them
+    const int gid = IVF ? (in_range ? __ldg(ivf.ids_global + local) : -1) : id_offset + local;
 #pragma unroll
     for (int r = 0; r < TOPK_ROWS; ++r) {
         const int row = r0 + r;
         key_t64 key = KEY_NONE;
-        if (in_range && row < B) {
+        if (in_range && row < B && (!IVF || ivf.probe[(size_t)row * ivf.n_clusters + cl] != 0)) {
             bool hit = mask != nullptr && mask[(size_t)row * mask_stride + local] != 0;
             for (int l = 0; l < L; ++l) hit |= (__ldg(&excl[(size_t)row * L + l]) == gid);
             if (!hit) key = ((key_t64)desc_bits(acc[r]) << 32) | (uint32_t)gid;
@@ -304,18 +347,30 @@ topk_chunk_kernel(const float* __restrict__ phi, const T* __restrict__ psi,
     }
 }
 
+// Lists a merge level reads: n_lists, or, in the IVF form (dev_n set),
+// the live lists of pass 1 (*dev_n) divided `level` times by `fan` with
+// rounding up, as the host sized the levels from an upper bound.
+__device__ __forceinline__ int level_lists(int n_lists, const int* dev_n, int level, int fan) {
+    if (dev_n == nullptr) return n_lists;
+    int n = __ldg(dev_n);
+    for (int l = 0; l < level; ++l) n = (n + fan - 1) / fan;
+    return n;
+}
+
 // Pass 2, one level. grid = (ceil(n_lists / TOPK_MERGE_SLOTS), B): each block
 // merges up to TOPK_MERGE_SLOTS sorted k_pad-lists of one φ row into one.
 // FINAL (one block per row) decodes the merged list into scores and ids;
 // otherwise the list goes to `out` for the next level.
 template <bool FINAL>
 __global__ void __launch_bounds__(TOPK_MERGE_THREADS)
-topk_merge_kernel(const key_t64* __restrict__ in, int n_lists, int B, int lk_pad,
-                  key_t64* __restrict__ out, int K, float* __restrict__ out_s,
-                  int* __restrict__ out_i) {
+topk_merge_kernel(const key_t64* __restrict__ in, int n_lists, const int* dev_n, int level,
+                  int B, int lk_pad, key_t64* __restrict__ out, int K,
+                  float* __restrict__ out_s, int* __restrict__ out_i) {
     __shared__ key_t64 slots[TOPK_MERGE_SLOTS * TOPK_MAX_CHUNK];
     const int g = blockIdx.x, row = blockIdx.y, t = threadIdx.x;
     const int k_pad = 1 << lk_pad;
+    n_lists = level_lists(n_lists, dev_n, level, TOPK_MERGE_SLOTS);
+    if (!FINAL && g * TOPK_MERGE_SLOTS >= n_lists) return;  // no list of this group
 
     for (int p = t; p < (TOPK_MERGE_SLOTS << lk_pad); p += blockDim.x) {
         const int c = g * TOPK_MERGE_SLOTS + (p >> lk_pad), s = p & (k_pad - 1);
@@ -362,9 +417,10 @@ topk_merge_kernel(const key_t64* __restrict__ in, int n_lists, int B, int lk_pad
 // above it from the left, so equal keys (KEY_NONE) keep left before right
 // and every output slot is written exactly once.
 __global__ void __launch_bounds__(256)
-topk_merge_global_kernel(const key_t64* __restrict__ in, int n_lists, int B, int llin,
-                         int llout, key_t64* __restrict__ out) {
+topk_merge_global_kernel(const key_t64* __restrict__ in, int n_lists, const int* dev_n,
+                         int level, int B, int llin, int llout, key_t64* __restrict__ out) {
     const int row = blockIdx.y;
+    n_lists = level_lists(n_lists, dev_n, level, 2);
     const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const int pairs = (n_lists + 1) >> 1;
     if (p >= ((long long)pairs << (llin + 1))) return;
@@ -386,12 +442,14 @@ topk_merge_global_kernel(const key_t64* __restrict__ in, int n_lists, int B, int
 }
 
 // The device-memory merge's last step: the first K keys of the one list
-// (B, 1 << llen) a row, decoded (nullptr: no list, every slot empty).
+// (B, 1 << llen) a row, decoded (nullptr, or no live list in the IVF form:
+// every slot empty).
 __global__ void __launch_bounds__(256)
-topk_decode_kernel(const key_t64* __restrict__ in, int B, int llen, int K,
+topk_decode_kernel(const key_t64* __restrict__ in, const int* dev_n, int B, int llen, int K,
                    float* __restrict__ out_s, int* __restrict__ out_i) {
     const int row = blockIdx.y, s = blockIdx.x * blockDim.x + threadIdx.x;
     if (s >= K) return;
+    if (dev_n != nullptr && __ldg(dev_n) == 0) in = nullptr;
     const key_t64 key = in != nullptr && s < (1 << llen) ? in[((size_t)row << llen) + s]
                                                           : KEY_NONE;
     decode_key(key, out_s[(size_t)row * K + s], out_i[(size_t)row * K + s]);
@@ -404,36 +462,156 @@ static int log2_exact(int x) {
     return l;
 }
 
-template <typename T>
+// The IVF form's plan: one block walks the clusters in tiles of its
+// threads. A cluster is live if any of the B φ rows probed it and it holds
+// rows; it contributes ceil(count / chunk) list entries, written in cluster
+// order at the exclusive prefix sum of the live clusters' entries. *n_active
+// gets the total. Nothing here leaves the device. The caller's max_lists
+// must bound the total (the wrapper's default, clusters × chunks a block,
+// always does); the list is never written past it.
+#define PLAN_THREADS 1024
+__global__ void __launch_bounds__(PLAN_THREADS)
+topk_ivf_plan_kernel(const unsigned char* __restrict__ probe, int B, int C,
+                     const int* __restrict__ counts, int lchunk, int chunks_per_block,
+                     int max_lists, int* __restrict__ list, int* __restrict__ n_active) {
+    __shared__ int warp_sum[PLAN_THREADS / 32];
+    __shared__ int carry;
+    const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+    if (t == 0) carry = 0;
+    __syncthreads();
+    for (int base = 0; base < C; base += PLAN_THREADS) {
+        const int c = base + t;
+        int n = 0;
+        if (c < C) {
+            const int cnt = counts[c];
+            bool hit = false;
+            for (int b = 0; b < B && !hit; ++b) hit = probe[(size_t)b * C + c] != 0;
+            if (hit && cnt > 0) n = (cnt + (1 << lchunk) - 1) >> lchunk;
+        }
+        // block-wide inclusive scan of n: warps, then the warps' totals
+        int inc = n;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, inc, o);
+            if (lane >= o) inc += y;
+        }
+        if (lane == 31) warp_sum[wid] = inc;
+        __syncthreads();
+        if (wid == 0) {
+            int v = lane < PLAN_THREADS / 32 ? warp_sum[lane] : 0;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int y = __shfl_up_sync(0xffffffffu, v, o);
+                if (lane >= o) v += y;
+            }
+            if (lane < PLAN_THREADS / 32) warp_sum[lane] = v;  // inclusive
+        }
+        __syncthreads();
+        const int start = carry + (wid > 0 ? warp_sum[wid - 1] : 0) + inc - n;
+        for (int j = 0; j < n && start + j < max_lists; ++j)
+            list[start + j] = c * chunks_per_block + j;
+        __syncthreads();
+        if (t == PLAN_THREADS - 1) carry += warp_sum[PLAN_THREADS / 32 - 1];
+        __syncthreads();
+    }
+    if (t == 0) *n_active = min(carry, max_lists);
+}
+
+template <typename T, bool IVF>
 static cudaError_t launch_chunks(const float* phi, const void* psi, const float* scale,
                                  const int* excl, int L, const unsigned char* mask,
                                  long long mask_stride, int B, int n_rows, int D,
                                  int id_offset, int n_valid, int lchunk, int lk_keep,
-                                 key_t64* cand, cudaStream_t st) {
+                                 int n_chunks, key_t64* cand, const IvfArgs& ivf,
+                                 cudaStream_t st) {
     const int chunk = 1 << lchunk;
-    const int n_chunks = (n_rows + chunk - 1) / chunk;
     if (n_chunks == 0) return cudaSuccess;
     const T* p = static_cast<const T*>(psi);
     dim3 grid(n_chunks, (B + TOPK_ROWS - 1) / TOPK_ROWS);
     const bool vec = ((size_t)D * sizeof(T)) % 16 == 0 && ((uintptr_t)p & 15) == 0;
     if (vec)
-        topk_chunk_kernel<T, true><<<grid, chunk, 0, st>>>(
+        topk_chunk_kernel<T, true, IVF><<<grid, chunk, 0, st>>>(
             phi, p, scale, excl, L, mask, mask_stride, B, n_rows, D, id_offset, n_valid,
-            lchunk, lk_keep, cand);
+            lchunk, lk_keep, cand, ivf);
     else
-        topk_chunk_kernel<T, false><<<grid, chunk, 0, st>>>(
+        topk_chunk_kernel<T, false, IVF><<<grid, chunk, 0, st>>>(
             phi, p, scale, excl, L, mask, mask_stride, B, n_rows, D, id_offset, n_valid,
-            lchunk, lk_keep, cand);
+            lchunk, lk_keep, cand, ivf);
     return cudaGetLastError();
 }
 
-// Two merges, by the chunk: chunk ≥ k_pad, each chunk keeps its best k_pad
-// keys, cand holds (n_chunks, B, k_pad) keys and cand2 (ceil(n_chunks /
+template <bool IVF>
+static cudaError_t launch_pass1(int psi_type, const float* phi, const void* psi,
+                                const float* scale, const int* excl, int L,
+                                const unsigned char* mask, long long mask_stride, int B,
+                                int n_rows, int D, int id_offset, int n_valid, int lchunk,
+                                int lk_keep, int n_chunks, key_t64* cand, const IvfArgs& ivf,
+                                cudaStream_t st) {
+    if (psi_type == 0)
+        return launch_chunks<float, IVF>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows,
+                                         D, id_offset, n_valid, lchunk, lk_keep, n_chunks,
+                                         cand, ivf, st);
+    if (psi_type == 1)
+        return launch_chunks<uint16_t, IVF>(phi, psi, scale, excl, L, mask, mask_stride, B,
+                                            n_rows, D, id_offset, n_valid, lchunk, lk_keep,
+                                            n_chunks, cand, ivf, st);
+    return launch_chunks<int8_t, IVF>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows,
+                                      D, id_offset, n_valid, lchunk, lk_keep, n_chunks, cand,
+                                      ivf, st);
+}
+
+// The merge levels after pass 1 over n_lists candidate lists (an upper bound
+// when dev_n holds the live count). chunk ≥ k_pad: each list holds k_pad
+// keys, cand holds (n_lists, B, k_pad) keys and cand2 (ceil(n_lists /
 // SLOTS), B, k_pad), and the shared-memory levels ping-pong between them;
-// chunk < k_pad (large K), pass 1 writes (n_chunks, B, chunk) whole sorted
+// chunk < k_pad (large K), pass 1 wrote (n_lists, B, chunk) whole sorted
 // chunks, cand and cand2 each hold `scratch` keys a φ row, and the
-// device-memory levels ping-pong between them. psi_type: 0 fp32, 1 bf16,
-// 2 int8.
+// device-memory levels ping-pong between them.
+static cudaError_t launch_merges(int n_lists, const int* dev_n, int B, int K, int lk_pad,
+                                 int lchunk, long long scratch, key_t64* cand,
+                                 key_t64* cand2, float* out_s, int* out_i, cudaStream_t st) {
+    cudaError_t err = cudaSuccess;
+    const key_t64* src = cand;
+    key_t64* bufs[2] = {cand2, cand};
+    int n = n_lists, level = 0;
+    if (lchunk >= lk_pad) {
+        while (n > TOPK_MERGE_SLOTS) {
+            const int groups = (n + TOPK_MERGE_SLOTS - 1) / TOPK_MERGE_SLOTS;
+            key_t64* dst = bufs[level & 1];
+            topk_merge_kernel<false><<<dim3(groups, B), TOPK_MERGE_THREADS, 0, st>>>(
+                src, n, dev_n, level, B, lk_pad, dst, K, out_s, out_i);
+            err = cudaGetLastError();
+            if (err != cudaSuccess) return err;
+            src = dst;
+            n = groups;
+            ++level;
+        }
+        topk_merge_kernel<true><<<dim3(1, B), TOPK_MERGE_THREADS, 0, st>>>(
+            src, n, dev_n, level, B, lk_pad, nullptr, K, out_s, out_i);
+        return cudaGetLastError();
+    }
+    int llen = lchunk;
+    while (n > 1) {
+        const int llout = llen + 1 < lk_pad ? llen + 1 : lk_pad;
+        const int groups = (n + 1) >> 1;
+        if ((long long)groups << llout > scratch) return cudaErrorInvalidValue;
+        key_t64* dst = bufs[level & 1];
+        const long long threads = (long long)groups << (llen + 1);
+        topk_merge_global_kernel<<<dim3((unsigned)((threads + 255) / 256), B), 256, 0, st>>>(
+            src, n, dev_n, level, B, llen, llout, dst);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+        src = dst;
+        n = groups;
+        llen = llout;
+        ++level;
+    }
+    topk_decode_kernel<<<dim3((K + 255) / 256, B), 256, 0, st>>>(
+        n > 0 ? src : nullptr, dev_n, B, llen, K, out_s, out_i);
+    return cudaGetLastError();
+}
+
+// psi_type: 0 fp32, 1 bf16, 2 int8. The merges: see launch_merges.
 extern "C" int topk_score_run(const float* phi, const void* psi, int psi_type,
                               const float* scale, const int* excl, int L,
                               const unsigned char* mask, long long mask_stride, int B,
@@ -447,60 +625,58 @@ extern "C" int topk_score_run(const float* phi, const void* psi, int psi_type,
         n_valid > n_rows || psi_type < 0 || psi_type > 2 ||
         (mask != nullptr && B > 1 && mask_stride < n_rows))
         return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSuccess;
     cudaStream_t st = (cudaStream_t)stream;
     const int n_chunks = (n_rows + chunk - 1) / chunk;
     const bool large_k = chunk < k_pad;
     if (large_k && (long long)n_chunks * chunk > scratch) return (int)cudaErrorInvalidValue;
     const int lk_keep = large_k ? lchunk : lk_pad;
-    if (psi_type == 0)
-        err = launch_chunks<float>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows, D,
-                                   id_offset, n_valid, lchunk, lk_keep, cand, st);
-    else if (psi_type == 1)
-        err = launch_chunks<uint16_t>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows,
-                                      D, id_offset, n_valid, lchunk, lk_keep, cand, st);
-    else
-        err = launch_chunks<int8_t>(phi, psi, scale, excl, L, mask, mask_stride, B, n_rows,
-                                    D, id_offset, n_valid, lchunk, lk_keep, cand, st);
+    cudaError_t err = launch_pass1<false>(psi_type, phi, psi, scale, excl, L, mask,
+                                          mask_stride, B, n_rows, D, id_offset, n_valid,
+                                          lchunk, lk_keep, n_chunks, cand, IvfArgs{}, st);
     if (err != cudaSuccess) return (int)err;
-    const key_t64* src = cand;
-    key_t64* bufs[2] = {cand2, cand};
-    int n = n_chunks, level = 0;
+    return (int)launch_merges(n_chunks, nullptr, B, K, lk_pad, lchunk, scratch, cand, cand2,
+                              out_s, out_i, st);
+}
 
-    if (!large_k) {
-        while (n > TOPK_MERGE_SLOTS) {
-            const int groups = (n + TOPK_MERGE_SLOTS - 1) / TOPK_MERGE_SLOTS;
-            key_t64* dst = bufs[level++ & 1];
-            topk_merge_kernel<false><<<dim3(groups, B), TOPK_MERGE_THREADS, 0, st>>>(
-                src, n, B, lk_pad, dst, K, out_s, out_i);
-            err = cudaGetLastError();
-            if (err != cudaSuccess) return (int)err;
-            src = dst;
-            n = groups;
-        }
-        topk_merge_kernel<true><<<dim3(1, B), TOPK_MERGE_THREADS, 0, st>>>(
-            src, n, B, lk_pad, nullptr, K, out_s, out_i);
-        return (int)cudaGetLastError();
-    }
-
-    int llen = lchunk;
-    while (n > 1) {
-        const int llout = llen + 1 < lk_pad ? llen + 1 : lk_pad;
-        const int groups = (n + 1) >> 1;
-        if ((long long)groups << llout > scratch) return (int)cudaErrorInvalidValue;
-        key_t64* dst = bufs[level++ & 1];
-        const long long threads = (long long)groups << (llen + 1);
-        topk_merge_global_kernel<<<dim3((unsigned)((threads + 255) / 256), B), 256, 0,
-                                   st>>>(src, n, B, llen, llout, dst);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        src = dst;
-        n = groups;
-        llen = llout;
-    }
-    topk_decode_kernel<<<dim3((K + 255) / 256, B), 256, 0, st>>>(
-        n > 0 ? src : nullptr, B, llen, K, out_s, out_i);
-    return (int)cudaGetLastError();
+// The IVF form over an index of n_clusters cluster-contiguous blocks of
+// block_rows rows (psi, scale and ids_global have n_clusters · block_rows
+// rows; counts holds each cluster's valid rows; probe is (B, n_clusters),
+// nonzero where a φ row probed a cluster). One chain: the plan (the live
+// (cluster, chunk) list and its length, on the device), pass 1 over at most
+// max_lists list entries, the merge levels sized for max_lists and reading
+// the live count, the decode. list holds max_lists ints, n_active one.
+// Exclusion compares the global ids of excl with ids_global.
+extern "C" int topk_score_ivf_run(const float* phi, const void* psi, int psi_type,
+                                  const float* scale, const int* excl, int L,
+                                  const int* ids_global, const int* counts,
+                                  const unsigned char* probe, int n_clusters, int block_rows,
+                                  int B, int D, int K, int k_pad, int chunk, int max_lists,
+                                  long long scratch, int* list, int* n_active, key_t64* cand,
+                                  key_t64* cand2, float* out_s, int* out_i, void* stream) {
+    const int lk_pad = log2_exact(k_pad), lchunk = log2_exact(chunk);
+    if (B < 1 || B > 65535 || n_clusters < 1 || block_rows < 1 || D < 1 || L < 0 || K < 1 ||
+        K > k_pad || lk_pad < 0 || lchunk < 5 || chunk > TOPK_MAX_CHUNK || max_lists < 1 ||
+        psi_type < 0 || psi_type > 2 ||
+        (long long)n_clusters * block_rows > 0x7FFFFFFFLL)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool large_k = chunk < k_pad;
+    if (large_k && (long long)max_lists * chunk > scratch) return (int)cudaErrorInvalidValue;
+    const int chunks_per_block = (block_rows + chunk - 1) / chunk;
+    topk_ivf_plan_kernel<<<1, PLAN_THREADS, 0, st>>>(probe, B, n_clusters, counts, lchunk,
+                                                     chunks_per_block, max_lists, list,
+                                                     n_active);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const IvfArgs ivf{ids_global, counts, list, n_active, probe, n_clusters, block_rows,
+                      chunks_per_block};
+    const int n_rows = n_clusters * block_rows;
+    err = launch_pass1<true>(psi_type, phi, psi, scale, excl, L, nullptr, 0, B, n_rows, D, 0,
+                             n_rows, lchunk, large_k ? lchunk : lk_pad, max_lists, cand, ivf,
+                             st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_merges(max_lists, n_active, B, K, lk_pad, lchunk, scratch, cand, cand2,
+                              out_s, out_i, st);
 }
 
 extern "C" const char* topk_score_error_string(int code) {

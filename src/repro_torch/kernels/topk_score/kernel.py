@@ -21,6 +21,10 @@ def _bind(lib) -> None:
                                    i, i, i, i, i, i, i, i, ll,
                                    p, p, p, p, p]
     lib.topk_score_run.restype = i
+    lib.topk_score_ivf_run.argtypes = [p, p, i, p, p, i, p, p, p, i, i,
+                                       i, i, i, i, i, i, ll, p, p, p, p, p,
+                                       p, p]
+    lib.topk_score_ivf_run.restype = i
 
 
 # ψ storage type codes of the C entry point
@@ -70,3 +74,34 @@ def launch(phi: torch.Tensor, psi: torch.Tensor, psi_scale, exclude_ids,
             cand.numel() // b, ptr(cand), ptr(cand2), scores.data_ptr(),
             ids.data_ptr(), stream)
     LIB.check(rc, "topk_score")
+
+
+def launch_ivf(phi: torch.Tensor, psi: torch.Tensor, psi_scale, exclude_ids,
+               ids_global: torch.Tensor, counts: torch.Tensor,
+               probe: torch.Tensor, block_rows: int, k: int, k_pad: int,
+               chunk: int, max_lists: int, scores: torch.Tensor,
+               ids: torch.Tensor, plan: torch.Tensor, cand: torch.Tensor,
+               cand2: torch.Tensor) -> None:
+    """Enqueue the IVF form's chain on the current stream: the plan, pass 1
+    over the live (cluster, chunk) list, the merges and the decode.
+    ``plan`` holds ``max_lists + 1`` int32 (the list, then its live
+    length); ``cand``/``cand2`` as in :func:`launch` for ``max_lists``
+    lists. ``probe`` is a uint8 (B, C) view. The caller has checked every
+    shape, dtype, device and stride (``ops.topk_score_ivf``)."""
+    lib = LIB.load()
+    b, d = phi.shape
+    n_excl = 0 if exclude_ids is None else exclude_ids.shape[1]
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
+    with torch.cuda.device(phi.device):
+        stream = torch.cuda.current_stream(phi.device).cuda_stream
+        rc = lib.topk_score_ivf_run(
+            phi.data_ptr(), ptr(psi), PSI_TYPES[psi.dtype], ptr(psi_scale),
+            ptr(exclude_ids), n_excl, ptr(ids_global), counts.data_ptr(),
+            probe.data_ptr(), probe.shape[1], block_rows, b, d, k, k_pad,
+            chunk, max_lists, cand.numel() // b, plan.data_ptr(),
+            plan[max_lists:].data_ptr(), ptr(cand), ptr(cand2),
+            scores.data_ptr(), ids.data_ptr(), stream)
+    LIB.check(rc, "topk_score_ivf")

@@ -5,6 +5,9 @@
     row-range shard of it via ``id_offset``/``n_valid``. A CUDA tensor
     launches the hand-written kernel (``csrc/topk_score.cu``); a CPU tensor
     takes the plain version (``ref.topk_score_ref``).
+  * :func:`topk_score_ivf` — the same kernel's IVF form: one launch chain
+    over the probed clusters of a cluster-contiguous index (plain version
+    ``ref.topk_score_ivf_ref``).
   * :func:`topk_merge_shards` — the cross-shard merge of per-shard
     candidate lists that already carry global ids. As in the reference it
     is a sort outside any kernel, written in plain PyTorch.
@@ -15,7 +18,10 @@ import torch
 
 from repro_torch.kernels import on_cuda, vmem
 from repro_torch.kernels.topk_score import kernel
-from repro_torch.kernels.topk_score.ref import topk_score_ref
+from repro_torch.kernels.topk_score.ref import (
+    topk_score_ivf_ref,
+    topk_score_ref,
+)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -58,28 +64,9 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
         return topk_score_ref(phi, psi, k, exclude_mask,
                               exclude_ids=exclude_ids, psi_scale=psi_scale,
                               id_offset=id_offset, n_valid=n_valid)
-    _check(phi.dtype == torch.float32, f"phi must be float32, got {phi.dtype}")
-    _check(psi.dtype in _PSI_DTYPES,
-           f"psi must be float32, bfloat16 or int8, got {psi.dtype}")
-    _check(phi.dim() == 2 and psi.dim() == 2 and phi.shape[1] == psi.shape[1],
-           f"phi (B, D) and psi (n_rows, D) disagree: {tuple(phi.shape)} vs "
-           f"{tuple(psi.shape)}")
-    _check(phi.is_contiguous() and psi.is_contiguous(),
-           "phi and psi must be contiguous")
+    _check_phi_psi(phi, psi, psi_scale, exclude_ids)
     b, d = phi.shape
     n_rows = psi.shape[0]
-    if psi_scale is not None:
-        _check(psi_scale.dtype == torch.float32 and psi_scale.dim() == 1
-               and psi_scale.is_contiguous(),
-               f"psi_scale must be a contiguous float32 (n_rows,) tensor, got "
-               f"{psi_scale.dtype} {tuple(psi_scale.shape)}")
-    if exclude_ids is not None:
-        _check(exclude_ids.dtype == torch.int32,
-               f"exclude_ids must be int32, got {exclude_ids.dtype}")
-        _check(exclude_ids.dim() == 2 and exclude_ids.shape[0] == b
-               and exclude_ids.is_contiguous(),
-               f"exclude_ids must be a contiguous (B={b}, L) tensor, got "
-               f"{tuple(exclude_ids.shape)}")
     mask, mask_stride = None, 0
     if exclude_mask is not None:
         _check(exclude_mask.dtype in _MASK_DTYPES,
@@ -104,7 +91,7 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
            f"global ids must fit int32 (id_offset={id_offset})")
     k_pad = vmem.topk_k_pad(k)
     large_k = k_pad > vmem.TOPK_MAX_CHUNK
-    chunk = block_items or vmem.topk_block_items(k_pad, n_items=n_rows)
+    chunk = block_items or vmem.topk_block_items(k_pad)
     lo = 32 if large_k else max(32, k_pad)
     _check(chunk & (chunk - 1) == 0 and lo <= chunk <= vmem.TOPK_MAX_CHUNK,
            f"block_items={chunk} must be a power of two in [{lo}, "
@@ -115,44 +102,155 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
         return scores, ids
     _check(b <= 65535, f"B={b} rows exceed one launch's grid")
     n_chunks = -(-n_rows // chunk)
-    if not large_k:
-        n_level2 = max(1, -(-n_chunks // vmem.TOPK_MERGE_SLOTS))
-        cand = torch.empty((n_chunks, b, k_pad), dtype=torch.int64,
-                           device=phi.device)
-        cand2 = torch.empty((n_level2, b, k_pad), dtype=torch.int64,
-                            device=phi.device)
-    else:
-        keys = vmem.topk_large_k_keys(n_chunks, chunk, k_pad)
-        nbytes = 2 * 8 * b * keys
-        # free device memory, plus what PyTorch's cache holds unused
-        free = (torch.cuda.mem_get_info(phi.device)[0]
-                + torch.cuda.memory_reserved(phi.device)
-                - torch.cuda.memory_allocated(phi.device))
-        if nbytes > free:
-            raise RuntimeError(
-                f"topk_score: k={k} at B={b} over {n_rows} rows needs "
-                f"{nbytes} bytes of candidate keys, more than the {free} "
-                f"bytes free on {phi.device}")
-        cand, cand2 = (torch.empty((b * keys,), dtype=torch.int64,
-                                   device=phi.device) for _ in range(2))
+    cand, cand2 = _key_buffers(phi, b, n_chunks, chunk, k, k_pad, n_rows)
     kernel.launch(phi, psi, psi_scale, exclude_ids, mask, mask_stride, k,
                   k_pad, chunk, id_offset, n_valid, scores, ids, cand, cand2)
-    topk_score.launches += 1
-    if psi.dtype == torch.bfloat16:
-        topk_score.launches_bf16 += 1
-    elif psi.dtype == torch.int8:
-        topk_score.launches_int8 += 1
+    _count(psi)
     if mask is not None:
         topk_score.launches_mask += 1
     return scores, ids
 
 
 # CUDA kernel launches (chip_smoke.py reads them): all forms, then the
-# bf16-ψ, int8-ψ and dense-mask forms among them
+# bf16-ψ, int8-ψ, dense-mask and IVF forms among them (an IVF launch is one
+# chain: plan, pass 1, merges)
 topk_score.launches = 0
 topk_score.launches_bf16 = 0
 topk_score.launches_int8 = 0
 topk_score.launches_mask = 0
+topk_score.launches_ivf = 0
+
+
+def _count(psi) -> None:
+    topk_score.launches += 1
+    if psi.dtype == torch.bfloat16:
+        topk_score.launches_bf16 += 1
+    elif psi.dtype == torch.int8:
+        topk_score.launches_int8 += 1
+
+
+def _check_phi_psi(phi, psi, psi_scale, exclude_ids) -> None:
+    _check(phi.dtype == torch.float32, f"phi must be float32, got {phi.dtype}")
+    _check(psi.dtype in _PSI_DTYPES,
+           f"psi must be float32, bfloat16 or int8, got {psi.dtype}")
+    _check(phi.dim() == 2 and psi.dim() == 2 and phi.shape[1] == psi.shape[1],
+           f"phi (B, D) and psi (n_rows, D) disagree: {tuple(phi.shape)} vs "
+           f"{tuple(psi.shape)}")
+    _check(phi.is_contiguous() and psi.is_contiguous(),
+           "phi and psi must be contiguous")
+    if psi_scale is not None:
+        _check(psi_scale.dtype == torch.float32 and psi_scale.dim() == 1
+               and psi_scale.is_contiguous(),
+               f"psi_scale must be a contiguous float32 (n_rows,) tensor, got "
+               f"{psi_scale.dtype} {tuple(psi_scale.shape)}")
+    if exclude_ids is not None:
+        _check(exclude_ids.dtype == torch.int32,
+               f"exclude_ids must be int32, got {exclude_ids.dtype}")
+        _check(exclude_ids.dim() == 2 and exclude_ids.shape[0] == phi.shape[0]
+               and exclude_ids.is_contiguous(),
+               f"exclude_ids must be a contiguous (B={phi.shape[0]}, L) "
+               f"tensor, got {tuple(exclude_ids.shape)}")
+
+
+def _key_buffers(phi, b: int, n_lists: int, chunk: int, k: int, k_pad: int,
+                 n_rows: int):
+    """The two candidate-key buffers of the merge levels over ``n_lists``
+    pass-1 lists (``kernel.launch``)."""
+    if k_pad <= chunk:
+        n_level2 = max(1, -(-n_lists // vmem.TOPK_MERGE_SLOTS))
+        return (torch.empty((n_lists, b, k_pad), dtype=torch.int64,
+                            device=phi.device),
+                torch.empty((n_level2, b, k_pad), dtype=torch.int64,
+                            device=phi.device))
+    keys = vmem.topk_large_k_keys(n_lists, chunk, k_pad)
+    nbytes = 2 * 8 * b * keys
+    # free device memory, plus what PyTorch's cache holds unused
+    free = (torch.cuda.mem_get_info(phi.device)[0]
+            + torch.cuda.memory_reserved(phi.device)
+            - torch.cuda.memory_allocated(phi.device))
+    if nbytes > free:
+        raise RuntimeError(
+            f"topk_score: k={k} at B={b} over {n_rows} rows needs "
+            f"{nbytes} bytes of candidate keys, more than the {free} "
+            f"bytes free on {phi.device}")
+    return tuple(torch.empty((b * keys,), dtype=torch.int64,
+                             device=phi.device) for _ in range(2))
+
+
+def topk_score_ivf(phi, psi, k: int, *, probe_mask, counts, ids_global,
+                   block_rows: int, exclude_ids=None, psi_scale=None,
+                   max_lists=None, block_items=None):
+    """Top-K over the probed clusters of an IVF index: ``(scores (B, k)
+    f32, ids (B, k) i32)``, ids GLOBAL.
+
+    ``psi`` (C·block_rows, D) holds C cluster-contiguous blocks in fp32,
+    bf16 or int8 (with its per-row ``psi_scale``); ``ids_global``
+    (C·block_rows,) int32 maps each row to its global id; ``counts`` (C,)
+    int32 holds each block's valid rows; ``probe_mask`` (B, C) bool or
+    uint8 is nonzero where a φ row probed a cluster; ``exclude_ids`` (B, L)
+    int32 lists GLOBAL ids. Order: descending score, ties in ascending
+    global id; (−inf, −1) where nothing is admissible
+    (``ref.topk_score_ivf_ref``).
+
+    On CUDA it is one launch chain whatever the probe: the plan (the
+    probed clusters' (cluster, chunk) list, built on the device), pass 1
+    over that list only, the merges. ``max_lists`` bounds the list (default
+    C·⌈block_rows/chunk⌉; a caller that knows the counts on the host may
+    pass Σ⌈count/chunk⌉); ``block_items`` is the chunk (default
+    TOPK_MAX_CHUNK). Nothing is copied to the host."""
+    if psi.dtype == torch.int8 and psi_scale is None:
+        raise ValueError("int8 psi needs psi_scale (per-row dequant scales)")
+    if not on_cuda(phi, psi, probe_mask, counts, ids_global, exclude_ids,
+                   psi_scale):
+        return topk_score_ivf_ref(
+            phi, psi, k, probe_mask=probe_mask, counts=counts,
+            ids_global=ids_global, block_rows=block_rows,
+            exclude_ids=exclude_ids, psi_scale=psi_scale)
+    _check_phi_psi(phi, psi, psi_scale, exclude_ids)
+    b = phi.shape[0]
+    n_rows = psi.shape[0]
+    block_rows = int(block_rows)
+    c = probe_mask.shape[1] if probe_mask.dim() == 2 else -1
+    _check(block_rows >= 1 and c >= 1 and n_rows == c * block_rows,
+           f"psi has {n_rows} rows, not n_clusters={c} blocks of "
+           f"{block_rows}")
+    _check(tuple(probe_mask.shape) == (b, c) and probe_mask.is_contiguous()
+           and probe_mask.dtype in _MASK_DTYPES,
+           f"probe_mask must be a contiguous bool/int8/uint8 (B={b}, C) "
+           f"tensor, got {probe_mask.dtype} {tuple(probe_mask.shape)}")
+    _check(counts.dtype == torch.int32 and tuple(counts.shape) == (c,)
+           and counts.is_contiguous(),
+           f"counts must be a contiguous int32 ({c},) tensor")
+    _check(ids_global.dtype == torch.int32
+           and tuple(ids_global.shape) == (n_rows,)
+           and ids_global.is_contiguous(),
+           f"ids_global must be a contiguous int32 ({n_rows},) tensor")
+    _check(psi_scale is None or psi_scale.shape[0] == n_rows,
+           f"psi_scale must have {n_rows} rows")
+    k_pad = vmem.topk_k_pad(k)
+    chunk = block_items or vmem.TOPK_MAX_CHUNK
+    _check(chunk & (chunk - 1) == 0 and 32 <= chunk <= vmem.TOPK_MAX_CHUNK
+           and (chunk >= k_pad or k_pad > vmem.TOPK_MAX_CHUNK),
+           f"block_items={chunk} must be a power of two in "
+           f"[{max(32, k_pad) if k_pad <= vmem.TOPK_MAX_CHUNK else 32}, "
+           f"{vmem.TOPK_MAX_CHUNK}]")
+    bound = c * -(-block_rows // chunk)
+    max_lists = bound if max_lists is None else int(max_lists)
+    _check(1 <= max_lists <= bound,
+           f"max_lists={max_lists} must be in [1, {bound}]")
+    scores = torch.empty((b, k), dtype=torch.float32, device=phi.device)
+    ids = torch.empty((b, k), dtype=torch.int32, device=phi.device)
+    if b == 0:
+        return scores, ids
+    _check(b <= 65535, f"B={b} rows exceed one launch's grid")
+    plan = torch.empty((max_lists + 1,), dtype=torch.int32, device=phi.device)
+    cand, cand2 = _key_buffers(phi, b, max_lists, chunk, k, k_pad, n_rows)
+    kernel.launch_ivf(phi, psi, psi_scale, exclude_ids, ids_global, counts,
+                      probe_mask.view(torch.uint8), block_rows, k, k_pad,
+                      chunk, max_lists, scores, ids, plan, cand, cand2)
+    _count(psi)
+    topk_score.launches_ivf += 1
+    return scores, ids
 
 
 def topk_merge_shards(shard_scores, shard_ids, k: int):

@@ -11,6 +11,9 @@ and (−inf, −1) in every slot no admissible candidate fills.
   ``ops.topk_score`` runs for CPU tensors and the one ``chip_smoke.py``
   holds the kernel against on the card. It also takes the shard meta
   (``id_offset``, ``n_valid``) the kernel takes.
+- :func:`topk_score_ivf_ref` is the IVF form's plain version: the same
+  ranking over the probed clusters' valid rows of an IVF index, by global
+  id.
 - :func:`retrieval_topk` is the chunked running-reduce over an arbitrary
   ``score_fn``: it never holds all scores at once.
 """
@@ -71,6 +74,47 @@ def topk_score_ref(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
     top_s = top.values[:, :k]
     top_i = torch.where(torch.isneginf(top_s), -1,
                         top.indices[:, :k] + int(id_offset))
+    return top_s, top_i.to(torch.int32)
+
+
+def topk_score_ivf_ref(phi, psi, k: int, *, probe_mask, counts, ids_global,
+                       block_rows: int, exclude_ids=None, psi_scale=None):
+    """The IVF form's function over an index of C cluster-contiguous
+    blocks of ``block_rows`` rows: ``(scores (B, k) f32, ids (B, k) i32)``.
+
+    A (φ row, stored row) pair is admissible when the row probed the row's
+    cluster (``probe_mask`` (B, C) nonzero), the row's slot is below its
+    cluster's ``counts`` entry and its global id (``ids_global``) is not in
+    the φ row's −1-padded ``exclude_ids``. The result is the K best
+    admissible pairs in descending score, ties in ascending GLOBAL id, and
+    (−inf, −1) in every slot no admissible pair fills. It scores the whole
+    table (the kernel scores the probed blocks' valid rows only)."""
+    n_rows = psi.shape[0]
+    dev = phi.device
+    scores = phi.float() @ dequantize_psi(psi, psi_scale).T
+    slot = torch.arange(n_rows, device=dev)
+    cl = slot // int(block_rows)
+    counts = torch.as_tensor(counts, device=dev).long()
+    admissible = ((slot - cl * int(block_rows)) < counts[cl])[None, :] \
+        & (torch.as_tensor(probe_mask, device=dev) != 0)[:, cl]
+    gid = ids_global.long()
+    if exclude_ids is not None:
+        ex = torch.as_tensor(exclude_ids, device=dev).long()
+        for r in range(ex.shape[0]):
+            admissible[r] &= ~torch.isin(gid, ex[r][ex[r] >= 0])
+    scores = scores.masked_fill(~admissible, float("-inf"))
+    if k > n_rows:  # more slots than rows: the tail is inadmissible
+        scores = torch.nn.functional.pad(scores, (0, k - n_rows),
+                                         value=float("-inf"))
+        gid = torch.nn.functional.pad(gid, (0, k - n_rows), value=-1)
+    # rank by (−score, global id): a stable sort by id, then a stable sort
+    # by descending score
+    by_id = torch.sort(gid, stable=True)
+    top = torch.sort(scores[:, by_id.indices], dim=1, descending=True,
+                     stable=True)
+    top_s = top.values[:, :k]
+    top_i = by_id.values[top.indices[:, :k]]
+    top_i = torch.where(torch.isneginf(top_s), -1, top_i)
     return top_s, top_i.to(torch.int32)
 
 

@@ -124,22 +124,21 @@ def topk_large_k_keys(n_chunks: int, chunk: int, k_pad: int) -> int:
     return keys
 
 
-def topk_block_items(k_pad: int, *, n_items: int | None = None) -> int:
+def topk_block_items(k_pad: int) -> int:
     """ψ rows per pass-1 block for the ``topk_score`` kernel (the
-    counterpart of the TPU kernel's ``block_items``).
+    counterpart of the TPU kernel's ``block_items``): TOPK_MAX_CHUNK for
+    every K and table.
 
     Up to TOPK_MAX_CHUNK, a block keeps the best ``k_pad`` keys of its
-    chunk, so the chunk is at least ``k_pad``, and pass 2 holds
-    TOPK_MERGE_SLOTS lists of ``k_pad`` keys. Above it (large K) a chunk
-    keeps all its rows and is smaller than ``k_pad``
-    (:func:`topk_large_k_keys`). ``n_items`` shrinks the chunk for a small
-    table (one block, fewer idle threads). Any K fits: the device memory
-    of the key buffers is the only limit, and the wrapper checks it."""
-    chunk = TOPK_MAX_CHUNK
-    lo = max(k_pad, 32) if k_pad <= chunk else 32
-    if n_items is not None:
-        chunk = min(chunk, max(lo, _pow2_ceil(max(1, n_items))))
-    return chunk
+    chunk, and pass 2 holds TOPK_MERGE_SLOTS lists of ``k_pad`` keys; above
+    it (large K) a chunk keeps all its rows and is smaller than ``k_pad``
+    (:func:`topk_large_k_keys`). A table smaller than a chunk still takes
+    the full chunk: a chunk's warps share the φ rows' sorts, so at B = 16 a
+    narrower chunk lost up to 3× (``chip_smoke.py`` phase 17). Any K fits:
+    the device memory of the key buffers is the only limit, and the
+    wrapper checks it."""
+    topk_k_pad(k_pad)
+    return TOPK_MAX_CHUNK
 
 
 def psi_row_bytes(d: int, *, psi_bytes: int = 4,
@@ -158,37 +157,58 @@ def shard_capacity_rows(hbm_bytes: int, d: int, *, psi_bytes: int = 4,
         d, psi_bytes=psi_bytes, per_row_scale=per_row_scale)
 
 
-def cluster_block_items(k_pad: int, *, shard_items: int) -> int:
-    """Per-shard ψ chunk for the sharded cluster (``serve/cluster.py``).
-
-    On the TPU the cross-shard merge scratch was charged to VMEM; here the
-    merge (``ops.topk_merge_shards``) is a PyTorch sort in device memory,
-    so a shard's blocks cost what :func:`topk_block_items` says for its
-    row count, and the same :class:`VmemBudgetError` propagates."""
-    return topk_block_items(k_pad, n_items=shard_items)
-
-
 # ---------------------------------------------------------------------------
-# Gram (csrc/gram.cu). A block owns one GRAM_TILE × GRAM_TILE tile of J over
-# one range of rows and stages GRAM_CHUNK rows of its two column strips in
-# static shared memory (2 · 32 · 64 · 4 B = 16 KB); the rows are split so
-# that about GRAM_TARGET_BLOCKS blocks (4 per SM of an H100) share the work.
+# Gram (csrc/gram.cu). J is cut into GRAM_PANEL-wide panels; a block owns one
+# panel pair on or below the diagonal (one diagonal panel for k ≤ 128, so X
+# is read once) over one range of rows, and streams the rows through a ring
+# of GRAM_STAGES stages of GRAM_CHUNK rows in dynamic shared memory (the
+# pair's column strips and the rows' weights). A diagonal block has 128
+# threads (the lower triangle's 136 tiles of 8 × 8, folded), an
+# off-diagonal one 256. __launch_bounds__ lets GRAM_BLOCKS_PER_SM diagonal
+# blocks share an SM (the register cap it implies must hold the 68
+# accumulators and two sets of operands). The rows are split so that about
+# GRAM_TARGET_BLOCKS diagonal blocks (all resident at once on an H100's
+# 132 SMs) share the work, but no split has fewer than
+# GRAM_MIN_SPLIT_CHUNKS chunks: each split costs a partial triangle that
+# the second pass reads back, summing the splits in GRAM_REDUCE_RUNS
+# interleaved runs, in a fixed order. The sizes are the fastest of
+# ``chip_smoke.py --gram-tune``'s variants at icd-mf's two shapes (PERF.md).
 # ---------------------------------------------------------------------------
-GRAM_TILE = 64
-GRAM_CHUNK = 32
-GRAM_TARGET_BLOCKS = 4 * 132
-assert 2 * 4 * GRAM_CHUNK * GRAM_TILE <= SMEM_STATIC_BYTES
+GRAM_PANEL = 128
+GRAM_CHUNK = 16
+GRAM_STAGES = 6
+GRAM_DIAG_THREADS = 128
+GRAM_BLOCKS_PER_SM = 3
+GRAM_TARGET_BLOCKS = 2 * 132
+GRAM_MIN_SPLIT_CHUNKS = 32
+GRAM_REDUCE_RUNS = 8
+SM_SMEM_BYTES = 233_472            # shared memory of one H100 SM (228 KB)
+SMEM_PER_BLOCK_RESERVED = 1024     # the runtime's share of each block
+
+
+def gram_smem_bytes(strips: int) -> int:
+    """Dynamic shared memory of one Gram block: GRAM_STAGES stages, each
+    GRAM_CHUNK rows of ``strips`` GRAM_PANEL-column strips (1 on the
+    diagonal, 2 off it) and the chunk's weights."""
+    return 4 * GRAM_STAGES * (strips * GRAM_CHUNK * GRAM_PANEL + GRAM_CHUNK)
+
+
+assert gram_smem_bytes(2) <= SMEM_BLOCK_MAX
+assert GRAM_BLOCKS_PER_SM * (gram_smem_bytes(1) + SMEM_PER_BLOCK_RESERVED) \
+    <= SM_SMEM_BYTES
+assert 65_536 // (GRAM_BLOCKS_PER_SM * GRAM_DIAG_THREADS) >= 128  # registers
 
 
 def gram_row_splits(rows: int, k: int) -> tuple:
     """``(splits, rows_per_split)`` for one Gram launch: enough row splits
-    to give the card about GRAM_TARGET_BLOCKS blocks, each split a whole
-    number of staged chunks. The splits are summed in order by the second
-    pass, so the result depends only on ``rows`` and ``k``."""
-    tiles = -(-k // GRAM_TILE)
-    pairs = tiles * (tiles + 1) // 2  # J is symmetric: lower-triangle tiles
+    to give the card about GRAM_TARGET_BLOCKS diagonal blocks, each split a
+    whole number of staged chunks and at least GRAM_MIN_SPLIT_CHUNKS of
+    them where the rows allow. The second pass sums the splits in a fixed
+    order, so the result depends only on ``rows`` and ``k``."""
+    panels = -(-k // GRAM_PANEL)
     chunks = max(1, -(-rows // GRAM_CHUNK))
-    splits = max(1, min(-(-GRAM_TARGET_BLOCKS // pairs), chunks))
+    splits = max(1, min(-(-GRAM_TARGET_BLOCKS // panels),
+                        chunks // GRAM_MIN_SPLIT_CHUNKS))
     rows_per_split = -(-chunks // splits) * GRAM_CHUNK
     return -(-max(rows, 1) // rows_per_split), rows_per_split
 

@@ -11,6 +11,7 @@ from repro_torch.obs.costs import (
     KernelCostRecorder,
     cd_sweep_cost,
     topk_score_cost,
+    topk_score_ivf_cost,
 )
 from repro_torch.obs.export import (
     chrome_trace,
@@ -51,6 +52,7 @@ __all__ = [
     "resolve_registry",
     "set_default_registry",
     "topk_score_cost",
+    "topk_score_ivf_cost",
     "trace_for_ticket",
     "write_metrics",
     "write_trace",

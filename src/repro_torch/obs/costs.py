@@ -39,9 +39,31 @@ def topk_score_cost(b: int, n_rows: int, d: int, k: int, *,
                              per_row_scale=per_row_scale)
     hbm = (float(row_blocks) * n_rows * row + 4.0 * b * d + 8.0 * b * k
            + 4.0 * b * excl_l + (float(b) * n_rows if mask else 0.0))
-    chunk = vmem.topk_block_items(vmem.topk_k_pad(k), n_items=n_rows)
+    chunk = vmem.topk_block_items(vmem.topk_k_pad(k))
     return {"hbm_bytes": hbm, "flops": 2.0 * b * n_rows * d,
             "smem_bytes": float(vmem.topk_smem_bytes(chunk))}
+
+
+def topk_score_ivf_cost(b: int, n_rows: int, d: int, k: int,
+                        n_clusters: int, *, psi_bytes: int = 4,
+                        per_row_scale: bool = False,
+                        excl_l: int = 0) -> Dict[str, float]:
+    """Cost of ONE ``topk_score_ivf`` call (the IVF form's launch chain)
+    that scores ``n_rows`` stored ψ rows: the valid rows of the clusters
+    the batch probed.
+
+    Bytes: those rows at their stored width and their global ids (4 B),
+    read once per 16-row φ block; the cluster counts (4 B a cluster) and
+    the (B, C) probe mask (1 B an entry); φ, the exclude-id lists and the
+    (B, k) outputs — what :func:`topk_score_cost` counts for a table of
+    ``n_rows`` rows. The plan's list and the candidate keys are left out.
+    FLOPs: ``2·B·n_rows·D``."""
+    cost = topk_score_cost(b, n_rows, d, k, psi_bytes=psi_bytes,
+                           per_row_scale=per_row_scale, excl_l=excl_l)
+    row_blocks = -(-b // vmem.TOPK_ROW_BLOCK)
+    cost["hbm_bytes"] += (4.0 * row_blocks * n_rows + 4.0 * n_clusters
+                          + float(b) * n_clusters)
+    return cost
 
 
 def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,

@@ -18,13 +18,11 @@ row-range shard of it):
             (``core.quant.int8_quantize_rows``); the kernel dequantizes
             each row before its fp32 products
             (:func:`repro_torch.kernels.vmem.psi_row_bytes`).
-  query     φ·centroidᵀ scores pick each row's top ``n_probe`` clusters;
-            only the selected blocks run the exact top-K kernel, with
-            ``id_offset = block start`` so candidate ids address the
-            permuted table, then one ``ids_global`` gather maps them back
-            to global catalogue ids before the cross-block two-key merge
-            (``ops.topk_merge_shards``) restores the (−score,
-            ascending-global-id) order.
+  query     φ·centroidᵀ scores pick each row's top ``n_probe`` clusters
+            (a device-side probe mask); only the selected blocks' valid
+            rows are scored, exactly, by the top-K kernel's IVF form, which
+            ranks them by (−score, ascending global id) through
+            ``ids_global``.
   oracle    ``n_probe ≥ n_clusters`` probes everything with no pruning
             step and is then bit-identical (ids and scores) to the exact
             path on the card: the kernel's per-row fp32 dot does not
@@ -37,12 +35,13 @@ row-range shard of it):
             ``AnnConfig.reindex_after`` the owner rebuilds the index from
             the authoritative table (``needs_reindex``).
 
-One dispatch per probed block: a 16-row batch probing the union of its
-rows' clusters launches the kernel once for each block in that union, the
-reference's design, ported as it is. A launch reads the block's valid
-rows only, in chunks of the kernel's full width: a chunk's warps sort the
-16 φ rows' keys between them, so a narrower chunk (the wrapper's default
-for a small table) takes longer however few rows it holds.
+One launch chain per query and index: the reference dispatches the kernel
+once per probed block and merges the blocks' candidates by global id (a
+TPU program's design). Here the probe mask stays on the device and the
+top-K kernel's IVF form (``topk_score_ivf``) scores every probed block's
+valid rows in one pass 1 over a (cluster, chunk) list built on the device,
+its keys carrying global ids, then merges them: the same result, since
+within a block positions ascend with global id.
 
 k-means is seeded through an explicit CPU ``torch.Generator`` (distinct
 rows by ``torch.randperm``), which cannot reproduce the reference's
@@ -52,9 +51,8 @@ packages build different indexes, and pruned results differ with them.
 the reference (centroids and assignment), which is how the two are held
 against each other.
 
-Exclusion: callers pass GLOBAL ``exclude_ids``; the index maps them to
-permuted positions through ``inv_pos`` so the kernel's in-kernel
-membership compare works unchanged. Sharding: each shard of a
+Exclusion: callers pass GLOBAL ``exclude_ids``; the kernel compares them
+with the scored rows' global ids (``ids_global``). Sharding: each shard of a
 ``PsiShardSet`` gets its own index over its row range
 (:func:`build_shard_indexes`), and :func:`ivf_cluster_topk` merges the
 shards' candidates as ``cluster.cluster_topk`` does.
@@ -69,8 +67,12 @@ import torch
 
 from repro_torch.core.gram import full_fp32
 from repro_torch.core.quant import int8_quantize_rows
-from repro_torch.kernels.topk_score.ops import topk_merge_shards, topk_score
+from repro_torch.kernels.topk_score.ops import (
+    topk_merge_shards,
+    topk_score_ivf,
+)
 from repro_torch.kernels.vmem import TOPK_MAX_CHUNK
+from repro_torch.obs.costs import KernelCostRecorder, topk_score_ivf_cost
 from repro_torch.serve.cluster import (
     PsiShardSet,
     TopKResult,
@@ -234,6 +236,8 @@ class PsiIndex:
         self.ids_global = ids_global      # (C·block_rows,) i32, −1 on pads
         self.inv_pos = inv_pos            # (n_rows,) i32: local id → position
         self.counts = counts              # np (C,) valid rows per cluster
+        self.counts_dev = torch.as_tensor(  # the same, on the device
+            counts, dtype=torch.int32, device=psi_q.device)
         self.block_rows = block_rows      # uniform padded block size
         self.id_offset = id_offset        # global id of local row 0
         self.n_rows = n_rows              # valid rows indexed
@@ -275,95 +279,65 @@ class PsiIndex:
         return self.staleness > self.cfg.reindex_after
 
     # -------------------------------------------------------------- query
-    def _map_exclude(self, exclude_ids):
-        """GLOBAL excluded ids → permuted positions (−1 when out of this
-        index's range or padding): the kernel's membership compare then
-        runs unchanged in position space."""
-        if exclude_ids is None:
-            return None
-        ex = torch.as_tensor(exclude_ids, dtype=torch.int32, device=self.device)
-        loc = ex - self.id_offset
-        ok = (ex >= 0) & (loc >= 0) & (loc < self.n_rows)
-        pos = self.inv_pos[torch.clamp(loc, 0, max(self.n_rows - 1, 0)).long()]
-        return torch.where(ok, pos, -1).contiguous()
-
     def topk(self, phi_rows, k: int, *, n_probe: Optional[int] = None,
              exclude_ids=None, block_items: Optional[int] = None,
              registry=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Approximate top-K: ``(scores (B, k), ids (B, k))``, ids GLOBAL.
 
         Each φ row probes its own top-``n_probe`` clusters (a stable sort
-        of the centroid scores, ties to the lower cluster); the loop runs
-        each probed block once for the whole batch and masks the rows that
-        did not select it. ``n_probe ≥ n_clusters`` skips pruning entirely
-        (the bit-exact oracle). The probe mask is built on the host: one
-        device-to-host copy of the selection per call.
+        of the centroid scores, ties to the lower cluster), as a (B, C)
+        probe mask built on the index's device; ``n_probe ≥ n_clusters``
+        probes every cluster (the bit-exact oracle). One call of the top-K
+        kernel's IVF form (``topk_score_ivf``) then ranks the probed
+        clusters' valid rows by (−score, global id), which is the
+        reference's per-block top-K followed by its merge by global id:
+        within a block, positions ascend with global id. Nothing is copied
+        to the host before the launch.
 
-        ``registry`` opts into query/probe counters and per-block kernel
-        cost accounting at the stored width; ``None`` records nothing."""
+        ``registry`` opts into the query and probed-block counters and the
+        launch's kernel cost at the stored width (read from the probe mask
+        after the launch); ``None`` records nothing."""
         dev = self.device
         phi_rows = torch.as_tensor(phi_rows, dtype=torch.float32).to(dev)
         phi_rows = phi_rows.contiguous()
         b = int(phi_rows.shape[0])
         c = self.n_clusters
         n_probe = self.cfg.resolve_probe(c) if n_probe is None else n_probe
-        costs = None
-        if registry is not None and registry:   # NULL_REGISTRY is falsy
-            from repro_torch.obs.costs import KernelCostRecorder
-
-            registry.counter(
-                "ann_queries_total", "PsiIndex.topk dispatches").inc()
-            costs = KernelCostRecorder(registry)
-        if n_probe >= c:
-            probe_mask = np.ones((b, c), bool)       # oracle: prune nothing
+        if n_probe >= c:                      # oracle: prune nothing
+            probe = torch.ones((b, c), dtype=torch.bool, device=dev)
         else:
             with full_fp32():
                 cscores = phi_rows @ self.centroids.T   # (B, C): C ≪ n_items
             sel = torch.sort(cscores, dim=1, descending=True,
-                             stable=True).indices[:, :n_probe].cpu().numpy()
-            probe_mask = np.zeros((b, c), bool)
-            np.put_along_axis(probe_mask, sel, True, axis=1)
-        probe_dev = torch.as_tensor(probe_mask, device=dev)
-        excl_pos = self._map_exclude(exclude_ids)
-        excl_l = 0 if excl_pos is None else int(excl_pos.shape[1])
-        probed = 0
-        parts_s, parts_i = [], []
-        for cl in np.nonzero(probe_mask.any(axis=0))[0]:
-            if self.counts[cl] == 0:
-                continue                             # empty block: no rows
-            # the block's valid rows only (its padding is inadmissible), in
-            # full-width chunks
-            lo = int(cl) * self.block_rows
-            hi = lo + int(self.counts[cl])
-            ss, ii = topk_score(
-                phi_rows, self.psi_q[lo:hi], k, exclude_ids=excl_pos,
-                psi_scale=None if self.scales is None else self.scales[lo:hi],
-                id_offset=lo, block_items=block_items or TOPK_MAX_CHUNK,
-            )
-            probed += 1
-            if costs is not None:
-                costs.record_topk(
-                    b, hi - lo, self.d, k, kernel="topk_score_ivf",
-                    psi_bytes=_PSI_BYTES[self.cfg.quant],
-                    per_row_scale=self.cfg.quant == "int8", excl_l=excl_l)
-            mask = probe_dev[:, int(cl)][:, None]
-            ss = torch.where(mask, ss, float("-inf"))
-            ii = torch.where(mask, ii, -1)
-            # permuted positions → global catalogue ids BEFORE the merge:
-            # the two-key sort must tie-break on GLOBAL ascending id
-            ii = torch.where(ii >= 0,
-                             self.ids_global[torch.clamp(ii, min=0).long()], -1)
-            parts_s.append(ss)
-            parts_i.append(ii)
-        if registry is not None and registry:
+                             stable=True).indices[:, :n_probe]
+            probe = torch.zeros((b, c), dtype=torch.bool, device=dev)
+            probe.scatter_(1, sel, True)
+        ex = None
+        if exclude_ids is not None:
+            ex = torch.as_tensor(exclude_ids, dtype=torch.int32,
+                                 device=dev).contiguous()
+        chunk = block_items or TOPK_MAX_CHUNK
+        scores, ids = topk_score_ivf(
+            phi_rows, self.psi_q, k, probe_mask=probe,
+            counts=self.counts_dev, ids_global=self.ids_global,
+            block_rows=self.block_rows, exclude_ids=ex,
+            psi_scale=self.scales, block_items=chunk,
+            max_lists=max(1, int((-(-self.counts // chunk)).sum())))
+        if registry is not None and registry:   # NULL_REGISTRY is falsy
+            live = probe.any(dim=0) & (self.counts_dev > 0)
+            probed = int(live.sum())
+            rows = int(self.counts_dev[live].sum())
+            registry.counter(
+                "ann_queries_total", "PsiIndex.topk dispatches").inc()
             registry.counter(
                 "ann_probed_blocks_total",
                 "IVF blocks actually dispatched (post-pruning)").inc(probed)
-        if not parts_s:
-            return empty_topk(b, k, device=dev)
-        if len(parts_s) == 1:
-            return parts_s[0], parts_i[0]
-        return topk_merge_shards(torch.stack(parts_s), torch.stack(parts_i), k)
+            KernelCostRecorder(registry).record("topk_score_ivf",
+                                                topk_score_ivf_cost(
+                b, rows, self.d, k, c, psi_bytes=_PSI_BYTES[self.cfg.quant],
+                per_row_scale=self.cfg.quant == "int8",
+                excl_l=0 if ex is None else int(ex.shape[1])))
+        return scores, ids
 
     # -------------------------------------------------------------- delta
     def apply_delta(self, rows, ids) -> "PsiIndex":

@@ -220,10 +220,9 @@ def shard_psi(
 
 def resolve_cluster_block_items(table: PsiShardSet, k: int) -> int:
     """Per-shard ``block_items`` for the kernel: the ψ rows one pass-1
-    block scores. Raises :class:`vmem.VmemBudgetError` when ``k`` needs
-    more shared memory than a block has (never shrinks below it)."""
-    return vmem.cluster_block_items(vmem.topk_k_pad(k),
-                                    shard_items=table.rows_per)
+    block scores (:func:`vmem.topk_block_items`, the same for every shard
+    size)."""
+    return vmem.topk_block_items(vmem.topk_k_pad(k))
 
 
 def _shard_exclude_mask(exclude_mask, lo: int, rows_per: int):

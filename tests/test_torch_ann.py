@@ -31,7 +31,11 @@ from repro_torch.core import quant
 from repro_torch.eval.ranking import ann_recall_curve
 from repro_torch.kernels.topk_score import ops
 from repro_torch.kernels.topk_score.ref import topk_score_ref
-from repro_torch.obs import MetricsRegistry, topk_score_cost
+from repro_torch.obs import (
+    MetricsRegistry,
+    topk_score_cost,
+    topk_score_ivf_cost,
+)
 from repro_torch.serve import ann
 from repro_torch.serve.cluster import ShardedRetrievalCluster, shard_psi
 from repro_torch.serve.engine import RetrievalEngine
@@ -286,32 +290,225 @@ def test_index_edges_match_reference():
 
 
 def test_index_records_probe_counters_and_costs():
+    """The probed-block counter keeps the reference's meaning (blocks in
+    the probed union that hold rows); the kernel cost is ONE launch of the
+    IVF form a query, over the rows it scored."""
     psi = _clustered(120, 8, 4, seed=12)
     port = ann.PsiIndex.build(torch.from_numpy(psi), ann.AnnConfig(
         n_clusters=4, n_probe=2, quant="int8"))
     reg = MetricsRegistry()
-    port.topk(torch.from_numpy(_queries(1, 8)), 5, registry=reg)
+    phi = torch.from_numpy(_queries(1, 8))
+    port.topk(phi, 5, registry=reg)
     assert reg.get("ann_queries_total") == 1
     probed = reg.get("ann_probed_blocks_total")
     assert 1 <= probed <= 2
-    assert reg.get("kernel_calls_total", kernel="topk_score_ivf") == probed
+    assert reg.get("kernel_calls_total", kernel="topk_score_ivf") == 1
     cost = topk_score_cost(1, port.block_rows, 8, 5, psi_bytes=1,
                            per_row_scale=True)
     assert cost["hbm_bytes"] == port.block_rows * (8 + 4) + 4 * 8 + 8 * 5
-    # a probed block's launch reads its valid rows only: at the oracle
-    # probe every block is probed, so the bytes sum over every block
+    # the IVF launch's bytes: the probed clusters' valid rows, their global
+    # ids, the counts and the (B, C) probe mask
+    with torch.no_grad():
+        cs = (phi @ port.centroids.T)[0].numpy()
+    top2 = np.argsort(-cs, kind="stable")[:2]
+    rows = int(sum(port.counts[c] for c in top2))
+    ivf = topk_score_ivf_cost(1, rows, 8, 5, 4, psi_bytes=1,
+                              per_row_scale=True)
+    assert ivf["hbm_bytes"] == topk_score_cost(
+        1, rows, 8, 5, psi_bytes=1, per_row_scale=True)["hbm_bytes"] \
+        + 4 * rows + 4 * 4 + 1 * 4
+    assert reg.get("kernel_hbm_bytes_total", kernel="topk_score_ivf") == \
+        ivf["hbm_bytes"]
+    # at the oracle probe every block is probed: the rows are all of them
     before = reg.get("kernel_hbm_bytes_total", kernel="topk_score_ivf")
-    port.topk(torch.from_numpy(_queries(1, 8)), 5, n_probe=4, registry=reg)
-    every = sum(topk_score_cost(1, int(n), 8, 5, psi_bytes=1,
-                                per_row_scale=True)["hbm_bytes"]
-                for n in port.counts if n)
+    port.topk(phi, 5, n_probe=4, registry=reg)
+    every = topk_score_ivf_cost(1, int(port.counts.sum()), 8, 5, 4,
+                                psi_bytes=1, per_row_scale=True)["hbm_bytes"]
     assert reg.get("kernel_hbm_bytes_total",
                    kernel="topk_score_ivf") - before == every
+    assert reg.get("kernel_calls_total", kernel="topk_score_ivf") == 2
+    assert reg.get("ann_probed_blocks_total") == probed + int(
+        (port.counts > 0).sum())
     assert reg.get("ann_queries_total") == 2
     masked = topk_score_cost(3, 100, 8, 5, mask=True)["hbm_bytes"]
     assert masked - topk_score_cost(3, 100, 8, 5)["hbm_bytes"] == 3 * 100
-    port.topk(torch.from_numpy(_queries(1, 8)), 5)   # None records nothing
+    port.topk(phi, 5)   # None records nothing
     assert reg.get("ann_queries_total") == 2
+
+
+# ------------------------------------------ the top-K kernel's IVF form
+def _tied_pair(q, seed=40):
+    """The port's index and the reference's over one hand-made clustering
+    of integer ψ rows: 50 distinct rows drawn with repeats into 5 clusters
+    of 3, 40, 60, 25 and 72 rows, so equal scores fall inside a block and
+    across blocks in every storage form (equal rows quantize alike).
+    Cluster 0's centroid points along the first axis."""
+    rng = np.random.default_rng(seed)
+    counts, d = (3, 40, 60, 25, 72), 8
+    base = rng.integers(-2, 3, size=(50, d)).astype(np.float32)
+    psi = base[rng.integers(0, 50, size=sum(counts))]
+    assign = np.repeat(np.arange(5), counts)
+    rng.shuffle(assign)
+    cents = rng.normal(size=(5, d)).astype(np.float32)
+    cents[0] = 0.0
+    cents[0, 0] = 20.0
+    jcfg = jann.AnnConfig(n_clusters=5, quant=q, seed=seed)
+    port = ann.index_from_numpy(psi, cents, assign, _cfg(jcfg), device="cpu")
+    psi_q = _np(port.psi_q)
+    ref = jann.PsiIndex(
+        cfg=jcfg, centroids=jnp.asarray(cents),
+        psi_q=jnp.asarray(psi_q, jnp.bfloat16 if q == "bf16" else psi_q.dtype),
+        scales=None if port.scales is None else jnp.asarray(_np(port.scales)),
+        ids_global=jnp.asarray(_np(port.ids_global)),
+        inv_pos=jnp.asarray(_np(port.inv_pos)), counts=port.counts.copy(),
+        block_rows=port.block_rows, id_offset=0, n_rows=port.n_rows,
+        staleness=0)
+    return psi, ref, port
+
+
+def _tied_queries(b=5, d=8, seed=41):
+    """Integer φ rows; row 0 is the first axis (it probes cluster 0, of 3
+    rows, first), row 1 a small multiple of it (many equal scores)."""
+    phi = np.random.default_rng(seed).integers(-2, 3, size=(b, d))
+    phi[0] = 0
+    phi[0, 0] = 1
+    phi[1] = 2 * phi[0]
+    return phi.astype(np.float32)
+
+
+def _per_block_loop(index, phi, k, n_probe, exclude_ids):
+    """The port's former query, one plain top-K a probed block: a block's
+    valid rows by position, the rows that did not probe it masked, the
+    positions mapped to global ids, then the merge by (−score, global id)."""
+    b, c = phi.shape[0], index.n_clusters
+    cs = phi @ index.centroids.T
+    sel = torch.sort(cs, dim=1, descending=True, stable=True).indices[:, :n_probe]
+    probe = torch.zeros((b, c), dtype=torch.bool).scatter_(1, sel, True)
+    ex = None
+    if exclude_ids is not None:   # global ids → positions, as before
+        e = torch.as_tensor(exclude_ids).long()
+        ok = (e >= 0) & (e < index.n_rows)
+        ex = torch.where(ok, index.inv_pos[e.clamp(0, index.n_rows - 1)], -1)
+        ex = ex.to(torch.int32)
+    parts_s, parts_i = [], []
+    for cl in range(c):
+        if not bool(probe[:, cl].any()) or index.counts[cl] == 0:
+            continue
+        lo = cl * index.block_rows
+        hi = lo + int(index.counts[cl])
+        ss, ii = topk_score_ref(
+            phi, index.psi_q[lo:hi], k, exclude_ids=ex, id_offset=lo,
+            psi_scale=None if index.scales is None else index.scales[lo:hi])
+        m = probe[:, cl][:, None]
+        ss = torch.where(m, ss, float("-inf"))
+        ii = torch.where(m & (ii >= 0),
+                         index.ids_global[ii.clamp(min=0).long()], -1)
+        parts_s.append(ss)
+        parts_i.append(ii)
+    return ops.topk_merge_shards(torch.stack(parts_s), torch.stack(parts_i), k)
+
+
+@pytest.mark.parametrize("q", QUANTS)
+def test_ivf_form_ties_short_rows_and_wide_k_match_reference(q):
+    """The IVF form against the reference's per-block loop: ties at the K
+    boundary inside and across blocks, exclusion lists, a row whose probed
+    cluster holds fewer than K rows (row 0 at n_probe 1), K = 257 (more
+    than the index holds) and the oracle probe; ids exact."""
+    psi, ref, port = _tied_pair(q)
+    phi = _tied_queries()
+    eids = _exclude(5, 230, 12, 42)
+    eids[1, :3] = [int(port.ids_global[port.block_rows * 2]), -1, 7]
+    for k, n_probe, ex in ((10, 1, None), (10, 2, eids), (257, 2, eids),
+                           (12, 5, eids), (257, 5, None)):
+        t_ex = None if ex is None else torch.from_numpy(ex)
+        got = port.topk(torch.from_numpy(phi), k, n_probe=n_probe,
+                        exclude_ids=t_ex)
+        _same(got, ref.topk(jnp.asarray(phi), k, n_probe=n_probe,
+                            exclude_ids=None if ex is None else jnp.asarray(ex)))
+        _same(got, _per_block_loop(port, torch.from_numpy(phi), k, n_probe,
+                                   t_ex), exact_scores=True)
+        if n_probe == 1:   # row 0 probes cluster 0 only: 3 rows, then empty
+            assert (got[1][0, 3:] == -1).all()
+            assert torch.isneginf(got[0][0, 3:]).all()
+    # the ties really straddle the boundary: row 1's 10th and 11th scores
+    s, _ = port.topk(torch.from_numpy(phi), 11, n_probe=5)
+    assert s[1, 9] == s[1, 10]
+
+
+@pytest.mark.parametrize("q", QUANTS)
+def test_ivf_form_after_delta_patches_appends_and_grow_matches_reference(q):
+    """Patched rows keep their slot, appended ids join their nearest
+    centroid's block at its tail (ascending global id), and a full block
+    grows every block: the IVF form still equals the reference."""
+    psi, ref, port = _tied_pair(q, seed=43)
+    full = int(np.argmax(port.counts))
+    assert port.counts[full] == port.block_rows     # an append grows it
+    rng = np.random.default_rng(44)
+    rows = rng.integers(-2, 3, size=(6, 8)).astype(np.float32)
+    rows[2:] = _np(port.centroids)[full] * 3        # nearest to that block
+    ids = np.asarray([4, 77, 200, 201, 202, 203], np.int64)
+    r2 = ref.apply_delta(jnp.asarray(rows), ids)
+    p2 = port.apply_delta(rows, ids)
+    _same_layout(p2, r2)
+    assert p2.block_rows > port.block_rows
+    phi = _tied_queries(seed=45)
+    eids = _exclude(5, 204, 10, 46)
+    for k, n_probe in ((9, 2), (257, 5)):
+        got = p2.topk(torch.from_numpy(phi), k, n_probe=n_probe,
+                      exclude_ids=torch.from_numpy(eids))
+        _same(got, r2.topk(jnp.asarray(phi), k, n_probe=n_probe,
+                           exclude_ids=jnp.asarray(eids)))
+        _same(got, _per_block_loop(p2, torch.from_numpy(phi), k, n_probe,
+                                   torch.from_numpy(eids)), exact_scores=True)
+
+
+@pytest.mark.parametrize("q", QUANTS)
+def test_ivf_cluster_topk_matches_reference_by_form(q):
+    """Two shards' indexes over the reference's k-means results: the
+    sharded IVF top-K with exclusions (ids in both shards) at a pruned
+    and at the oracle probe."""
+    psi = _clustered(160, 8, 4, seed=47)
+    jcfg = jann.AnnConfig(n_clusters=3, quant=q, seed=48)
+    pairs = [_pair(psi[s * 80:(s + 1) * 80], jcfg, id_offset=s * 80)
+             for s in range(2)]
+    jt = jax_shard_psi(jnp.asarray(psi), 2)
+    pt = shard_psi(torch.from_numpy(psi), 2)
+    phi = _queries(4, 8, 49)
+    eids = _exclude(4, 160, 20, 50)
+    for n_probe in (1, 3):
+        _same(ann.ivf_cluster_topk(pt, [p for _, p in pairs],
+                                   torch.from_numpy(phi), 11, n_probe=n_probe,
+                                   exclude_ids=torch.from_numpy(eids)),
+              jann.ivf_cluster_topk(jt, [r for r, _ in pairs],
+                                    jnp.asarray(phi), 11, n_probe=n_probe,
+                                    exclude_ids=jnp.asarray(eids)))
+
+
+def test_ivf_form_plain_version_matches_the_per_block_loop():
+    """``topk_score_ivf``'s plain version against the per-block loop on
+    random fp32 data, all-false and all-true probe masks, and an empty
+    cluster."""
+    psi = _clustered(200, 16, 5, seed=51)
+    rng = np.random.default_rng(52)
+    assign = rng.integers(0, 4, size=200)          # cluster 4 stays empty
+    cents = rng.normal(size=(5, 16)).astype(np.float32)
+    index = ann.index_from_numpy(psi, cents, assign, ann.AnnConfig(
+        n_clusters=5), device="cpu")
+    assert index.counts[4] == 0
+    phi = torch.from_numpy(_queries(6, 16, 53))
+    eids = torch.from_numpy(_exclude(6, 200, 15, 54))
+    for n_probe in (2, 5):
+        _same(index.topk(phi, 20, n_probe=n_probe, exclude_ids=eids),
+              _per_block_loop(index, phi, 20, n_probe, eids))
+    args = dict(counts=index.counts_dev, ids_global=index.ids_global,
+                block_rows=index.block_rows)
+    none = torch.zeros((6, 5), dtype=torch.bool)
+    s, i = ops.topk_score_ivf(phi, index.psi_q, 7, probe_mask=none, **args)
+    assert (i == -1).all() and torch.isneginf(s).all()
+    every = torch.ones((6, 5), dtype=torch.uint8)
+    _same(ops.topk_score_ivf(phi, index.psi_q, 7, probe_mask=every, **args),
+          topk_score_ref(phi, torch.from_numpy(psi), 7))
+    assert ops.topk_score.launches_ivf == 0         # CPU tensors never launch
 
 
 def test_ann_recall_curve_matches_reference():

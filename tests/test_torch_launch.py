@@ -340,6 +340,150 @@ def test_gram_kernel_matches_plain_on_cuda(cuda, rows, k, weighted):
     assert torch.equal(gram_ops.gram(wide[:, 2:2 + k]), gram_ref(wide[:, 2:2 + k]))
 
 
+# the Gram in random fp32 against the plain version (a cuBLAS product,
+# another summation order): rtol 1e-4 and 1e-6 of the largest |J|, as
+# chip_smoke.py holds it
+GRAM_RTOL, GRAM_ATOL_REL = 1e-4, 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,k,weighted", [
+    (7, 16, False), (130, 130, True), (0, 8, False), (33, 1, True),
+    (68_000, 128, False), (200_000, 128, True), (5_000, 257, False)])
+def test_gram_kernel_random_repeatable_and_strided_on_cuda(cuda, rows, k,
+                                                           weighted):
+    """Random fp32 to GRAM_RTOL, two calls bit-equal, small integers exact,
+    and a column slice of a wider matrix read in place, both where its
+    rows are 16-byte aligned (ldx % 4 == 0: the 16-byte copies) and where
+    they are not (the 4-byte copies)."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram.ref import gram_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + k)
+    x = 0.1 * torch.randn((rows, k), generator=gen, device=cuda)
+    w = (torch.rand((rows,), generator=gen, device=cuda) * 4
+         if weighted else None)
+    got, again = gram_ops.gram(x, weights=w), gram_ops.gram(x, weights=w)
+    want = gram_ref(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=GRAM_RTOL,
+                               atol=GRAM_ATOL_REL * float(want.abs().max())
+                               if rows else 0.0)
+    assert torch.equal(got, got.T)
+    xi = _ints((rows, k + 8), rows, cuda)
+    wi = _ints((rows,), rows + 1, cuda).abs() if weighted else None
+    for lo in (4, 3):          # aligned rows, then unaligned ones
+        view = xi[:, lo:lo + k]
+        assert torch.equal(gram_ops.gram(view, weights=wi), gram_ref(view, wi))
+    torch.cuda.synchronize()
+
+
+def _ivf_case(dev, *, b, c, block_rows, d, seed, empty=(1,)):
+    """An IVF index's arrays in small integers: C blocks of block_rows
+    rows with random counts (the clusters in ``empty`` hold none), global
+    ids a random permutation laid out ascending within each block, and ψ
+    in its three stored forms with scores that are exact integers (int8
+    with scale 1). Equal rows repeat across and inside blocks."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, block_rows + 1, size=c)
+    counts[list(empty)] = 0
+    counts[0] = block_rows
+    n = int(counts.sum())
+    gids = rng.permutation(n) + 1_000
+    ids_global = np.full(c * block_rows, -1, np.int32)
+    base = rng.integers(-3, 4, size=(max(8, n // 4), d))
+    table = np.zeros((c * block_rows, d), np.float32)
+    at = 0
+    for cl in range(c):
+        pos = cl * block_rows + np.arange(counts[cl])
+        ids_global[pos] = np.sort(gids[at:at + counts[cl]])
+        table[pos] = base[rng.integers(0, len(base), size=counts[cl])]
+        at += counts[cl]
+    psi = torch.tensor(table, device=dev)
+    phi = torch.tensor(rng.integers(-3, 4, (b, d)), dtype=torch.float32,
+                       device=dev)
+    forms = {"fp32": (psi, None), "bf16": (psi.bfloat16(), None),
+             "int8": (psi.to(torch.int8), torch.ones(len(psi), device=dev))}
+    arrays = dict(counts=torch.tensor(counts, dtype=torch.int32, device=dev),
+                  ids_global=torch.tensor(ids_global, device=dev),
+                  block_rows=block_rows)
+    excl = rng.choice(gids, size=(b, 9)).astype(np.int32)
+    excl[:, -2:] = -1
+    return phi, forms, arrays, torch.tensor(excl, device=dev), gids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 100, 257, 1_000])
+def test_ivf_form_exact_on_cuda(cuda, k):
+    """The IVF form against its plain version bit for bit: the three
+    storage forms, ties inside and across blocks, an empty cluster, blocks
+    of several chunks, random, all-false and all-true probe masks, with and
+    without exclusions; one launch a call."""
+    b, c = 19, 7
+    phi, forms, arrays, excl, _ = _ivf_case(cuda, b=b, c=c, block_rows=600,
+                                            d=16, seed=k)
+    rng = np.random.default_rng(k + 1)
+    masks = {"random": torch.tensor(rng.random((b, c)) < 0.4, device=cuda),
+             "none": torch.zeros((b, c), dtype=torch.bool, device=cuda),
+             "all": torch.ones((b, c), dtype=torch.uint8, device=cuda)}
+    for name, (psi, scale) in forms.items():
+        for mname, mask in masks.items():
+            for ex in (None, excl):
+                before = {f: getattr(ops.topk_score, f) for f in
+                          ("launches", "launches_ivf", "launches_mask")}
+                args = dict(probe_mask=mask, psi_scale=scale, exclude_ids=ex,
+                            **arrays)
+                s, i = ops.topk_score_ivf(phi, psi, k, **args)
+                rs, ri = ref.topk_score_ivf_ref(phi, psi, k, **args)
+                torch.cuda.synchronize()
+                assert torch.equal(i, ri) and torch.equal(s, rs), (name, mname)
+                after = {f: getattr(ops.topk_score, f) - v
+                         for f, v in before.items()}
+                assert after == {"launches": 1, "launches_ivf": 1,
+                                 "launches_mask": 0}
+                if mname == "none":
+                    assert (i == -1).all()
+
+
+@pytest.mark.gpu
+def test_ivf_index_one_launch_per_shard_and_call_on_cuda(cuda):
+    """``PsiIndex.topk`` on the card equals the same index on the CPU (the
+    plain version), and the sharded IVF top-K launches the IVF form once a
+    shard and call, with no other launch of the top-K kernel."""
+    from repro_torch.serve import ann
+    from repro_torch.serve.cluster import shard_psi
+
+    rng = np.random.default_rng(70)
+    psi = rng.integers(-3, 4, size=(900, 16)).astype(np.float32)
+    phi = rng.integers(-3, 4, size=(16, 16)).astype(np.float32)
+    excl = torch.tensor(rng.integers(0, 900, size=(16, 12)), dtype=torch.int32)
+    for q in ("none", "bf16", "int8"):
+        cfg = ann.AnnConfig(n_clusters=9, n_probe=3, quant=q, seed=71)
+        idx_cpu = ann.PsiIndex.build(torch.from_numpy(psi), cfg)
+        assign = idx_cpu.inv_pos.numpy() // idx_cpu.block_rows
+        gpu = ann.index_from_numpy(psi, idx_cpu.centroids.numpy(), assign,
+                                   cfg, device=cuda)
+        for n_probe in (3, 9):
+            s, i = gpu.topk(torch.from_numpy(phi).to(cuda), 100,
+                            n_probe=n_probe, exclude_ids=excl.to(cuda))
+            rs, ri = idx_cpu.topk(torch.from_numpy(phi), 100, n_probe=n_probe,
+                                  exclude_ids=excl)
+            torch.cuda.synchronize()
+            assert torch.equal(i.cpu(), ri), (q, n_probe)
+            torch.testing.assert_close(s.cpu(), rs, rtol=1e-5, atol=1e-5)
+    table = shard_psi(torch.from_numpy(psi).to(cuda), 2)
+    cfg = ann.AnnConfig(n_clusters=6, n_probe=2, seed=72)
+    indexes = ann.build_shard_indexes(table, cfg)
+    before = (ops.topk_score.launches, ops.topk_score.launches_ivf)
+    for _ in range(3):
+        ann.ivf_cluster_topk(table, indexes, torch.from_numpy(phi).to(cuda),
+                             50, exclude_ids=excl.to(cuda))
+    torch.cuda.synchronize()
+    assert (ops.topk_score.launches - before[0],
+            ops.topk_score.launches_ivf - before[1]) == (6, 6)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("c,d,kb,k,eta", [(1001, 40, 8, 12, 1.0), (13, 200, 1, 5, 0.5),
                                           (9, 33, 3, 3, 1.3), (300, 128, 4, 12, 0.8)])

@@ -190,16 +190,16 @@ def test_block_items_budget_raises_instead_of_shrinking():
     assert vmem.TOPK_MAX_CHUNK == 256
     assert vmem.topk_smem_bytes(vmem.TOPK_MAX_CHUNK) <= vmem.SMEM_STATIC_BYTES
     assert vmem.topk_k_pad(100) == 128 and vmem.topk_k_pad(1) == 1
-    # the serving driver's shard: full 256-row chunks
-    assert vmem.topk_block_items(128, n_items=34_000) == 256
-    # a small table: one block, never fewer rows than k_pad
-    assert vmem.topk_block_items(16, n_items=40) == 64
-    assert vmem.topk_block_items(128, n_items=10) == 128
-    assert vmem.cluster_block_items(128, shard_items=17) == 128
+    # every table, the serving driver's shard and a small one alike, takes
+    # full 256-row chunks (a narrower chunk for a small table lost at B = 16)
+    assert vmem.topk_block_items(128) == 256
+    assert vmem.topk_block_items(16) == 256 and vmem.topk_block_items(1) == 256
+    with pytest.raises(ValueError):
+        vmem.topk_block_items(0)
     # K above 256 takes the large-K path: chunks smaller than k_pad, whose
     # merge levels keep every key until lists reach k_pad
     assert vmem.topk_block_items(512) == 256
-    assert vmem.topk_block_items(1024, n_items=40) == 64
+    assert vmem.topk_block_items(1024) == 256
     assert vmem.topk_block_items(8192) == 256
     # K past 8,192 no longer raises: k_pad 16,384 merges in device memory,
     # whose two key buffers hold the largest level a row writes
