@@ -30,7 +30,9 @@ Phases, one line each or more:
      pre-gathered sweep on the context side), and at small edge cases (k
      not divisible by k_b, row counts off the row tile, all-zero-α rows
      with l2 = 0 and α₀ = 0, padding ids, η ≠ 1, k_b = 1, and a whole
-     ``mf_padded`` epoch on the card against the same epoch on the CPU);
+     ``mf_padded`` epoch on the card against the same epoch on the CPU),
+     each sweep called twice for the same bits, the gather sweep's rows of
+     up to 2,048 slots in the register-row form (``csrc/cd_gather.cu``);
   6. train icd-mf at full width on a seeded log (200,000 users × 68,000
      items, k = 128): ``mf_padded.fit`` for 3 epochs with the defaults,
      the objective falling every epoch, the kernels' launches counted;
@@ -41,7 +43,9 @@ Phases, one line each or more:
   7. time the Gram and sweep kernels at the full-width shapes beside their
      plain versions, the library call where one exists (``torch.mm(x.T,
      x)`` for the Gram), and their bounds, and the Gram at 1, 2, 4 and 8
-     diagonal blocks an SM;
+     diagonal blocks an SM; the gather sweep's register-row form beside
+     the warp-row form it replaced (and how far each lands from the plain
+     version from one random start);
   8. run the quickstart twin on the card (iCD-MF must beat popularity);
   9. hold the row-patch block sweeps (kernels 4 and 5) against their plain
      versions: both routings at the full-width user-side shape (C =
@@ -67,7 +71,9 @@ Phases, one line each or more:
      shapes (context C = 200,000, D_pad = 128, n_src = 68,000; item C =
      68,000, D_pad = 1,024, n_src = 200,000; m = 8, the ψ slab a column
      slice of a k = 128 table), at m = 9 and 17 with strided slabs, on rows
-     of 20,480 slots and with ids past the slab;
+     of 20,480 slots and with ids past the slab, each slab reduce called
+     twice for the same bits, the gather one at m ≤ 8 in its one-tile
+     form (``csrc/cd_gather.cu``);
  14. train MFSI at icd-fm width (200,000 contexts over 7 fields, p_ctx =
      336,091, 68,000 items, k = 128) on phase 6's log with a seeded
      context design: 3 ``epoch_padded`` epochs (objective falling, 96
@@ -77,7 +83,8 @@ Phases, one line each or more:
      kernel against a plain recompute;
  15. time kernels 6–9 at both sides' full-width shapes beside their plain
      versions, their bounds and, for the pre-gathered forms, one
-     ``torch.bmm``/``baddbmm`` over the same tile.
+     ``torch.bmm``/``baddbmm`` over the same tile; the gather slab reduce's
+     one-tile form beside the tiled form it replaced.
 
  16. serve the quantized IVF tier at full icd-mf width on phase 6's trained
      factors: ``FaultTolerantRetrievalMesh(retrieval="ivf",
@@ -118,7 +125,8 @@ rows (the device-memory merge).
 
 ``python3 chip_smoke.py --serve-order BEFORE`` runs only phase 3's order
 check (:func:`serve_first_runs`); ``--gram-tune`` only the Gram's variants
-(:func:`gram_tune`).
+(:func:`gram_tune`); ``--sweep-tune`` only the variants of
+``csrc/cd_gather.cu`` (:func:`sweep_tune`).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -471,22 +479,29 @@ def hold_sweep(cs, cr, gen, dev, c, d, kb, n_src, *, gather=True, k=None,
                alpha0=1.0, l2=0.1, eta=1.0, pad_frac=0.5, x=None) -> float:
     """One sweep launch against the plain version on the same inputs;
     returns the largest |error| over W and e."""
+    from repro_torch.kernels import vmem
+
     x = x or sweep_inputs(gen, dev, c, d, kb, n_src, k=k, pad_frac=pad_frac)
     kw = dict(alpha0=alpha0, l2=l2, eta=eta)
     if gather:
         rw, re = cr.cd_block_sweep_gather_ref(
             x["tab"], x["ids"], x["alpha"], x["e"], x["w"], x["r1"], x["j"], **kw)
-        e = x["e"].clone()
-        w, e2 = cs.cd_block_sweep_gather(
-            x["tab"], x["ids"], x["alpha"], e, x["w"], x["r1"], x["j"], **kw)
+        fn, first = cs.cd_block_sweep_gather, (x["tab"], x["ids"])
     else:
         psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
         rw, re = cr.cd_block_sweep_ref(psi, x["alpha"], x["e"], x["w"],
                                        x["r1"], x["j"], **kw)
-        e = x["e"].clone()
-        w, e2 = cs.cd_block_sweep(psi, x["alpha"], e, x["w"], x["r1"],
-                                  x["j"], **kw)
+        fn, first = cs.cd_block_sweep, (psi,)
+    reg = vmem.cd_sweep_form(d, kb, gather=gather) == vmem.REG_ROW
+    before = (fn.launches, fn.launches_reg_row)
+    e, e_again = x["e"].clone(), x["e"].clone()
+    w, e2 = fn(*first, x["alpha"], e, x["w"], x["r1"], x["j"], **kw)
+    w_again, _ = fn(*first, x["alpha"], e_again, x["w"], x["r1"], x["j"], **kw)
     torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.launches_reg_row - before[1]) == \
+        (2, 2 * reg), (c, d, kb, gather)
+    assert torch.equal(w, w_again) and torch.equal(e, e_again), \
+        f"two sweep calls differ at C {c} D_pad {d} k_b {kb}"
     assert e2 is e, "the residual grid must be updated in place"
     assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
     torch.testing.assert_close(w, rw, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
@@ -650,16 +665,20 @@ def train_full_width(dev) -> dict:
                 tops.topk_score)
     for c in counters:
         c.launches = 0
+    cs.cd_block_sweep_gather.launches_reg_row = 0
     stamp[0] = time.perf_counter()
     trained = mf_padded.fit(params0, pdata, hp, 3, callback=on_epoch)
     launches = {c.__name__: c.launches for c in counters}
+    launches["cd_block_sweep_gather:reg_row"] = cs.cd_block_sweep_gather.launches_reg_row
     log(f"phase 6 train: mf_padded.fit 3 epochs (block_k 8, gather): "
         f"objective {' -> '.join(f'{o:.6g}' for o in objs)}; epoch s "
         f"{', '.join(f'{s:.3f}' for s in epoch_s)} (objective excluded); "
         f"launches {launches}: {launches['gram'] // 3} Gram and "
-        f"{launches['cd_block_sweep_gather'] // 3} sweep launches an epoch")
+        f"{launches['cd_block_sweep_gather'] // 3} sweep launches an epoch, "
+        f"all in the register-row form")
     assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
     assert launches["gram"] == 6 and launches["cd_block_sweep_gather"] == 96 \
+        and launches["cd_block_sweep_gather:reg_row"] == 96 \
         and launches["cd_block_sweep"] == 0, launches
 
     # one epoch from one start through each dispatch and the segment sum
@@ -763,7 +782,8 @@ def epoch_breakdown(fn, top: int = 8) -> str:
 def time_training_kernels(dev, pdata, params) -> dict:
     """Phase 7: CUDA-event times at the full-width dispatch shapes, one
     launch per side as an epoch makes them (k_b = 8, columns 0..7)."""
-    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
     from repro_torch.kernels.gram import ops as gops, ref as gref
     from repro_torch.obs.costs import cd_sweep_cost
 
@@ -792,7 +812,7 @@ def time_training_kernels(dev, pdata, params) -> dict:
                         for n in GRAM_SPLIT_SWEEP))
     out["gram"] = g
     for disp in ("gather", "pregather"):
-        r = {"ms": [], "plain": [], "bound": []}
+        r = {"ms": [], "plain": [], "bound": [], "warp_row": []}
         for name, (side, other, ids, alpha) in sides.items():
             c, d = alpha.shape
             jfull = gref.gram_ref(other)
@@ -800,11 +820,45 @@ def time_training_kernels(dev, pdata, params) -> dict:
             r1 = side @ jfull[:, :kb]
             tab, wb = other[:, :kb], side[:, :kb]
             es = [torch.zeros_like(alpha) for _ in range(2)]
+            form = vmem.cd_sweep_form(d, kb, gather=disp == "gather")
             if disp == "gather":
                 fn = lambda i: cs.cd_block_sweep_gather(  # noqa: E731
                     tab, ids, alpha, es[i % 2], wb, r1, j, alpha0=1.0, l2=0.1)
                 plain = lambda i: cr.cd_block_sweep_gather_ref(  # noqa: E731
                     tab, ids, alpha, es[i % 2], wb, r1, j, alpha0=1.0, l2=0.1)
+                # the warp-row form this one replaced, through its binding
+                rows = vmem.cd_sweep_gather_block_ctx(d, kb, n_rows=c)
+                w_out = torch.empty((c, kb), device=alpha.device)
+
+                def old(i, rows=rows, w_out=w_out, tab=tab, ids=ids, alpha=alpha,
+                        wb=wb, r1=r1, j=j, es=es):
+                    ck.launch(None, tab, ids, alpha, es[i % 2], wb, r1, j, w_out,
+                              alpha0=1.0, l2=0.1, eta=1.0, rows_per_block=rows)
+                    return w_out
+                # the two forms and the plain version from one random start
+                # (phase 5 holds them; this says how far apart they land)
+                e0 = torch.randn(alpha.shape, device=alpha.device,
+                                 generator=torch.Generator(device=alpha.device).manual_seed(7))
+                rw, re = cr.cd_block_sweep_gather_ref(tab, ids, alpha, e0, wb, r1,
+                                                      j, alpha0=1.0, l2=0.1)
+                e_new, e_old = e0.clone(), e0.clone()
+                w_new, _ = cs.cd_block_sweep_gather(tab, ids, alpha, e_new, wb,
+                                                    r1, j, alpha0=1.0, l2=0.1)
+                w_old = torch.empty((c, kb), device=alpha.device)
+                ck.launch(None, tab, ids, alpha, e_old, wb, r1, j, w_old,
+                          alpha0=1.0, l2=0.1, eta=1.0, rows_per_block=rows)
+                torch.cuda.synchronize()
+                same = torch.equal(w_new, w_old) and torch.equal(e_new, e_old)
+                dev_txt = ", ".join(
+                    f"{n} {max(float((a - rw).abs().max()), float((b - re).abs().max())):.3g}"
+                    for n, a, b in (("register-row", w_new, e_new),
+                                    ("warp-row", w_old, e_old)))
+                del e0, e_new, e_old, re
+                r["warp_row"].append(device_ms(old, n=20))
+                lanes, slots = vmem.cd_sweep_reg_group(d, kb)
+                form += (f" ({lanes} lanes x {slots} slots; from one random start "
+                         f"max |d| against the plain version {dev_txt}, the two "
+                         f"forms equal bit for bit: {same})")
             else:
                 psi = cr.gather_psi_blk(tab, ids).contiguous()
                 fn = lambda i: cs.cd_block_sweep(  # noqa: E731
@@ -816,9 +870,12 @@ def time_training_kernels(dev, pdata, params) -> dict:
             cost = cd_sweep_cost(c, d, kb, kb, n_src=other.shape[0],
                                  gather=disp == "gather")
             r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
+            old_txt = (f", the warp-row form it replaced {r['warp_row'][-1]:.4f} ms"
+                       if r["warp_row"] else "")
             log(f"phase 7 {disp} sweep {name} side (C {c}, D_pad {d}, k_b "
-                f"{kb}): kernel {r['ms'][-1]:.4f} ms, plain "
-                f"{r['plain'][-1]:.4f} ms, library —, bound "
+                f"{kb}), form {form}: kernel {r['ms'][-1]:.4f} ms{old_txt}, plain "
+                f"{r['plain'][-1]:.4f} ms, library — (none"
+                f"{': a gather comes first' if disp == 'gather' else ''}), bound "
                 f"{r['bound'][-1][0]:.4f} ms "
                 f"({r['bound'][-1][1]}: {cost['hbm_bytes']:.0f} B, "
                 f"{cost['flops']:.0f} FLOP)")
@@ -907,6 +964,111 @@ def gram_tune() -> None:
                 parts.append(f"{splits} splits {device_ms(call):.4f}")
             log(f"gram-tune {rows}x128 blocks/SM {b} stages {st} chunk {ch}: "
                 + ", ".join(parts) + f" ms; torch.mm {mm:.4f} ms")
+
+
+# --sweep-tune: builds of csrc/cd_gather.cu, each (sweep blocks an SM, most
+# slots a thread whose ψ stays in registers — 0 re-reads it from L1 a step
+# ahead at any slot count, 16 never —, slab-reduce blocks an SM, slab slots
+# in flight), and the (lanes, slots) each side's rows try
+SWEEP_TUNE_BUILDS = ((3, 4, 3, 2), (3, 0, 2, 4), (3, 16, 3, 3), (4, 4, 4, 1),
+                     (2, 4, 3, 4))
+SWEEP_TUNE_GROUPS = {128: ((8, 16), (16, 8), (32, 4)),
+                     1_024: ((64, 16), (128, 8), (256, 4))}
+
+
+def _ptxas_by_kernel(log_text: str) -> dict:
+    """{kernel instance: "N registers, S B spill stores"} from nvcc's
+    ``-Xptxas -v`` report: sweep<lanes,slots> (the k_b = 8 instances) and
+    slab<lanes>."""
+    import re
+
+    out, name = {}, None
+    for ln in log_text.splitlines():
+        if "Compiling entry" in ln:
+            m = re.search(r"reg_kernelILi(\d+)E(?:Li(\d+)ELi(\d+)E)?", ln)
+            name = None if not m else (
+                f"sweep<{m.group(1)},{m.group(2)}>" if m.group(3) == "8"
+                else None if m.group(2) else f"slab<{m.group(1)}>")
+        elif name and "spill" in ln:
+            out[name] = ln.split(",")[1].strip()
+        elif name and "registers" in ln:
+            out[name] = ln.split("Used")[1].split(",")[0].strip() + ", " + out.get(name, "")
+    return out
+
+
+def sweep_tune() -> None:
+    """``python3 chip_smoke.py --sweep-tune``: build ``cd_gather.cu`` once
+    for each of SWEEP_TUNE_BUILDS and time, at both sides' full-width
+    shapes (context C 200,000 × D_pad 128, item 68,000 × 1,024, k_b = m =
+    8, the ψ slab a column slice of a k = 128 table, the log's padding
+    share), the register-row sweep at each (lanes, slots) of
+    SWEEP_TUNE_GROUPS and the one-tile slab reduce at 8, 16 and 32 lanes,
+    each first held against its plain version, beside the forms they
+    replace; with each build's registers and spills."""
+    from repro_torch.kernels import build, vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck, ref as cr
+
+    dev = torch.device("cuda", 0)
+    libs = [build.CudaLibrary("cd_gather", ck.GATHER_LIB.source, bind=ck._bind_gather,
+                              defines={**ck.GATHER_DEFINES,
+                                       "CDG_SWEEP_MIN_BLOCKS": sb,
+                                       "CDG_SWEEP_REG_SLOTS": reg,
+                                       "CDG_SLAB_MIN_BLOCKS": lb,
+                                       "CDG_SLAB_INFLIGHT": inflight})
+            for sb, reg, lb, inflight in SWEEP_TUNE_BUILDS]
+    t0 = time.perf_counter()
+    build.build_all([*libs, ck.LIB, ck.SLAB_LIB])
+    log(f"sweep-tune build: {len(libs)} variants in {time.perf_counter() - t0:.1f}s")
+    for lib, v in zip(libs, SWEEP_TUNE_BUILDS):
+        regs = _ptxas_by_kernel(lib.build_log)
+        log(f"sweep-tune build {v}: " + "; ".join(f"{k} {r}" for k, r in sorted(regs.items())))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for c, d, n_src, pad in ((FULL["n_ctx"], 128, FULL["n_items"], 0.87),
+                             (FULL["n_items"], 1_024, FULL["n_ctx"], 0.95)):
+        x = sweep_inputs(gen, dev, c, d, 8, n_src, k=128, pad_frac=pad)
+        kw = dict(alpha0=1.0, l2=0.1)
+        args = (x["tab"], x["ids"], x["alpha"])
+        rw, re = cr.cd_block_sweep_gather_ref(*args, x["e"], x["w"], x["r1"], x["j"], **kw)
+        es = [x["e"].clone() for _ in range(2)]
+        w_out = torch.empty((c, 8), device=dev)
+        rows = vmem.cd_sweep_gather_block_ctx(d, 8, n_rows=c)
+        old = device_ms(lambda j: ck.launch(None, *args, es[j % 2], x["w"], x["r1"], x["j"],
+                                            w_out, eta=1.0, rows_per_block=rows, **kw), n=20)
+        log(f"sweep-tune sweep C {c} D_pad {d}: warp-row form {old:.4f} ms")
+        for lib, v in zip(libs, SWEEP_TUNE_BUILDS):
+            parts = []
+            for lanes, slots in SWEEP_TUNE_GROUPS[d]:
+                e = x["e"].clone()
+
+                def call(j, lanes=lanes, slots=slots, lib=lib, e=None):
+                    ck.launch_reg(*args, es[j % 2] if e is None else e, x["w"], x["r1"],
+                                  x["j"], w_out, eta=1.0, lanes=lanes, slots=slots,
+                                  lib=lib, **kw)
+                call(0, e=e)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(w_out, rw, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                torch.testing.assert_close(e, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                parts.append(f"{lanes}x{slots} {device_ms(call, n=20):.4f}")
+            log(f"sweep-tune sweep C {c} D_pad {d} build {v}: " + ", ".join(parts) + " ms")
+        del x, es, rw, re
+        x = slab_inputs(gen, dev, c, d, 8, n_src, pad_frac=pad, k=128)
+        args = (x["tab"], x["ids"], x["alpha"], x["e"])
+        rq, rp = cr.cd_slab_reduce_gather_ref(*args)
+        q, p = torch.empty_like(rq), torch.empty_like(rp)
+        old = device_ms(lambda j: ck.slab_reduce(None, *args, q, p), n=20)
+        log(f"sweep-tune slab C {c} D_pad {d}: tiled form {old:.4f} ms")
+        for lib, v in zip(libs, SWEEP_TUNE_BUILDS):
+            parts = []
+            for lanes in vmem.CDG_SLAB_LANES:
+                def call(j, lanes=lanes, lib=lib):
+                    ck.slab_reduce_reg(*args, q, p, lanes=lanes, lib=lib)
+                call(0)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(q, rq, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                torch.testing.assert_close(p, rp, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                parts.append(f"{lanes} lanes {device_ms(call, n=20):.4f}")
+            log(f"sweep-tune slab C {c} D_pad {d} build {v}: " + ", ".join(parts) + " ms")
+        del x, rq, rp, q, p
 
 
 def bound(nbytes: float, flops: float):
@@ -1092,7 +1254,7 @@ def reset_counts() -> None:
     for c in _counters():
         c.launches = 0
         if hasattr(c, "launches_block_row"):
-            c.launches_block_row = 0
+            c.launches_block_row = c.launches_reg_row = 0
 
 
 def read_counts() -> dict:
@@ -1101,6 +1263,7 @@ def read_counts() -> dict:
         out[c.__name__] = c.launches
         if hasattr(c, "launches_block_row"):
             out[c.__name__ + ":block_row"] = c.launches_block_row
+            out[c.__name__ + ":reg_row"] = c.launches_reg_row
     return out
 
 
@@ -1164,17 +1327,21 @@ def train_ctxmf_full_width(dev) -> dict:
         f"{', '.join(f'{s:.3f}' for s in epoch_s)} (objective excluded); "
         f"launches {launches}: an epoch {(rp - rp_block) // 3} warp-row + "
         f"{rp_block // 3} block-row row-patch, "
-        f"{launches['cd_block_sweep_gather'] // 3} item-sweep and "
+        f"{launches['cd_block_sweep_gather'] // 3} item-sweep (register-row) and "
         f"{launches['gram'] // 3} Gram launches")
     assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
     nb = -(-FULL["k"] // 8)  # k_b = 8 blocks a mode: 16 at k = 128
     want = {"gram": 3, "cd_block_sweep": 0, "cd_block_sweep:block_row": 0,
             "cd_block_sweep_gather": 3 * nb,
             "cd_block_sweep_gather:block_row": 0,
+            "cd_block_sweep_gather:reg_row": 3 * nb,
             "cd_block_sweep_rowpatch": 0,
             "cd_block_sweep_rowpatch:block_row": 0,
             "cd_block_sweep_rowpatch_gather": 6 * nb,
             "cd_block_sweep_rowpatch_gather:block_row": 3 * nb}
+    want.update({f"{n}:reg_row": 0 for n in (
+        "cd_block_sweep", "cd_block_sweep_rowpatch",
+        "cd_block_sweep_rowpatch_gather")})
     assert launches == want, launches
 
     # one epoch from one start through the pregather route and the flat path
@@ -1446,11 +1613,13 @@ def slab_inputs(gen, dev, c, d, m, n_src, *, pad_frac, k=None, ids=None,
 
 
 def hold_slab(cs, cr, x) -> dict:
-    """All four slab kernels once against their plain versions on the same
+    """All four slab kernels against their plain versions on the same
     inputs; returns the largest |error| of each. Q and P to SWEEP_RTOL /
     SWEEP_ATOL, plus, for rows of SLAB_LONG_D slots and more,
-    LONG_ROW_REL of the row's Σ|terms|; P symmetric bit for bit; e patched
-    in place to SWEEP_RTOL / SWEEP_ATOL (m terms a slot, no long sum)."""
+    LONG_ROW_REL of the row's Σ|terms|; P symmetric bit for bit, and the
+    same bits from a second call (the gather form at m ≤ 8 in its one-tile
+    form); e patched in place to SWEEP_RTOL / SWEEP_ATOL (m terms a slot,
+    no long sum)."""
     tab, ids, alpha, e, dphi = (x[n] for n in ("tab", "ids", "alpha", "e", "dphi"))
     psi = cr.gather_psi_blk(tab, ids).contiguous()
     c, d = alpha.shape
@@ -1459,15 +1628,22 @@ def hold_slab(cs, cr, x) -> dict:
     aps = alpha[:, None, :] * psi.abs()
     q_abs = (aps * e.abs()[:, None, :]).sum(-1)
     p_abs = torch.einsum("cid,cjd->cij", aps, psi.abs())
+    from repro_torch.kernels import vmem
+
     rel = LONG_ROW_REL if d >= SLAB_LONG_D else 0.0
     err = {}
     for name, first in (("cd_slab_reduce_gather", (tab, ids)),
                         ("cd_slab_reduce", (psi,))):
         fn = getattr(cs, name)
-        before = fn.launches
+        one_tile = vmem.cd_slab_reduce_form(
+            tab.shape[1], gather=len(first) == 2) == vmem.SLAB_ONE_TILE
+        before = (fn.launches, fn.launches_one_tile)
         q, p = fn(*first, alpha, e)
+        q2, p2 = fn(*first, alpha, e)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1, name
+        assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == \
+            (2, 2 * one_tile), name
+        assert torch.equal(q, q2) and torch.equal(p, p2), f"{name}: two calls differ"
         assert torch.equal(p, p.transpose(1, 2)), f"{name}: P not symmetric"
         assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(p).all())
         bad_q = (q - rq).abs() > SWEEP_RTOL * rq.abs() + SWEEP_ATOL + rel * q_abs
@@ -1563,9 +1739,13 @@ def train_mfsi_full_width(dev) -> dict:
     def reset():
         for c in counters:
             c.launches = 0
+        cs.cd_slab_reduce.launches_one_tile = 0
+        cs.cd_slab_reduce_gather.launches_one_tile = 0
 
     def counts():
-        return {c.__name__: c.launches for c in counters}
+        out = {c.__name__: c.launches for c in counters}
+        out["cd_slab_reduce_gather:one_tile"] = cs.cd_slab_reduce_gather.launches_one_tile
+        return out
 
     objs = [float(mfsi.objective(params0, x, z, data, hp))]
     p, e = params0, mfsi.residuals_padded(params0, x, z, data, pdata)
@@ -1589,6 +1769,7 @@ def train_mfsi_full_width(dev) -> dict:
     assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
     assert launches == {"gram": 6, "cd_slab_reduce": 0,
                         "cd_slab_reduce_gather": 3 * 2 * nb,
+                        "cd_slab_reduce_gather:one_tile": 3 * 2 * nb,
                         "cd_resid_patch": 0,
                         "cd_resid_patch_gather": 3 * 2 * nb}, launches
 
@@ -1659,7 +1840,8 @@ def time_slab_kernels(dev, pdata) -> dict:
     slab a column slice of a k = 128 table), beside their plain versions,
     their bounds and, for the pre-gathered forms, the one ``torch.bmm``
     (``baddbmm``) that computes the same function on the same tile."""
-    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
     from repro_torch.obs.costs import cd_resid_patch_cost, cd_slab_reduce_cost
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1667,7 +1849,8 @@ def time_slab_kernels(dev, pdata) -> dict:
     m = 8
     names = ("cd_slab_reduce", "cd_slab_reduce_gather", "cd_resid_patch",
              "cd_resid_patch_gather")
-    out = {n: {"ms": [], "plain": [], "bound": [], "lib": []} for n in names}
+    out = {n: {"ms": [], "plain": [], "bound": [], "lib": [], "tiled": []}
+           for n in names}
     sides = (("context", pdata.item_ids, pdata.alpha_c, FULL["n_items"]),
              ("item", pdata.ctx_ids, pdata.alpha_i, FULL["n_ctx"]))
     for side, ids, alpha, n_src in sides:
@@ -1697,6 +1880,11 @@ def time_slab_kernels(dev, pdata) -> dict:
                 lambda i: cr.cd_resid_patch_gather_ref(tab, ids, es[i % 2], dphi),
                 None),
         }
+        q_t, p_t = torch.empty((c, m), device=dev), torch.empty((c, m, m), device=dev)
+
+        def tiled(i):  # the tiled gather form the one-tile form replaced
+            ck.slab_reduce(None, tab, ids, alpha, es[i % 2], q_t, p_t)
+            return q_t, p_t
         for name in names:
             fn, plain, lib = calls[name]
             gather = name.endswith("gather")
@@ -1707,9 +1895,22 @@ def time_slab_kernels(dev, pdata) -> dict:
             r["plain"].append(device_ms(plain, n=5))
             r["lib"].append(device_ms(lib, n=10) if lib else None)
             r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
-            lib_txt = f"{r['lib'][-1]:.4f} ms" if lib else "—"
+            lib_txt = f"{r['lib'][-1]:.4f} ms" if lib else "— (none: a gather comes first)"
+            form = ""
+            if name == "cd_slab_reduce_gather":
+                q_n, p_n = fn(0)
+                q_o, p_o = tiled(0)
+                torch.cuda.synchronize()
+                same = torch.equal(q_n, q_o) and torch.equal(p_n, p_o)
+                gap = max(float((q_n - q_o).abs().max()), float((p_n - p_o).abs().max()))
+                r["tiled"].append(device_ms(tiled, n=20))
+                form = (f", form {cost['form']} ({vmem.cd_slab_reduce_lanes(d)} "
+                        f"lanes a row; against the tiled form max |d| {gap:.3g}, "
+                        f"equal bit for bit: {same}); the tiled form it replaced "
+                        f"{r['tiled'][-1]:.4f} ms")
+                del q_n, p_n
             log(f"phase 15 {name} {side} side (C {c}, D_pad {d}, m {m}, n_src "
-                f"{n_src}): kernel {r['ms'][-1]:.4f} ms, plain "
+                f"{n_src}){form}: kernel {r['ms'][-1]:.4f} ms, plain "
                 f"{r['plain'][-1]:.4f} ms, library {lib_txt}, bound "
                 f"{r['bound'][-1][0]:.4f} ms ({r['bound'][-1][1]}: "
                 f"{cost['hbm_bytes']:.0f} B, {cost['flops']:.0f} FLOP)")
@@ -2208,7 +2409,8 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
 
     # 1. build every kernel, one nvcc per source, all at once
-    libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB, cd_kernel.SLAB_LIB]
+    libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB, cd_kernel.SLAB_LIB,
+            cd_kernel.GATHER_LIB]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
@@ -2378,6 +2580,7 @@ def main() -> None:
                 "library_ms": None if library is None else mean(library)}
 
     cd_src = "src/repro_torch/kernels/cd_sweep/csrc/cd_sweep.cu"
+    gather_src = "src/repro_torch/kernels/cd_sweep/csrc/cd_gather.cu"
     print(json.dumps({"kernels": [{
         "name": "topk_score", "route": "cuda",
         "source": "src/repro_torch/kernels/topk_score/csrc/topk_score.cu",
@@ -2392,7 +2595,7 @@ def main() -> None:
            "src/repro/kernels/cd_sweep/kernel.py:119",
            tr["pregather_launches"], errs["cd_block_sweep"],
            times["pregather"], None),
-       row("cd_block_sweep_gather", cd_src,
+       row("cd_block_sweep_gather", gather_src,
            "src/repro/kernels/cd_sweep/kernel.py:429",
            tr["launches"]["cd_block_sweep_gather"],
            errs["cd_block_sweep_gather"], times["gather"], None),
@@ -2405,7 +2608,8 @@ def main() -> None:
            ctx["launches"]["cd_block_sweep_rowpatch_gather"],
            rp_errs["cd_block_sweep_rowpatch_gather"], rp_times["gather"],
            None)] + [
-        row(name, "src/repro_torch/kernels/cd_sweep/csrc/cd_slab.cu",
+        row(name, gather_src if name == "cd_slab_reduce_gather" else
+            "src/repro_torch/kernels/cd_sweep/csrc/cd_slab.cu",
             f"src/repro/kernels/cd_sweep/kernel.py:{line}",
             (fm["launches"] if name.endswith("gather") else fm["pre_launches"])[name],
             slab_errs[name], slab_times[name],
@@ -2435,5 +2639,7 @@ if __name__ == "__main__":
         serve_first_runs(sys.argv[2])
     elif sys.argv[1:] == ["--gram-tune"]:
         gram_tune()
+    elif sys.argv[1:] == ["--sweep-tune"]:
+        sweep_tune()
     else:
         main()

@@ -24,7 +24,9 @@ Kernels:
   cd_sweep   — the fused k_b-column iCD Newton sweep over the padded
                layout, with one shared Gram block or a per-row patch, Ψ
                pre-gathered or gathered in the kernel, one warp a row or,
-               for rows too long for shared memory, one block a row
+               for rows too long for shared memory, one block a row (the
+               shared-J gather sweep with the row held in registers, a
+               group of threads a row, where the row fits them)
                (replaces ``repro/kernels/cd_sweep/kernel.py``
                ``cd_block_sweep_pallas``, ``cd_block_sweep_gather_pallas``,
                ``cd_block_sweep_rowpatch_pallas`` and

@@ -1,0 +1,460 @@
+// The gather forms of the shared-J block sweep and of the slab reduce,
+// redesigned for Hopper (sm_90a): each slot's ψ gathered once a launch, the
+// row held in registers.
+//
+// Replaces: repro/kernels/cd_sweep/kernel.py, cd_block_sweep_gather_pallas
+// (body _sweep_gather_kernel) with one shared J block, and
+// cd_slab_reduce_gather_pallas (body _slab_reduce_gather_kernel) at m ≤ 8.
+// The functions are those of csrc/cd_sweep.cu's cd_sweep_kernel<true, false>
+// and csrc/cd_slab.cu's cd_slab_reduce_kernel<true>, which keep the rows and
+// widths these forms do not take (kernels/vmem.py: cd_sweep_form,
+// cd_slab_reduce_form). ψ_j[r, d] = tab[ids[r, d], j] of the (n_src, ld_tab)
+// ψ slab, the id clipped to [0, n_src) as jnp.take(mode="clip") does.
+//
+// What bounds them on an H100: the bytes. The sweep must read ids, α and e
+// and write e (16 B a slot), read W and R' and write W, and read the ψ slab
+// once; the slab reduce reads ids, α and e (12 B a slot) and the slab once
+// and writes Q and P. What held the forms they replace far above that bound
+// was latency and issue:
+//   * the sweep re-gathered ψ_j from a slot's 32-byte slab row on each of its
+//     k_b steps, a dependent 4-byte load inside a serial chain (shared id
+//     read, gather, FMAs, butterfly, division, e patch through shared
+//     memory), and staged 16 B a slot in shared memory, which held a
+//     1,024-slot row to 10 warps an SM;
+//   * the slab reduce gathered a slot's columns as guarded scalar loads, kept
+//     a run-time tile loop's 8 × 8 accumulators and operands live across a
+//     branch (118–143 registers, one 256-thread block an SM), and reduced
+//     each of its 44 sums by a full butterfly (220 shuffles a row).
+//
+// Sweep, register-row form. A group of LANES threads owns one row, a thread
+// SLOTS fixed slots, d = (t mod W) + W·(⌊t/W⌋·SLOTS + s) for W = min(LANES,
+// 32), so every load is coalesced. Before the first step a thread loads its
+// slots' ids, α and e and starts their ψ gathers, so every gather of the
+// launch is in flight at once. Up to CDG_SWEEP_REG_SLOTS slots a thread it
+// gathers a slot's k_b ψ values once, with two 16-byte loads of the 32-byte
+// slab row where the slab allows (else scalar loads), and holds them in
+// registers; with more slots (long rows), where those registers would
+// spill, it keeps each slot's row pointer and reads ψ_j a step ahead, so
+// the row's sector comes from L2 once and from L1 after
+// (chip_smoke.py --sweep-tune measured both). The k_b steps then run on
+// registers: two group sums a step (xor levels over the row's lanes in a
+// warp, shared by the two sums; for a row of several warps, the per-warp
+// partials summed in warp order by every thread, through a double-buffered
+// shared array, one barrier a step), Δ, the e patch, W, and R'_j, built on
+// step j from the earlier steps' Δ (R' is no output, so only its j-th
+// entry is needed then), all kept by every thread of the group (its sums
+// are the same bits in every thread). A k_b of 8 is a compile-time
+// constant. e and W are written once, at the end. Shared memory holds only
+// the J block and the partial sums. At LANES = 32 a thread sums its slots
+// in the order of the warp-row form, which it therefore matches bit for
+// bit.
+//
+// Slab reduce, one-tile form (m ≤ 8). A group of LANES ≤ 32 threads owns
+// one row and streams its slots (d ≡ t mod LANES), CDG_SLAB_INFLIGHT at a
+// time, gathered with the same vector loads while the next chunk's ids, α
+// and e are already in flight. A thread keeps Q (8 sums) and P's upper
+// triangle (36) as 44 named registers: no tile loop, no branch in the slot
+// loop. The 44 sums are then reduced across the group by a
+// transpose-reduce: at each xor level a lane keeps one half of its values
+// and sends the other half to its partner, which keeps that half, so the
+// levels cost 22 + 11 + 6 + 3 + 2 shuffles at 32 lanes against 44 × 5, and
+// each lane ends with the final sums it writes. Each final sum is one fixed
+// tree over the lanes — at 32 lanes the butterfly's, so the form matches the
+// tiled one bit for bit — and every run gives the same bits. P is written
+// symmetric from the one sum of each pair.
+//
+// Interface: plain C functions bound with ctypes. They launch on the
+// caller's stream, allocate nothing and return cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifndef CDG_THREADS
+#define CDG_THREADS 256           // threads of a block, both kernels
+#endif
+#ifndef CDG_SWEEP_MIN_BLOCKS
+#define CDG_SWEEP_MIN_BLOCKS 3    // __launch_bounds__: blocks an SM
+#endif
+#ifndef CDG_SWEEP_REG_SLOTS
+#define CDG_SWEEP_REG_SLOTS 4     // ψ in registers up to this many slots a thread
+#endif
+#ifndef CDG_SLAB_MIN_BLOCKS
+#define CDG_SLAB_MIN_BLOCKS 3
+#endif
+#ifndef CDG_SLAB_INFLIGHT
+#define CDG_SLAB_INFLIGHT 2       // slots a thread gathers at once
+#endif
+
+#define CDG_KB 8                                      // columns in registers
+#define CDG_NSUM (CDG_KB + CDG_KB * (CDG_KB + 1) / 2)  // Q and P's triangle: 44
+#define FULL_MASK 0xffffffffu
+
+// Slab row ``id``'s first kb ≤ CDG_KB columns into x, zeros beyond. vec:
+// every slab row starts 16-byte aligned and kb is 4 or 8.
+__device__ __forceinline__ void gather_cols(float (&x)[CDG_KB], const float* __restrict__ tab,
+                                            long long ld_tab, int id, int kb, bool vec) {
+    const float* r = tab + (long long)id * ld_tab;
+    if (vec) {
+        const float4 lo = __ldg(reinterpret_cast<const float4*>(r));
+        const float4 hi = kb == 8 ? __ldg(reinterpret_cast<const float4*>(r) + 1)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+        x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+    } else {
+#pragma unroll
+        for (int c = 0; c < CDG_KB; ++c) x[c] = c < kb ? __ldg(r + c) : 0.f;
+    }
+}
+
+__device__ __forceinline__ int clip_id(int id, int n_src) {
+    return min(max(id, 0), n_src - 1);
+}
+
+// The two sums of a step over a row's W ≤ 32 lanes of one warp, the same
+// bits in every lane: the first xor level leaves L' in the lanes with bit
+// W/2 clear and L'' in the others, the remaining levels reduce one value,
+// and a last shuffle hands each lane the other sum — the trees of two xor
+// butterflies, with log2(W) + 1 shuffles where they take 2·log2(W).
+template <int W>
+__device__ __forceinline__ void row_sums(float& lp, float& lpp, int lane) {
+    const bool hi = (lane & (W / 2)) != 0;
+    float v = (hi ? lpp : lp) + __shfl_xor_sync(FULL_MASK, hi ? lp : lpp, W / 2);
+#pragma unroll
+    for (int o = W / 4; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+    const float other = __shfl_xor_sync(FULL_MASK, v, W / 2);
+    lp = hi ? other : v;
+    lpp = hi ? v : other;
+}
+
+// KB: k_b fixed at compile time (8, the fused epochs' block), or 0 for any
+// k_b ≤ CDG_KB given at run time.
+template <int LANES, int SLOTS, int KB>
+__global__ void __launch_bounds__(CDG_THREADS, CDG_SWEEP_MIN_BLOCKS)
+cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
+                           const int* __restrict__ ids,      // (C, D)
+                           const float* __restrict__ alpha,  // (C, D)
+                           float* __restrict__ e,            // (C, D), in place
+                           const float* __restrict__ w_in, long long ld_w,
+                           const float* __restrict__ r1_in, long long ld_r1,
+                           const float* __restrict__ jb, long long js0, long long js1,
+                           float* __restrict__ w_out,        // (C, kb)
+                           int C, int D, int kb_run, float alpha0, float l2, float eta) {
+    const int kb = KB ? KB : kb_run;
+    constexpr bool PSI_REG = SLOTS <= CDG_SWEEP_REG_SLOTS;
+    constexpr int W = LANES < 32 ? LANES : 32;  // a row's lanes in one warp
+    constexpr int WARPS_ROW = LANES / W;
+    constexpr int ROWS = CDG_THREADS / LANES;
+    static_assert(CDG_THREADS % LANES == 0 && LANES % W == 0, "whole rows a block");
+    __shared__ float J[CDG_KB * CDG_KB];
+    __shared__ float red[2][2][CDG_THREADS / 32];  // [step parity][L', L''][warp]
+
+    const int tid = threadIdx.x;
+    for (int i = tid; i < kb * kb; i += CDG_THREADS)
+        J[(i / kb) * CDG_KB + i % kb] = jb[(long long)(i / kb) * js0 + (long long)(i % kb) * js1];
+    __syncthreads();
+
+    const int t = tid % LANES;
+    const long long row = (long long)blockIdx.x * ROWS + tid / LANES;
+    const bool live = row < C;
+    const long long rr = live ? row : C - 1;  // a row past C reads the last one, writes nothing
+    const size_t g = (size_t)rr * D;
+    const int d0 = t % W + W * (t / W) * SLOTS;
+
+    // R' is needed only at R'_j on step j: R'_j + Σ_{i<j} Δ_i·J(i, j), summed
+    // in the order of the warp-row form's patch R' += Δ_i·J(i, ·)
+    float r1[CDG_KB], wv[CDG_KB], dl[CDG_KB];
+#pragma unroll
+    for (int f = 0; f < CDG_KB; ++f) {
+        r1[f] = f < kb ? r1_in[rr * ld_r1 + f] : 0.f;
+        wv[f] = f < kb ? w_in[rr * ld_w + f] : 0.f;
+    }
+    float ev[SLOTS], av[SLOTS];
+    float pv[PSI_REG ? SLOTS : 1][CDG_KB];      // ψ held in registers, or
+    const float* pr[PSI_REG ? 1 : SLOTS];       // each slot's slab row, and
+    float pn[PSI_REG ? 1 : SLOTS];              // the next step's ψ, a step ahead
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+        const int d = d0 + W * s;
+        const bool in = d < D;
+        av[s] = in ? alpha[g + d] : 0.f;
+        ev[s] = in ? e[g + d] : 0.f;
+        const int id = in ? clip_id(ids[g + d], n_src) : 0;
+        if constexpr (PSI_REG) {
+            gather_cols(pv[s], tab, ld_tab, id, kb, vec);
+        } else {
+            pr[s] = tab + (long long)id * ld_tab;
+            pn[s] = __ldg(pr[s]);
+        }
+    }
+
+#pragma unroll
+    for (int j = 0; j < CDG_KB; ++j) {
+        if (j >= kb) break;
+        float pj[SLOTS];
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+            if constexpr (PSI_REG) {
+                pj[s] = pv[s][j];
+            } else {
+                pj[s] = pn[s];
+                if (j + 1 < kb) pn[s] = __ldg(pr[s] + j + 1);
+            }
+        }
+        float lp = 0.f, lpp = 0.f;
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+            lp += av[s] * ev[s] * pj[s];
+            lpp += av[s] * pj[s] * pj[s];
+        }
+        row_sums<W>(lp, lpp, tid & 31);
+        if constexpr (WARPS_ROW > 1) {
+            const int warp = tid >> 5, first = warp - (t >> 5);
+            if ((tid & 31) == 0) {
+                red[j & 1][0][warp] = lp;
+                red[j & 1][1][warp] = lpp;
+            }
+            __syncthreads();
+            lp = 0.f;
+            lpp = 0.f;
+#pragma unroll
+            for (int w = 0; w < WARPS_ROW; ++w) {  // the same order in every thread
+                lp += red[j & 1][0][first + w];
+                lpp += red[j & 1][1][first + w];
+            }
+        }
+        float r1j = r1[j];
+#pragma unroll
+        for (int i = 0; i < j; ++i) r1j += dl[i] * J[i * CDG_KB + j];
+        const float num = lp + alpha0 * r1j + l2 * wv[j];
+        const float den = lpp + alpha0 * J[j * CDG_KB + j] + l2;
+        const float delta = -eta * num / fmaxf(den, 1e-12f);
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) ev[s] += delta * pj[s];
+        dl[j] = delta;
+        wv[j] += delta;
+    }
+
+    if (!live) return;
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+        const int d = d0 + W * s;
+        if (d < D) e[g + d] = ev[s];
+    }
+    if (t == 0) {
+#pragma unroll
+        for (int f = 0; f < CDG_KB; ++f)
+            if (f < kb) w_out[row * kb + f] = wv[f];
+    }
+}
+
+// Where Q_a and P(a, b), a ≤ b, sit among a thread's CDG_NSUM sums.
+__host__ __device__ constexpr int q_at(int a) { return a; }
+__host__ __device__ constexpr int p_at(int a, int b) {
+    return CDG_KB + a * CDG_KB - a * (a - 1) / 2 + (b - a);
+}
+
+// One level of the transpose-reduce over a lane's first N values with the
+// lane at xor O, then the next level at O / 2: the lane whose bit O is clear
+// keeps [0, H), its partner [H, N) (H = ⌈N/2⌉; an odd N pads the upper half
+// with a zero), and each adds the partner's copy of the half it keeps.
+template <int N, int O>
+__device__ __forceinline__ void transpose_reduce(float (&v)[CDG_NSUM], int lane) {
+    if constexpr (O > 0) {
+        constexpr int H = (N + 1) / 2;
+        const bool hi = (lane & O) != 0;
+#pragma unroll
+        for (int k = 0; k < H; ++k) {
+            const float lo_v = v[k];
+            const float hi_v = H + k < N ? v[H + k] : 0.f;
+            v[k] = (hi ? hi_v : lo_v) + __shfl_xor_sync(FULL_MASK, hi ? lo_v : hi_v, O);
+        }
+        transpose_reduce<H, O / 2>(v, lane);
+    }
+}
+
+// Values a lane holds after transpose_reduce<N, O>.
+template <int N, int O>
+struct Reduced {
+    static constexpr int n = Reduced<(N + 1) / 2, O / 2>::n;
+};
+template <int N>
+struct Reduced<N, 0> {
+    static constexpr int n = N;
+};
+
+// Which of the N values the lane's k-th reduced value is the sum of, or −1
+// for a padding zero.
+template <int N, int O>
+__device__ __forceinline__ int reduced_index(int k, int lane) {
+    if constexpr (O == 0) {
+        return k;
+    } else {
+        constexpr int H = (N + 1) / 2;
+        const int i = reduced_index<H, O / 2>(k, lane);
+        const int idx = ((lane & O) ? H : 0) + i;
+        return i < 0 || idx >= N ? -1 : idx;
+    }
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(CDG_THREADS, CDG_SLAB_MIN_BLOCKS)
+cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
+                                 int vec, const int* __restrict__ ids,  // (C, D)
+                                 const float* __restrict__ alpha,       // (C, D)
+                                 const float* __restrict__ e,           // (C, D)
+                                 float* __restrict__ q_out,             // (C, m)
+                                 float* __restrict__ p_out,             // (C, m, m)
+                                 int C, int D, int m) {
+    constexpr int ROWS = CDG_THREADS / LANES;
+    constexpr int U = CDG_SLAB_INFLIGHT;
+    static_assert(LANES <= 32 && 32 % LANES == 0, "a row's lanes share a warp");
+    const int lane = threadIdx.x & 31, t = threadIdx.x % LANES;
+    const long long row = (long long)blockIdx.x * ROWS + threadIdx.x / LANES;
+    const bool live = row < C;
+    const size_t g = (size_t)(live ? row : C - 1) * D;
+
+    float acc[CDG_NSUM];
+#pragma unroll
+    for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
+    // the next chunk's ids, α and e load while this chunk's ψ rows are
+    // gathered: one round trip a chunk, not two
+    int idn[U];
+    float aln[U], en[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const int d = t + u * LANES;
+        idn[u] = d < D ? ids[g + d] : 0;
+        aln[u] = d < D ? alpha[g + d] : 0.f;
+        en[u] = d < D ? e[g + d] : 0.f;
+    }
+    for (int d0 = t; d0 < D; d0 += U * LANES) {
+        float al[U], ae[U], x[U][CDG_KB];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            gather_cols(x[u], tab, ld_tab, clip_id(idn[u], n_src), m, vec);
+            al[u] = aln[u];
+            ae[u] = aln[u] * en[u];
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int d = d0 + (U + u) * LANES;
+            idn[u] = d < D ? ids[g + d] : 0;
+            aln[u] = d < D ? alpha[g + d] : 0.f;
+            en[u] = d < D ? e[g + d] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int a = 0; a < CDG_KB; ++a) {
+                acc[q_at(a)] += x[u][a] * ae[u];
+                const float api = al[u] * x[u][a];
+#pragma unroll
+                for (int b = a; b < CDG_KB; ++b) acc[p_at(a, b)] += api * x[u][b];
+            }
+        }
+    }
+
+    transpose_reduce<CDG_NSUM, LANES / 2>(acc, lane);
+    if (!live) return;
+    const size_t qr = (size_t)row * m, pr = (size_t)row * m * m;
+#pragma unroll
+    for (int k = 0; k < Reduced<CDG_NSUM, LANES / 2>::n; ++k) {
+        const int idx = reduced_index<CDG_NSUM, LANES / 2>(k, lane);
+        if (idx < 0) continue;
+        if (idx < CDG_KB) {
+            if (idx < m) q_out[qr + idx] = acc[k];
+            continue;
+        }
+        int r = idx - CDG_KB, a = 0;
+        while (r >= CDG_KB - a) {
+            r -= CDG_KB - a;
+            ++a;
+        }
+        const int b = a + r;
+        if (b < m) {
+            p_out[pr + (size_t)a * m + b] = acc[k];
+            p_out[pr + (size_t)b * m + a] = acc[k];
+        }
+    }
+}
+
+static bool vec_loads(const float* tab, long long ld_tab, int cols) {
+    return ((uintptr_t)tab & 15) == 0 && ld_tab % 4 == 0 && (cols == 4 || cols == 8);
+}
+
+template <int LANES, int SLOTS, typename... Args>
+static cudaError_t launch_sweep(int C, int kb, cudaStream_t st, Args... args) {
+    constexpr int rows = CDG_THREADS / LANES;
+    const int blocks = (C + rows - 1) / rows;
+    if (kb == CDG_KB)
+        cd_sweep_gather_reg_kernel<LANES, SLOTS, CDG_KB><<<blocks, CDG_THREADS, 0, st>>>(args...);
+    else
+        cd_sweep_gather_reg_kernel<LANES, SLOTS, 0><<<blocks, CDG_THREADS, 0, st>>>(args...);
+    return cudaGetLastError();
+}
+
+// tab: the ψ slab, row stride ld_tab, columns contiguous; ids, alpha, e:
+// (C, D) contiguous; w_in, r1_in: (C, kb) with row strides; jb: the shared
+// (kb, kb) J block, element (i, f) at i·js0 + f·js1; w_out: (C, kb)
+// contiguous. lanes (8 … CDG_THREADS, a power of two) threads own a row,
+// slots (4, 8 or 16) slots each; lanes · slots ≥ D.
+extern "C" int cd_sweep_gather_reg_f32(const float* tab, long long ld_tab, int n_src,
+                                       const int* ids, const float* alpha, float* e,
+                                       const float* w_in, long long ld_w, const float* r1_in,
+                                       long long ld_r1, const float* jb, long long js0,
+                                       long long js1, float* w_out, int C, int D, int kb,
+                                       float alpha0, float l2, float eta, int lanes, int slots,
+                                       void* stream) {
+    if (C < 0 || D < 1 || kb < 1 || kb > CDG_KB || n_src < 1 || ld_tab < kb || tab == nullptr ||
+        ids == nullptr || alpha == nullptr || e == nullptr || w_in == nullptr ||
+        r1_in == nullptr || jb == nullptr || w_out == nullptr || (long long)lanes * slots < D)
+        return (int)cudaErrorInvalidValue;
+    if (C == 0) return (int)cudaSuccess;
+    const int vec = vec_loads(tab, ld_tab, kb);
+    cudaStream_t st = (cudaStream_t)stream;
+#define CDG_SWEEP_CASE(L, S)                                                                  \
+    if (lanes == L && slots == S)                                                             \
+        return (int)launch_sweep<L, S>(C, kb, st, tab, ld_tab, n_src, vec, ids, alpha, e, w_in, \
+                                       ld_w, r1_in, ld_r1, jb, js0, js1, w_out, C, D, kb,     \
+                                       alpha0, l2, eta);
+#define CDG_SWEEP_LANES(S)                                                                    \
+    CDG_SWEEP_CASE(8, S) CDG_SWEEP_CASE(16, S) CDG_SWEEP_CASE(32, S) CDG_SWEEP_CASE(64, S)   \
+    CDG_SWEEP_CASE(128, S) CDG_SWEEP_CASE(256, S)
+    CDG_SWEEP_LANES(4)
+    CDG_SWEEP_LANES(8)
+    CDG_SWEEP_LANES(16)
+#undef CDG_SWEEP_LANES
+#undef CDG_SWEEP_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+// As csrc/cd_slab.cu's cd_slab_reduce_f32 in the gather form, for m ≤ 8;
+// lanes (8, 16 or 32) threads own a row.
+extern "C" int cd_slab_reduce_gather_reg_f32(const float* tab, long long ld_tab, int n_src,
+                                             const int* ids, const float* alpha, const float* e,
+                                             float* q_out, float* p_out, int C, int D, int m,
+                                             int lanes, void* stream) {
+    if (C < 0 || D < 1 || m < 1 || m > CDG_KB || n_src < 1 || ld_tab < m || tab == nullptr ||
+        ids == nullptr || alpha == nullptr || e == nullptr || q_out == nullptr ||
+        p_out == nullptr)
+        return (int)cudaErrorInvalidValue;
+    if (C == 0) return (int)cudaSuccess;
+    const int vec = vec_loads(tab, ld_tab, m);
+    cudaStream_t st = (cudaStream_t)stream;
+#define CDG_SLAB_CASE(L)                                                                      \
+    if (lanes == L) {                                                                         \
+        constexpr int rows = CDG_THREADS / L;                                                 \
+        cd_slab_reduce_gather_reg_kernel<L><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>(   \
+            tab, ld_tab, n_src, vec, ids, alpha, e, q_out, p_out, C, D, m);                   \
+        return (int)cudaGetLastError();                                                       \
+    }
+    CDG_SLAB_CASE(8)
+    CDG_SLAB_CASE(16)
+    CDG_SLAB_CASE(32)
+#undef CDG_SLAB_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* cd_gather_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}

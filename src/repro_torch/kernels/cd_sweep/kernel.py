@@ -8,7 +8,11 @@ source (so ``build_all`` compiles them at once):
     shared (k_b, k_b) Gram block, or a per-row (C, k_b, k_b) patch) and
     both launch forms (warp-row, block-row; ``kernels/vmem.cd_sweep_form``).
   * ``csrc/cd_slab.cu`` (:data:`SLAB_LIB`) — the feature models' slab
-    reduce and rank-m residual patch, each in both ψ routings."""
+    reduce and rank-m residual patch, each in both ψ routings.
+  * ``csrc/cd_gather.cu`` (:data:`GATHER_LIB`) — the gather forms that
+    hold a row in registers: the shared-J sweep's register-row form and
+    the slab reduce's one-tile form (m ≤ 8); their sizes come from
+    ``kernels/vmem`` as ``-D`` flags."""
 from __future__ import annotations
 
 import ctypes
@@ -45,6 +49,30 @@ def _bind_slab(lib) -> None:
 SLAB_LIB = CudaLibrary(
     "cd_slab", Path(__file__).resolve().parent / "csrc" / "cd_slab.cu",
     bind=_bind_slab,
+)
+
+
+def _bind_gather(lib) -> None:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.cd_sweep_gather_reg_f32.argtypes = [p, ll, i, p, p, p, p, ll, p, ll, p,
+                                            ll, ll, p, i, i, i, f, f, f, i, i, p]
+    lib.cd_sweep_gather_reg_f32.restype = i
+    lib.cd_slab_reduce_gather_reg_f32.argtypes = [p, ll, i, p, p, p, p, p, i,
+                                                  i, i, i, p]
+    lib.cd_slab_reduce_gather_reg_f32.restype = i
+
+
+GATHER_DEFINES = {
+    "CDG_THREADS": vmem.CDG_THREADS,
+    "CDG_SWEEP_MIN_BLOCKS": vmem.CDG_SWEEP_MIN_BLOCKS,
+    "CDG_SWEEP_REG_SLOTS": vmem.CDG_SWEEP_REG_SLOTS,
+    "CDG_SLAB_MIN_BLOCKS": vmem.CDG_SLAB_MIN_BLOCKS,
+    "CDG_SLAB_INFLIGHT": vmem.CDG_SLAB_INFLIGHT,
+}
+
+GATHER_LIB = CudaLibrary(
+    "cd_gather", Path(__file__).resolve().parent / "csrc" / "cd_gather.cu",
+    defines=GATHER_DEFINES, bind=_bind_gather,
 )
 
 
@@ -86,6 +114,42 @@ def launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, *,
             float(alpha0), float(l2), float(eta), rows_per_block,
             _stream(alpha))
     LIB.check(rc, "cd_sweep")
+
+
+def launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, w_out, *,
+               alpha0: float, l2: float, eta: float, lanes: int, slots: int,
+               lib=None) -> None:
+    """Enqueue one shared-J gather sweep in the register-row form:
+    ``lanes`` threads a row, ``slots`` slots a thread
+    (``vmem.cd_sweep_reg_group``); ``e`` in place, W into ``w_out``.
+    ``lib`` is :data:`GATHER_LIB` or a variant build of its source. The
+    caller has checked shapes, dtypes, device and strides (``ops``)."""
+    lib = lib or GATHER_LIB
+    fn = lib.load().cd_sweep_gather_reg_f32
+    c, d = alpha.shape
+    kb = w_out.shape[1]
+    with torch.cuda.device(alpha.device):
+        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
+                _ptr(alpha), _ptr(e), _ptr(w_blk), _ld(w_blk), _ptr(r1_blk),
+                _ld(r1_blk), j_blk.data_ptr(), *j_blk.stride(), _ptr(w_out),
+                c, d, kb, float(alpha0), float(l2), float(eta), lanes, slots,
+                _stream(alpha))
+    lib.check(rc, "cd_sweep_gather_reg")
+
+
+def slab_reduce_reg(psi_tab, ids, alpha, e, q_out, p_out, *, lanes: int,
+                    lib=None) -> None:
+    """Enqueue one gather slab reduce in the one-tile form (m ≤ 8),
+    ``lanes`` threads a row (``vmem.cd_slab_reduce_lanes``); as
+    :func:`slab_reduce` otherwise."""
+    lib = lib or GATHER_LIB
+    fn = lib.load().cd_slab_reduce_gather_reg_f32
+    c, d = alpha.shape
+    with torch.cuda.device(alpha.device):
+        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
+                _ptr(alpha), _ptr(e), _ptr(q_out), _ptr(p_out), c, d,
+                q_out.shape[1], lanes, _stream(alpha))
+    lib.check(rc, "cd_slab_reduce_gather_reg")
 
 
 def slab_reduce(psi_blk, psi_tab, ids, alpha, e, q_out, p_out) -> None:

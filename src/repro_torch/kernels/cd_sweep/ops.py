@@ -6,14 +6,20 @@ A CUDA tensor launches a hand-written kernel: ``csrc/cd_sweep.cu`` for
 :func:`cd_block_sweep_rowpatch` and :func:`cd_block_sweep_rowpatch_gather`,
 ``csrc/cd_slab.cu`` for the feature models' :func:`cd_slab_reduce`,
 :func:`cd_slab_reduce_gather`, :func:`cd_resid_patch` and
-:func:`cd_resid_patch_gather`. A CPU tensor takes the plain version
-(``ref.py``) in every entry point.
+:func:`cd_resid_patch_gather`, and ``csrc/cd_gather.cu`` for the forms of
+:func:`cd_block_sweep_gather` and :func:`cd_slab_reduce_gather` that hold a
+row in registers. A CPU tensor takes the plain version (``ref.py``) in
+every entry point.
 
 Each block-sweep launch takes the form :func:`~repro_torch.kernels.vmem.cd_sweep_form`
-picks: the warp-row form when one row fits a block's shared memory, else
-the block-row form (one thread block a row). A wrapper's ``launches``
-counts its kernel launches; ``launches_block_row`` counts those of them in
-the block-row form.
+picks: for the shared-J gather sweep, the register-row form where
+:func:`~repro_torch.kernels.vmem.cd_sweep_reg_group` takes the row; else the
+warp-row form when one row fits a block's shared memory, else the
+block-row form (one thread block a row). A wrapper's ``launches`` counts
+its kernel launches, ``launches_reg_row`` and ``launches_block_row`` those
+of them in the register-row and block-row forms. A gather slab reduce at
+m ≤ 8 takes the one-tile form (``vmem.cd_slab_reduce_form``), counted in
+``launches_one_tile``.
 
 ``e`` is updated in place, as the reference donates it: the returned
 ``e`` is the caller's tensor on either device, and callers rebind
@@ -99,22 +105,28 @@ def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, *,
     if cpl.dim() == 3 and not rowpatch:
         cpl = cpl[0]  # one block for every row: the shared form
     form = vmem.cd_sweep_form(d, kb, gather=gather, rowpatch=rowpatch)
+    w_out = torch.empty((c, kb), dtype=torch.float32, device=e.device)
+    if not c:
+        return w_out, e, form
+    if form == vmem.REG_ROW:
+        lanes, slots = vmem.cd_sweep_reg_group(d, kb)
+        kernel.launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out,
+                          alpha0=alpha0, l2=l2, eta=eta, lanes=lanes,
+                          slots=slots)
+        return w_out, e, form
     rows = 0
     if form == vmem.WARP_ROW:
         rows = (vmem.cd_sweep_gather_block_ctx if gather else
                 vmem.cd_sweep_block_ctx)(d, kb, n_rows=c, rowpatch=rowpatch)
-    w_out = torch.empty((c, kb), dtype=torch.float32, device=e.device)
-    if c:
-        kernel.launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl,
-                      w_out, alpha0=alpha0, l2=l2, eta=eta,
-                      rows_per_block=rows)
+    kernel.launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl,
+                  w_out, alpha0=alpha0, l2=l2, eta=eta, rows_per_block=rows)
     return w_out, e, form
 
 
 def _counted(fn, form):
     fn.launches += 1
-    if form == vmem.BLOCK_ROW:
-        fn.launches_block_row += 1
+    fn.launches_block_row += int(form == vmem.BLOCK_ROW)
+    fn.launches_reg_row += int(form == vmem.REG_ROW)
 
 
 def _in_place(e, result):
@@ -190,12 +202,13 @@ def cd_block_sweep_rowpatch_gather(psi_tab, ids, alpha, e, w_blk, r1_blk,
     return w, e
 
 
-# CUDA kernel launches, and those of them in the block-row form
-# (chip_smoke.py reads both)
+# CUDA kernel launches, and those of them in the block-row and register-row
+# forms (chip_smoke.py reads them)
 for _fn in (cd_block_sweep, cd_block_sweep_gather, cd_block_sweep_rowpatch,
             cd_block_sweep_rowpatch_gather):
     _fn.launches = 0
     _fn.launches_block_row = 0
+    _fn.launches_reg_row = 0
 del _fn
 
 
@@ -211,9 +224,18 @@ def _slab_launch(psi_blk, psi_tab, ids, alpha, e, m):
         _check_grid("psi_blk", psi_blk, (c, m, d))
     q = torch.empty((c, m), dtype=torch.float32, device=e.device)
     p = torch.empty((c, m, m), dtype=torch.float32, device=e.device)
-    if c:
+    form = vmem.cd_slab_reduce_form(m, gather=psi_tab is not None)
+    if c and form == vmem.SLAB_ONE_TILE:
+        kernel.slab_reduce_reg(psi_tab, ids, alpha, e, q, p,
+                               lanes=vmem.cd_slab_reduce_lanes(d))
+    elif c:
         kernel.slab_reduce(psi_blk, psi_tab, ids, alpha, e, q, p)
-    return q, p
+    return q, p, form
+
+
+def _slab_counted(fn, c, form):
+    fn.launches += int(c > 0)
+    fn.launches_one_tile += int(c > 0 and form == vmem.SLAB_ONE_TILE)
 
 
 def cd_slab_reduce(psi_blk, alpha, e, *, weights=None):
@@ -226,8 +248,8 @@ def cd_slab_reduce(psi_blk, alpha, e, *, weights=None):
         return ref.cd_slab_reduce_ref(psi_blk, alpha, e)
     _check(psi_blk.dim() == 3, f"psi_blk must be (C, m, D_pad), got "
            f"{tuple(psi_blk.shape)}")
-    q, p = _slab_launch(psi_blk, None, None, alpha, e, psi_blk.shape[1])
-    cd_slab_reduce.launches += int(e.shape[0] > 0)
+    q, p, form = _slab_launch(psi_blk, None, None, alpha, e, psi_blk.shape[1])
+    _slab_counted(cd_slab_reduce, e.shape[0], form)
     return q, p
 
 
@@ -240,8 +262,8 @@ def cd_slab_reduce_gather(psi_tab, ids, alpha, e, *, weights=None):
         return ref.cd_slab_reduce_gather_ref(psi_tab, ids, alpha, e)
     _check(psi_tab.dim() == 2, f"psi_tab must be (n_src, m), got "
            f"{tuple(psi_tab.shape)}")
-    q, p = _slab_launch(None, psi_tab, ids, alpha, e, psi_tab.shape[1])
-    cd_slab_reduce_gather.launches += int(e.shape[0] > 0)
+    q, p, form = _slab_launch(None, psi_tab, ids, alpha, e, psi_tab.shape[1])
+    _slab_counted(cd_slab_reduce_gather, e.shape[0], form)
     return q, p
 
 
@@ -284,8 +306,11 @@ def cd_resid_patch_gather(psi_tab, ids, e, dphi_blk):
     return e
 
 
-# CUDA kernel launches (chip_smoke.py reads them)
+# CUDA kernel launches, and the slab reduces' in the one-tile form
+# (chip_smoke.py reads them)
 for _fn in (cd_slab_reduce, cd_slab_reduce_gather, cd_resid_patch,
             cd_resid_patch_gather):
     _fn.launches = 0
+for _fn in (cd_slab_reduce, cd_slab_reduce_gather):
+    _fn.launches_one_tile = 0
 del _fn

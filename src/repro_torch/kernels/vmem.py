@@ -230,9 +230,11 @@ def gram_row_splits(rows: int, k: int) -> tuple:
 # holds only the row's coupling block (J or P), R', W and the reduction's
 # per-warp partial sums.
 #
-# cd_sweep_form picks the form: warp-row when one row fits a block's shared
-# memory, block-row otherwise. VmemBudgetError is left for what neither
-# form can launch (a k_b whose k_b × k_b block alone overflows a block).
+# cd_sweep_form picks the form: the register-row form below for the shared-J
+# gather sweep where it takes the row, else warp-row when one row fits a
+# block's shared memory, block-row otherwise. VmemBudgetError is left for
+# what no form can launch (a k_b whose k_b × k_b block alone overflows a
+# block).
 # ---------------------------------------------------------------------------
 CD_SWEEP_SMEM_TARGET = 96 * 1024  # two blocks per SM's 228 KB
 CD_SWEEP_MAX_ROWS = 8             # warps (rows) per block
@@ -257,11 +259,85 @@ def cd_sweep_block_row_smem_bytes(k_b: int) -> int:
     return 4 * (k_b * k_b + 2 * k_b + 2 * (CD_BLOCK_ROW_THREADS // 32))
 
 
+# ---------------------------------------------------------------------------
+# Register-row form of the shared-J gather sweep and one-tile form of the
+# gather slab reduce (csrc/cd_gather.cu). A group of `lanes` threads owns a
+# row and every thread holds `slots` slots' e, α and k_b ≤ CDG_KB ψ values
+# in registers for the whole launch (the slab reduce: Q and P's upper
+# triangle, 44 sums); shared memory holds only the J block and per-warp
+# partial sums. Blocks have CDG_THREADS threads; __launch_bounds__ asks for
+# CDG_*_MIN_BLOCKS of them an SM. A sweep thread of more than
+# CDG_SWEEP_REG_SLOTS slots re-reads ψ_j from L1 a step ahead instead of
+# holding it. The values are the fastest of
+# ``chip_smoke.py --sweep-tune``'s variants at icd-mf's two sides (PERF.md).
+# ---------------------------------------------------------------------------
+CDG_THREADS = 256
+CDG_KB = 8                          # block columns held in registers
+CDG_SWEEP_LANES = (8, 16, 32, 64, 128, 256)   # compiled group sizes
+CDG_SWEEP_SLOTS = (4, 8, 16)                  # compiled slots a thread
+CDG_SWEEP_WARP_SLOTS = 4            # slots a thread while a row fits a warp
+CDG_SWEEP_MAX_SLOTS = 8             # beyond: the form's longest row 256 × 8
+CDG_SWEEP_MIN_LANES = 8
+CDG_SWEEP_MIN_BLOCKS = 3
+CDG_SWEEP_REG_SLOTS = 4             # ψ in registers up to this many slots
+CDG_SLAB_LANES = (8, 16, 32)        # compiled group sizes
+CDG_SLAB_MIN_BLOCKS = 3
+CDG_SLAB_INFLIGHT = 2               # slots a thread gathers at once
+REG_ROW = "reg_row"
+SLAB_ONE_TILE, SLAB_TILED = "one_tile", "tiled"
+
+
+def cd_sweep_reg_group(d_pad: int, k_b: int):
+    """``(lanes, slots)`` of the register-row sweep for rows of ``d_pad``
+    slots: while a row fits one warp at CDG_SWEEP_WARP_SLOTS slots a
+    thread, the fewest lanes (a power of two, at least
+    CDG_SWEEP_MIN_LANES) that hold it so; a longer row takes
+    CDG_SWEEP_MAX_SLOTS slots a thread and the fewest warps that hold it
+    (each extra warp costs a barrier a step, so it packs more slots a
+    thread). None where the form does not take the row (k_b > CDG_KB, or
+    more than CDG_THREADS · CDG_SWEEP_MAX_SLOTS slots): those rows keep
+    the shared-memory forms (:func:`cd_sweep_form`)."""
+    if k_b > CDG_KB or d_pad < 1:
+        return None
+    lanes = max(CDG_SWEEP_MIN_LANES, _pow2_ceil(-(-d_pad // CDG_SWEEP_WARP_SLOTS)))
+    if lanes <= 32:
+        return lanes, CDG_SWEEP_WARP_SLOTS
+    lanes = _pow2_ceil(-(-d_pad // CDG_SWEEP_MAX_SLOTS))
+    return (lanes, CDG_SWEEP_MAX_SLOTS) if lanes <= CDG_THREADS else None
+
+
+def cd_sweep_reg_smem_bytes() -> int:
+    """Static shared memory of one register-row block: the J block and two
+    double-buffered partial sums per warp."""
+    return 4 * (CDG_KB * CDG_KB + 4 * (CDG_THREADS // 32))
+
+
+def cd_slab_reduce_form(m: int, *, gather: bool) -> str:
+    """:data:`SLAB_ONE_TILE` for the gather slab reduce at m ≤ CDG_KB (the
+    44 sums in registers), else :data:`SLAB_TILED` (``csrc/cd_slab.cu``'s
+    tile loop, any m, both routings)."""
+    return SLAB_ONE_TILE if gather and m <= CDG_KB else SLAB_TILED
+
+
+def cd_slab_reduce_lanes(d_pad: int) -> int:
+    """Threads a row of the one-tile slab reduce: 32, whatever the row.
+    At 32 lanes a thread sums the slots d ≡ lane (mod 32) in order and
+    the transpose-reduce's trees are the butterfly's, so the form gives
+    the tiled form's bits. 8 and 16 lanes (compiled for ``chip_smoke.py
+    --sweep-tune``) took up to 22% less time at icd-mf's shapes but sum in
+    another order (PERF.md, kernel table row 7)."""
+    return 32
+
+
 def cd_sweep_form(d_pad: int, k_b: int, *, gather: bool,
                   rowpatch: bool = False) -> str:
-    """The launch form of one sweep: :data:`WARP_ROW` when one row fits a
-    block's shared memory, else :data:`BLOCK_ROW`. Raises
-    :class:`VmemBudgetError` when neither form can launch."""
+    """The launch form of one sweep: :data:`REG_ROW` for the shared-J
+    gather sweep where :func:`cd_sweep_reg_group` takes the row, else
+    :data:`WARP_ROW` when one row fits a block's shared memory, else
+    :data:`BLOCK_ROW`. Raises :class:`VmemBudgetError` when no form can
+    launch."""
+    if gather and not rowpatch and cd_sweep_reg_group(d_pad, k_b) is not None:
+        return REG_ROW
     if cd_sweep_smem_bytes(d_pad, k_b, 1, gather=gather,
                            rowpatch=rowpatch) <= SMEM_BLOCK_MAX:
         return WARP_ROW

@@ -82,8 +82,10 @@ def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
     two).
 
     ``form`` is the launch form (``vmem.cd_sweep_form``) and ``form_bytes``
-    what that form itself moves: the warp-row form moves ``hbm_bytes``;
-    the block-row form keeps e, α and ids in device memory and makes two
+    what that form itself moves: the register-row and warp-row forms move
+    ``hbm_bytes`` (the register-row form's shared memory is its J block and
+    partial sums, ``vmem.cd_sweep_reg_smem_bytes``); the block-row form
+    keeps e, α and ids in device memory and makes two
     passes over the row on each of its k_b steps, one reading α, e, ids and
     ψ_j, one reading ids, ψ_j and e and writing e (32 B a slot and step;
     24 B pre-gathered), in place of the one pass over the slots and the
@@ -96,7 +98,10 @@ def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
         rest += 4.0 * c * sum(min(k_b, k - f0) ** 2 for f0 in range(0, k, k_b))
     hbm = n_blocks * slot + psi + rest
     form = vmem.cd_sweep_form(d_pad, k_b, gather=gather, rowpatch=rowpatch)
-    if form == vmem.WARP_ROW:
+    if form == vmem.REG_ROW:
+        smem = vmem.cd_sweep_reg_smem_bytes()
+        own = hbm
+    elif form == vmem.WARP_ROW:
         rows = (vmem.cd_sweep_gather_block_ctx if gather else
                 vmem.cd_sweep_block_ctx)(d_pad, k_b, n_rows=c,
                                          rowpatch=rowpatch)
@@ -119,12 +124,32 @@ def cd_slab_reduce_cost(c: int, d_pad: int, m: int, *, n_src: int = 0,
     slab's ``n_src`` rows of m floats read once; pre-gathered, α, e and
     the (C, m, D_pad) Ψ tile, (m + 2)·4 B a slot — and Q (C, m) and P
     (C, m, m) written. FLOPs a slot: α·e, then for each column the Q term
-    (2) and α·ψ_i (1), and the m(m+1)/2 distinct P terms (2 each)."""
+    (2) and α·ψ_i (1), and the m(m+1)/2 distinct P terms (2 each).
+
+    ``form`` is the launch form (``vmem.cd_slab_reduce_form``) and
+    ``form_bytes`` what it moves: the one-tile form ``hbm_bytes``; the
+    tiled form one pass over the row for each pair of 8-column tiles
+    (bi ≤ bj), each reading α, the diagonal passes also e, and ids and
+    the ψ slab (gather) or the two tiles' Ψ columns (pre-gathered)."""
     slot = 12.0 if gather else 4.0 * (m + 2)
     psi = 4.0 * n_src * m if gather else 0.0
-    hbm = slot * c * d_pad + psi + 4.0 * c * (m + m * m)
+    out = 4.0 * c * (m + m * m)
+    hbm = slot * c * d_pad + psi + out
     flops = float(c) * d_pad * (1 + 3 * m + m * (m + 1))
-    return {"hbm_bytes": hbm, "flops": flops, "smem_bytes": 0.0}
+    form = vmem.cd_slab_reduce_form(m, gather=gather)
+    own = hbm
+    if form == vmem.SLAB_TILED:
+        cols = [min(8, m - c0) for c0 in range(0, m, 8)]  # cd_slab.cu SLAB_TILE
+        per_slot = 0.0
+        for bi in range(len(cols)):
+            for bj in range(bi, len(cols)):
+                diag = bi == bj
+                per_slot += 8.0 if diag else 4.0        # α, and e on the diagonal
+                per_slot += 4.0 if gather else 4.0 * (
+                    cols[bi] + (0 if diag else cols[bj]))
+        own = per_slot * c * d_pad + psi + out
+    return {"hbm_bytes": hbm, "flops": flops, "smem_bytes": 0.0,
+            "form": form, "form_bytes": own}
 
 
 def cd_resid_patch_cost(c: int, d_pad: int, m: int, *, n_src: int = 0,

@@ -749,8 +749,10 @@ def test_sweep_launch_form_follows_the_row_length():
     """Warp-row while one row fits a block's shared memory (the user side
     of the tensor models at D_pad 128, MF's item side at 1,024), block-row
     beyond (CtxMF's hour-of-day buckets at 142,464); only a k_b whose
-    block alone overflows a block fits neither. The cost model carries
-    the form and its own traffic."""
+    block alone overflows a block fits neither. The shared-J gather sweep
+    takes the register-row form where its rows fit registers (D_pad 128
+    and 1,024 here). The cost model carries the form and its own
+    traffic."""
     from repro_torch.kernels import vmem
     from repro_torch.obs.costs import cd_sweep_cost
 
@@ -758,8 +760,10 @@ def test_sweep_launch_form_follows_the_row_length():
                     (142_464, vmem.BLOCK_ROW)):
         for gather in (True, False):
             for rowpatch in (True, False):
+                reg = gather and not rowpatch and d <= 1_024
                 assert vmem.cd_sweep_form(d, 8, gather=gather,
-                                          rowpatch=rowpatch) == want
+                                          rowpatch=rowpatch) == (
+                    vmem.REG_ROW if reg else want)
     # the row patch costs k_b² floats a row in place of the shared block
     assert vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True, rowpatch=True) \
         == vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True) - 4 * 64 + 4 * 4 * 64
@@ -784,6 +788,306 @@ def test_sweep_launch_form_follows_the_row_length():
                                    + 24 * 64 * 4 + (nnz + 1) * 8 * 4)
     assert bucket["form_bytes"] == 32 * 24 * 142_464 * 8 + 24 * 8 * 12 + 24 * 64 * 4
     assert bucket["smem_bytes"] == vmem.cd_sweep_block_row_smem_bytes(8)
+
+
+def test_register_row_sizing_holds_each_row_in_registers():
+    """``vmem.cd_sweep_reg_group``: a compiled (lanes, slots) pair whose
+    lanes hold the row, a whole number of groups a block, the fewest lanes
+    at its slot count (one warp at 4 slots a thread, more warps at 8); the
+    full-width rows (D_pad 128 and 1,024) with no idle slot. k_b > 8 and rows past CDG_THREADS ×
+    CDG_SWEEP_MAX_SLOTS keep the shared-memory forms, and MF's dispatch
+    still refuses rows no form holds resident."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import ops as cs
+
+    longest = vmem.CDG_THREADS * vmem.CDG_SWEEP_MAX_SLOTS
+    for d in [*range(1, 300), 1_000, 1_024, 1_025, 2_000, longest]:
+        for kb in (1, 3, 8):
+            lanes, slots = vmem.cd_sweep_reg_group(d, kb)
+            assert lanes in vmem.CDG_SWEEP_LANES and slots in vmem.CDG_SWEEP_SLOTS
+            assert lanes * slots >= d and vmem.CDG_THREADS % lanes == 0
+            assert slots <= vmem.CDG_SWEEP_MAX_SLOTS
+            assert lanes == vmem.CDG_SWEEP_MIN_LANES or (lanes // 2) * slots < d
+            assert vmem.cd_sweep_form(d, kb, gather=True) == vmem.REG_ROW
+    for d in (128, 1_024):
+        lanes, slots = vmem.cd_sweep_reg_group(d, 8)
+        assert lanes * slots == d
+    assert vmem.cd_sweep_reg_group(128, 9) is None
+    assert vmem.cd_sweep_form(128, 9, gather=True) == vmem.WARP_ROW
+    assert vmem.cd_sweep_reg_group(longest + 1, 8) is None
+    assert vmem.cd_sweep_form(longest + 1, 8, gather=True) == vmem.WARP_ROW
+    assert vmem.cd_sweep_form(20_000, 8, gather=True) == vmem.BLOCK_ROW
+    for kw in (dict(gather=False), dict(gather=True, rowpatch=True)):
+        assert vmem.cd_sweep_form(128, 8, **kw) == vmem.WARP_ROW
+    with pytest.raises(vmem.VmemBudgetError):
+        vmem.resolve_cd_sweep_dispatch(20_000, 8)
+    assert vmem.resolve_cd_sweep_dispatch(1_024, 8) is True
+    assert vmem.cd_sweep_reg_smem_bytes() == 4 * (64 + 4 * vmem.CDG_THREADS // 32)
+    assert vmem.cd_sweep_reg_smem_bytes() <= vmem.SMEM_STATIC_BYTES
+    # the slab reduce: one tile for the gather form at m ≤ 8
+    for m in range(1, 9):
+        assert vmem.cd_slab_reduce_form(m, gather=True) == vmem.SLAB_ONE_TILE
+        assert vmem.cd_slab_reduce_form(m, gather=False) == vmem.SLAB_TILED
+    assert vmem.cd_slab_reduce_form(9, gather=True) == vmem.SLAB_TILED
+    for d in (1, 128, 1_024, 20_480):
+        assert vmem.cd_slab_reduce_lanes(d) in vmem.CDG_SLAB_LANES
+    # every wrapper counts its forms; the CPU's plain versions launch nothing
+    for fn in (cs.cd_block_sweep, cs.cd_block_sweep_gather,
+               cs.cd_block_sweep_rowpatch, cs.cd_block_sweep_rowpatch_gather):
+        assert fn.launches_reg_row >= 0 and fn.launches_block_row >= 0
+    for fn in (cs.cd_slab_reduce, cs.cd_slab_reduce_gather):
+        assert fn.launches_one_tile >= 0
+    x = _reg_operands("cpu", 5, 16, 8, 9, 0, 3)
+    before = (cs.cd_block_sweep_gather.launches,
+              cs.cd_block_sweep_gather.launches_reg_row,
+              cs.cd_slab_reduce_gather.launches_one_tile)
+    cs.cd_block_sweep_gather(x["tab"], x["ids"], x["alpha"], x["e"].clone(),
+                             x["w"], x["r1"], x["j"], alpha0=0.5, l2=0.1)
+    cs.cd_slab_reduce_gather(x["tab"], x["ids"], x["alpha"], x["e"])
+    assert (cs.cd_block_sweep_gather.launches,
+            cs.cd_block_sweep_gather.launches_reg_row,
+            cs.cd_slab_reduce_gather.launches_one_tile) == before
+
+
+def test_cost_model_carries_the_register_forms_and_their_traffic():
+    """The register-row sweep and the one-tile slab reduce move what the
+    function must (``form_bytes == hbm_bytes``); the tiled slab reduce
+    makes one pass over the row per pair of 8-column tiles."""
+    from repro_torch.kernels import vmem
+    from repro_torch.obs.costs import cd_slab_reduce_cost, cd_sweep_cost
+
+    for c, d, n_src in ((200_000, 128, 68_000), (68_000, 1_024, 200_000)):
+        cost = cd_sweep_cost(c, d, 8, 8, n_src=n_src)
+        assert cost["form"] == vmem.REG_ROW
+        assert cost["hbm_bytes"] == cost["form_bytes"] == (
+            16 * c * d + 12 * c * 8 + 4 * n_src * 8)
+        assert cost["smem_bytes"] == vmem.cd_sweep_reg_smem_bytes()
+        slab = cd_slab_reduce_cost(c, d, 8, n_src=n_src)
+        assert slab["form"] == vmem.SLAB_ONE_TILE
+        assert slab["hbm_bytes"] == slab["form_bytes"] == (
+            12 * c * d + 4 * n_src * 8 + 4 * c * (8 + 64))
+    assert cd_sweep_cost(100, 128, 8, 8, n_src=50, gather=False)["form"] ==         vmem.WARP_ROW
+    c, d, n_src = 1_000, 128, 300
+    out = lambda m: 4 * c * (m + m * m)  # noqa: E731
+    tiled = cd_slab_reduce_cost(c, d, 9, n_src=n_src)
+    assert tiled["form"] == vmem.SLAB_TILED
+    assert tiled["hbm_bytes"] == 12 * c * d + 4 * n_src * 9 + out(9)
+    # passes (0, 0), (0, 1), (1, 1): ids and α each, e on the diagonal
+    assert tiled["form_bytes"] == (12 + 8 + 12) * c * d + 4 * n_src * 9 + out(9)
+    pre = cd_slab_reduce_cost(c, d, 8, gather=False)
+    assert pre["form"] == vmem.SLAB_TILED
+    assert pre["form_bytes"] == pre["hbm_bytes"] == 4 * 10 * c * d + out(8)
+    pre17 = cd_slab_reduce_cost(c, d, 17, gather=False)
+    # tiles of 8, 8 and 1 columns: α (+ e on the diagonal) and the tiles' Ψ
+    per_slot = (8 + 32) + (4 + 64) + (4 + 36) + (8 + 32) + (4 + 36) + (8 + 4)
+    assert pre17["form_bytes"] == per_slot * c * d + out(17)
+
+
+def _reg_operands(dev, c, d, kb, ld, f0, seed, *, past=False, zero_rows=0,
+                  pad_frac=0.3, scale=0.3):
+    """Gather-sweep and slab-reduce operands whose ψ slab is columns
+    ``f0 … f0+kb`` of an (n_src, ``ld``) table of ``scale``·N(0, 1): at ld
+    a multiple of 4 and f0 a multiple of 4 the slab allows 16-byte loads,
+    an odd ld or f0 does not. A ``pad_frac`` share of slots is padding (id
+    0, α = 0); ``past`` puts ids past both ends of the slab; the first
+    ``zero_rows`` rows have α = 0."""
+    rng = np.random.default_rng(seed)
+    n_src = 3 * d + 7
+    alpha = (rng.random((c, d)) * 4 + 0.5).astype(np.float32)
+    ids = rng.integers(0, n_src, (c, d)).astype(np.int32)
+    pad = rng.random((c, d)) < pad_frac
+    alpha[pad], ids[pad] = 0, 0
+    alpha[:zero_rows] = 0
+    if past:
+        ids[:, :4] = [-7, n_src, 1000 * n_src, -1]
+    tab = (scale * rng.normal(size=(n_src, ld))).astype(np.float32)
+    jfull = tab.T @ tab + np.eye(ld, dtype=np.float32)
+    cols = slice(f0, f0 + kb)
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    return dict(tab=t(tab)[:, cols], ids=t(ids), alpha=t(alpha),
+                e=t(rng.normal(size=(c, d)).astype(np.float32)),
+                w=t((0.3 * rng.normal(size=(c, ld))).astype(np.float32))[:, cols],
+                r1=t(rng.normal(size=(c, kb)).astype(np.float32)),
+                j=t(jfull)[cols, cols])
+
+
+def _sweep_tol(x, long_rows, alpha0, l2):
+    """Per-row atol of W and per-slot atol of e for the gather sweep: the
+    kernel-vs-oracle atol 2e-6, plus, for rows of 1,024 slots, ``_row_tol``'s
+    1e-5 of the row's Σ_j Σ_d |α·e·ψ_j| / den_j (in e, times the slot's
+    largest |ψ_j|)."""
+    from repro_torch.kernels.cd_sweep import ref as cr
+
+    psi = cr.gather_psi_blk(x["tab"], x["ids"])
+    a = x["alpha"][:, None, :]
+    den = ((a * psi * psi).sum(-1) + alpha0 * torch.diagonal(x["j"])
+           + l2).clamp(min=1e-12)
+    terms = (a * x["e"][:, None, :].abs() * psi.abs() / den[:, :, None]).sum(1)
+    atol_w = _row_tol(terms, long_rows)[:, None]
+    return atol_w, atol_w * psi.abs().amax(1)
+
+
+def _hold_gather_sweep(x, *, long_rows, lanes_slots=None, **kw):
+    """One gather sweep against the plain version, and a second call on the
+    same inputs, which must give the same bits; through the wrapper, or
+    through the binding at ``lanes_slots``."""
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    rw, re = cr.cd_block_sweep_gather_ref(x["tab"], x["ids"], x["alpha"],
+                                          x["e"], x["w"], x["r1"], x["j"], **kw)
+    got = []
+    for _ in range(2):
+        e = x["e"].clone()
+        if lanes_slots is None:
+            w, e2 = cs.cd_block_sweep_gather(x["tab"], x["ids"], x["alpha"], e,
+                                             x["w"], x["r1"], x["j"], **kw)
+            assert e2 is e
+        else:
+            w = torch.empty_like(rw)
+            kernel.launch_reg(x["tab"], x["ids"], x["alpha"], e, x["w"],
+                              x["r1"], x["j"], w, lanes=lanes_slots[0],
+                              slots=lanes_slots[1], **kw)
+        got.append((w, e))
+    torch.cuda.synchronize()
+    (w, e), (w2, e_again) = got
+    assert torch.equal(w, w2) and torch.equal(e, e_again), "two calls differ"
+    assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
+    atol_w, atol_e = _sweep_tol(x, long_rows, kw["alpha0"], kw["l2"])
+    assert bool(((w - rw).abs() <= 2e-5 * rw.abs() + atol_w).all())
+    assert bool(((e - re).abs() <= 2e-5 * re.abs() + atol_e).all())
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,kb,ld,f0,past,zero_rows", [
+    (2_000, 128, 8, 128, 8, False, 0),     # the context side: 16-byte loads
+    (680, 1_024, 8, 128, 40, False, 0),    # the item side, a strided slab
+    (301, 128, 3, 3, 0, True, 5),          # k_b = 3: scalar loads
+    (97, 200, 4, 7, 2, True, 3),           # an odd ld, 8 slots a thread
+    (50, 40, 8, 9, 1, True, 0),            # k_b = 8 at an odd ld
+    (33, 2_048, 8, 8, 0, False, 2),        # the form's longest row
+])
+def test_register_row_sweep_matches_plain_on_cuda(cuda, c, d, kb, ld, f0,
+                                                  past, zero_rows):
+    """The shared-J gather sweep in the register-row form against the plain
+    version, to the reference's kernel-vs-oracle tolerance (rtol 2e-5,
+    atol 2e-6; for rows of 1,024 slots and more ``_row_tol``'s row-scaled
+    atol, ``_sweep_tol``): the 16-byte and the scalar gathers, ids past
+    both ends of the slab, rows with α = 0 (W unchanged at l2 = α₀ = 0),
+    each launch counted in its form, two calls giving the same bits."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import ops as cs
+
+    assert vmem.cd_sweep_form(d, kb, gather=True) == vmem.REG_ROW
+    fn = cs.cd_block_sweep_gather
+    for kw in (dict(alpha0=0.7, l2=0.05, eta=0.9), dict(alpha0=0.0, l2=0.0)):
+        x = _reg_operands(cuda, c, d, kb, ld, f0, c + d, past=past,
+                          zero_rows=zero_rows)
+        before = (fn.launches, fn.launches_reg_row, fn.launches_block_row)
+        w = _hold_gather_sweep(x, long_rows=d >= 1_024, **kw)
+        assert (fn.launches - before[0], fn.launches_reg_row - before[1],
+                fn.launches_block_row - before[2]) == (2, 2, 0)
+        if kw["l2"] == 0:
+            assert torch.equal(w[:zero_rows], x["w"][:zero_rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [8, 16, 32, 64, 128, 256])
+def test_register_row_sweep_every_group_size_on_cuda(cuda, lanes):
+    """Every compiled (lanes, slots) instance, through the binding, at a
+    ragged row that fills its group but for three slots and at a row of
+    half its slots, C off the block's row count: against the plain
+    version to rtol 2e-5 / atol 2e-6 (``_row_tol``'s row-scaled atol from
+    1,024 slots), two calls giving the same bits."""
+    from repro_torch.kernels import vmem
+
+    for slots in vmem.CDG_SWEEP_SLOTS:
+        for d in (lanes * slots - 3, max(1, lanes * slots // 2)):
+            x = _reg_operands(cuda, 37, d, 8, 16, 8, lanes + slots + d,
+                              past=True, zero_rows=2)
+            _hold_gather_sweep(x, long_rows=d >= 1_024, lanes_slots=(lanes, slots),
+                               alpha0=0.6, l2=0.1, eta=1.1)
+
+
+def _hold_one_tile(x, long_rows, *, lanes=None):
+    """The gather slab reduce against the plain version: Q and P to rtol
+    2e-5 / atol 2e-6 (``_row_tol``'s row-scaled atol for rows of 1,024
+    slots and more), P symmetric bit for bit, a second call equal bit for
+    bit; through the wrapper, or through the binding at ``lanes``."""
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    psi = cr.gather_psi_blk(x["tab"], x["ids"])
+    rq, rp = cr.cd_slab_reduce_ref(psi, x["alpha"], x["e"])
+    got = []
+    for _ in range(2):
+        if lanes is None:
+            got.append(cs.cd_slab_reduce_gather(x["tab"], x["ids"], x["alpha"],
+                                                x["e"]))
+        else:
+            q, p = torch.empty_like(rq), torch.empty_like(rp)
+            kernel.slab_reduce_reg(x["tab"], x["ids"], x["alpha"], x["e"], q,
+                                   p, lanes=lanes)
+            got.append((q, p))
+    torch.cuda.synchronize()
+    (q, p), (q2, p2) = got
+    assert torch.equal(q, q2) and torch.equal(p, p2), "two calls differ"
+    assert torch.equal(p, p.transpose(1, 2))
+    a = x["alpha"][:, None, :]
+    q_tol = _row_tol(a * x["e"][:, None, :] * psi, long_rows)
+    p_tol = _row_tol(a[:, :, None, :] * psi[:, :, None, :] * psi[:, None, :, :],
+                     long_rows)
+    assert bool(((q - rq).abs() <= 2e-5 * rq.abs() + q_tol).all())
+    assert bool(((p - rp).abs() <= 2e-5 * rp.abs() + p_tol).all())
+    return q, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,m,ld,f0,past,zero_rows", [
+    (2_000, 128, 8, 128, 8, False, 0),     # the context side: 16-byte loads
+    (680, 1_024, 8, 128, 40, False, 0),    # the item side, a strided slab
+    (301, 128, 3, 3, 0, True, 5),          # m = 3: scalar loads
+    (97, 200, 4, 7, 2, True, 3),           # an odd ld
+    (41, 300, 4, 16, 4, False, 1),         # m = 4: one 16-byte load
+    (5, 20_480, 8, 8, 0, True, 1),         # long rows
+])
+def test_one_tile_slab_reduce_matches_plain_on_cuda(cuda, c, d, m, ld, f0,
+                                                    past, zero_rows):
+    """The gather slab reduce's one-tile form (m ≤ 8) through the wrapper,
+    as ``_hold_one_tile`` holds it; each launch counted in its form, rows
+    with α = 0 giving zero Q and P. ψ is 0.1·N(0, 1), as phase 13 of
+    ``chip_smoke.py`` holds it: at 0.3 a 128-slot row's Σ|α·e·ψ| reaches
+    ≈ 45, where any two fp32 summation orders (the tiled form's too) can
+    differ by more than the atol."""
+    from repro_torch.kernels.cd_sweep import ops as cs
+
+    fn = cs.cd_slab_reduce_gather
+    x = _reg_operands(cuda, c, d, m, ld, f0, c + d + m, past=past,
+                      zero_rows=zero_rows, scale=0.1)
+    before = (fn.launches, fn.launches_one_tile)
+    q, p = _hold_one_tile(x, d >= 1_024)
+    assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (2, 2)
+    assert not bool(q[:zero_rows].any()) and not bool(p[:zero_rows].any())
+    # m = 9 keeps the tiled form
+    x = _reg_operands(cuda, 40, 128, 9, 16, 0, 9, scale=0.1)
+    before = (fn.launches, fn.launches_one_tile)
+    cs.cd_slab_reduce_gather(x["tab"], x["ids"], x["alpha"], x["e"])
+    assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (1, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_one_tile_slab_reduce_every_group_size_on_cuda(cuda, lanes):
+    """Each compiled group size through the binding, at D_pad 128 and
+    1,024 (16-byte loads) and 37 (scalar), C off the block's row count; ψ
+    at phase 13's 0.1·N(0, 1)."""
+    for c, d, m, ld, f0 in ((203, 128, 8, 128, 0), (61, 1_024, 8, 128, 16),
+                            (77, 37, 5, 5, 0)):
+        x = _reg_operands(cuda, c, d, m, ld, f0, lanes + d, past=True,
+                          zero_rows=1, scale=0.1)
+        _hold_one_tile(x, d >= 1_024, lanes=lanes)
 
 
 def _rowpatch_operands(dev, c, d, kb, n_src, seed, pad_frac=0.3):
