@@ -48,16 +48,22 @@ Phases, one line each or more:
      version from one random start);
   8. run the quickstart twin on the card (iCD-MF must beat popularity);
   9. hold the row-patch block sweeps (kernels 4 and 5) against their plain
-     versions: both routings at the full-width user-side shape (C =
-     200,000, D_pad = 128, k_b = 8, a slab of nnz + 1 rows) in the warp-row
-     form, both at the bucket-side shape (C = 24, D_pad = 142,464) in the
-     block-row form, and edge cases (C off the row tile, a 4-column tail,
-     k_b = 1, η ≠ 1, ids past both ends, all-α = 0 rows with l2 = α₀ = 0,
-     the shared-J sweep in the block-row form);
+     versions, each called twice for the same bits: both routings at the
+     full-width user-side shape (C = 200,000, D_pad = 128, k_b = 8, a slab
+     of nnz + 1 rows) — the gather one in the register-row form
+     (``csrc/cd_gather.cu``), also equal bit for bit to the warp-row form
+     it replaced —, both at the bucket-side shape (C = 24, D_pad =
+     142,464) — the gather one in the split-row form, the pre-gathered one
+     in the block-row form —, and edge cases (C off the row tile, a
+     4-column tail, k_b = 1, 3, 4 and 8 on long rows no chunk divides, one
+     off a multiple of 4, η ≠ 1, ids past both ends, all-α = 0 rows with
+     l2 = α₀ = 0, the shared-J sweep on long rows);
  10. train CtxMF at full width (200,000 users × 24 hour-of-day buckets ×
      68,000 items, k = 128) on phase 6's log with seeded timestamps over
-     28 days: 3 ``epoch_padded`` epochs (objective falling, launches
-     counted by form), one pregather and one flat epoch from one start
+     28 days: 3 ``epoch_padded`` epochs (objective falling and within
+     rtol 1e-4 of the earlier forms' CTX_OBJECTIVES, launches counted by
+     form: 48 register-row and 48 split-row row-patch launch chains), one
+     pregather and one flat epoch from one start
      held against the default one, one profiled epoch, one
      ``dense_context`` epoch, and 16 (user, bucket) queries through the
      top-K kernel against a plain recompute;
@@ -65,7 +71,9 @@ Phases, one line each or more:
      (objective falling), and small PARAFAC and Tucker epochs on the card
      against the same epochs on the CPU;
  12. time the row-patch kernels at both full-width shapes beside their
-     plain versions and their bounds;
+     plain versions and their bounds, the gather routing's register-row
+     and split-row forms beside the warp-row and block-row forms they
+     replaced;
  13. hold the slab-reduce and residual-patch kernels (kernels 6–9, both ψ
      routings) against their plain versions: at both sides' full-width
      shapes (context C = 200,000, D_pad = 128, n_src = 68,000; item C =
@@ -73,18 +81,23 @@ Phases, one line each or more:
      slice of a k = 128 table), at m = 9 and 17 with strided slabs, on rows
      of 20,480 slots and with ids past the slab, each slab reduce called
      twice for the same bits, the gather one at m ≤ 8 in its one-tile
-     form (``csrc/cd_gather.cu``);
+     form (``csrc/cd_gather.cu``), and the gather residual patch at m ≤ 8
+     in its register-slot form equal bit for bit to the one-slot kernel,
+     at m = 1–9, slabs with and without 16-byte loads, D_pad off a
+     multiple of 4;
  14. train MFSI at icd-fm width (200,000 contexts over 7 fields, p_ctx =
      336,091, 68,000 items, k = 128) on phase 6's log with a seeded
      context design: 3 ``epoch_padded`` epochs (objective falling, 96
-     launches each of the gather slab reduce and residual patch), one
+     launches each of the gather slab reduce and residual patch, all in
+     the one-tile and register-slot forms), one
      pregather and one flat epoch from one start held against the default
      one, one profiled epoch, and 16 users' queries through the top-K
      kernel against a plain recompute;
  15. time kernels 6–9 at both sides' full-width shapes beside their plain
      versions, their bounds and, for the pre-gathered forms, one
      ``torch.bmm``/``baddbmm`` over the same tile; the gather slab reduce's
-     one-tile form beside the tiled form it replaced.
+     one-tile form and the gather residual patch's register-slot form
+     beside the tiled and one-slot kernels they replaced.
 
  16. serve the quantized IVF tier at full icd-mf width on phase 6's trained
      factors: ``FaultTolerantRetrievalMesh(retrieval="ivf",
@@ -126,7 +139,8 @@ rows (the device-memory merge).
 ``python3 chip_smoke.py --serve-order BEFORE`` runs only phase 3's order
 check (:func:`serve_first_runs`); ``--gram-tune`` only the Gram's variants
 (:func:`gram_tune`); ``--sweep-tune`` only the variants of
-``csrc/cd_gather.cu`` (:func:`sweep_tune`).
+``csrc/cd_gather.cu`` (:func:`sweep_tune`: blocks an SM, slots a thread,
+the split-row form's chunk length, the residual patch's slots a thread).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -968,27 +982,34 @@ def gram_tune() -> None:
 
 # --sweep-tune: builds of csrc/cd_gather.cu, each (sweep blocks an SM, most
 # slots a thread whose ψ stays in registers — 0 re-reads it from L1 a step
-# ahead at any slot count, 16 never —, slab-reduce blocks an SM, slab slots
-# in flight), and the (lanes, slots) each side's rows try
-SWEEP_TUNE_BUILDS = ((3, 4, 3, 2), (3, 0, 2, 4), (3, 16, 3, 3), (4, 4, 4, 1),
-                     (2, 4, 3, 4))
+# ahead at any slot count, 16 never —, slab-reduce and split-row pass-1
+# blocks an SM, their slots in flight, residual-patch slots a thread), the
+# (lanes, slots) each side's rows try, and the split-row chunk lengths
+SWEEP_TUNE_BUILDS = ((3, 4, 3, 2, 4), (3, 0, 2, 4, 8), (3, 16, 3, 3, 4),
+                     (4, 4, 4, 1, 8), (2, 4, 3, 4, 4))
 SWEEP_TUNE_GROUPS = {128: ((8, 16), (16, 8), (32, 4)),
                      1_024: ((64, 16), (128, 8), (256, 4))}
+SWEEP_TUNE_CHUNKS = (1_024, 2_048, 3_072, 4_096, 8_192)
 
 
 def _ptxas_by_kernel(log_text: str) -> dict:
     """{kernel instance: "N registers, S B spill stores"} from nvcc's
-    ``-Xptxas -v`` report: sweep<lanes,slots> (the k_b = 8 instances) and
-    slab<lanes>."""
+    ``-Xptxas -v`` report: sweep<lanes,slots> and, with the row patch,
+    sweep<lanes,slots,P> (the k_b = 8 instances), slab<lanes>, the
+    split-row pass 1 and the register-slot patch."""
     import re
 
     out, name = {}, None
     for ln in log_text.splitlines():
         if "Compiling entry" in ln:
-            m = re.search(r"reg_kernelILi(\d+)E(?:Li(\d+)ELi(\d+)E)?", ln)
+            m = re.search(r"reg_kernelILi(\d+)E(?:Li(\d+)ELi(\d+)ELb(\d)E)?", ln)
             name = None if not m else (
-                f"sweep<{m.group(1)},{m.group(2)}>" if m.group(3) == "8"
-                else None if m.group(2) else f"slab<{m.group(1)}>")
+                f"sweep<{m.group(1)},{m.group(2)}{',P' * (m.group(4) == '1')}>"
+                if m.group(3) == "8" else None if m.group(2) else f"slab<{m.group(1)}>")
+            if "split_reduce" in ln:
+                name = "split pass 1"
+            elif "resid_patch_gather_reg_kernelILb1" in ln:
+                name = "patch"
         elif name and "spill" in ln:
             out[name] = ln.split(",")[1].strip()
         elif name and "registers" in ln:
@@ -1002,9 +1023,13 @@ def sweep_tune() -> None:
     shapes (context C 200,000 × D_pad 128, item 68,000 × 1,024, k_b = m =
     8, the ψ slab a column slice of a k = 128 table, the log's padding
     share), the register-row sweep at each (lanes, slots) of
-    SWEEP_TUNE_GROUPS and the one-tile slab reduce at 8, 16 and 32 lanes,
-    each first held against its plain version, beside the forms they
-    replace; with each build's registers and spills."""
+    SWEEP_TUNE_GROUPS, the one-tile slab reduce at 8, 16 and 32 lanes and
+    the register-slot residual patch; at CtxMF's full-width row-patch
+    shapes (user C 200,000 × D_pad 128, bucket 24 × 142,464) the
+    register-row row-patch sweep at each (lanes, slots) and the split-row
+    form at each of SWEEP_TUNE_CHUNKS; each first held against its plain
+    version, beside the forms they replace; with each build's registers
+    and spills."""
     from repro_torch.kernels import build, vmem
     from repro_torch.kernels.cd_sweep import kernel as ck, ref as cr
 
@@ -1014,8 +1039,9 @@ def sweep_tune() -> None:
                                        "CDG_SWEEP_MIN_BLOCKS": sb,
                                        "CDG_SWEEP_REG_SLOTS": reg,
                                        "CDG_SLAB_MIN_BLOCKS": lb,
-                                       "CDG_SLAB_INFLIGHT": inflight})
-            for sb, reg, lb, inflight in SWEEP_TUNE_BUILDS]
+                                       "CDG_SLAB_INFLIGHT": inflight,
+                                       "CDG_PATCH_SLOTS": patch})
+            for sb, reg, lb, inflight, patch in SWEEP_TUNE_BUILDS]
     t0 = time.perf_counter()
     build.build_all([*libs, ck.LIB, ck.SLAB_LIB])
     log(f"sweep-tune build: {len(libs)} variants in {time.perf_counter() - t0:.1f}s")
@@ -1068,7 +1094,87 @@ def sweep_tune() -> None:
                 torch.testing.assert_close(p, rp, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
                 parts.append(f"{lanes} lanes {device_ms(call, n=20):.4f}")
             log(f"sweep-tune slab C {c} D_pad {d} build {v}: " + ", ".join(parts) + " ms")
-        del x, rq, rp, q, p
+        # the residual patch, one slot a thread against the register-slot form
+        dphi = 0.1 * torch.randn((c, 8), generator=gen, device=dev)
+        re = cr.cd_resid_patch_gather_ref(x["tab"], x["ids"], x["e"], dphi)
+        es = [x["e"].clone() for _ in range(2)]
+        old = device_ms(lambda j: ck.resid_patch(None, x["tab"], x["ids"], es[j % 2],
+                                                 dphi), n=20)
+        parts = []
+        for lib, v in zip(libs, SWEEP_TUNE_BUILDS):
+            e = x["e"].clone()
+            ck.resid_patch_reg(x["tab"], x["ids"], e, dphi, lib=lib)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(e, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+            parts.append(f"{v[4]} slots (build {v}) {device_ms(lambda j, lib=lib: ck.resid_patch_reg(x['tab'], x['ids'], es[j % 2], dphi, lib=lib), n=20):.4f}")
+        log(f"sweep-tune patch C {c} D_pad {d}: one slot a thread {old:.4f} ms; "
+            + ", ".join(parts) + " ms")
+        del x, rq, rp, q, p, es, re
+    sweep_tune_rowpatch(libs)
+
+
+def sweep_tune_rowpatch(libs) -> None:
+    """--sweep-tune's row-patch part: the register-row row-patch sweep at
+    CtxMF's user side and the split-row form at its bucket side, in each
+    build of ``libs`` (SWEEP_TUNE_BUILDS), beside the warp-row and
+    block-row forms they replaced."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck, ref as cr
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    kw = dict(alpha0=1.0, l2=0.1, eta=1.0)
+    n_src = CTX["nnz"] + 1
+    for c, d, pad in ((FULL["n_ctx"], CTX["d_user"], 0.87),
+                      (CTX["n_buckets"], CTX["d_bucket"], 0.01)):
+        x = rowpatch_inputs(gen, dev, c, d, 8, n_src, pad)
+        args = (x["tab"], x["ids"], x["alpha"])
+        rw, re = cr.cd_block_sweep_rowpatch_gather_ref(*args, x["e"], x["w"], x["r1"],
+                                                       x["p"], **kw)
+        es = [x["e"].clone() for _ in range(2)]
+        w_out = torch.empty((c, 8), device=dev)
+        long_rows = d > 2_048
+        psi = cr.gather_psi_blk(x["tab"], x["ids"]) if long_rows else None
+        rows = 0 if long_rows else vmem.cd_sweep_gather_block_ctx(d, 8, n_rows=c,
+                                                                   rowpatch=True)
+        old = device_ms(lambda j: ck.launch(None, *args, es[j % 2], x["w"], x["r1"],
+                                            x["p"], w_out, rows_per_block=rows, **kw),
+                        n=10)
+        log(f"sweep-tune rowpatch C {c} D_pad {d}: "
+            f"{'block-row' if long_rows else 'warp-row'} form {old:.4f} ms")
+        for lib, v in zip(libs, SWEEP_TUNE_BUILDS):
+            parts = []
+            if long_rows:
+                for chunk in SWEEP_TUNE_CHUNKS:
+                    part = torch.empty((c, -(-d // chunk), vmem.CDG_NSUM), device=dev)
+                    delta = torch.empty((c, 8), device=dev)
+
+                    def call(j, chunk=chunk, lib=lib, part=part, delta=delta, e=None):
+                        ck.launch_split(*args, es[j % 2] if e is None else e, x["w"],
+                                        x["r1"], x["p"], w_out, part, delta, chunk=chunk,
+                                        lib=lib, **kw)
+                    e = x["e"].clone()
+                    call(0, e=e)
+                    torch.cuda.synchronize()
+                    atol_w, atol_e = long_row_atol(x, psi, x["p"], 1.0, 0.1)
+                    assert bool(((w_out - rw).abs() <= SWEEP_RTOL * rw.abs() + atol_w).all())
+                    assert bool(((e - re).abs() <= SWEEP_RTOL * re.abs() + atol_e).all())
+                    parts.append(f"chunk {chunk} {device_ms(call, n=10):.4f}")
+            else:
+                for lanes, slots in SWEEP_TUNE_GROUPS[d]:
+                    def call(j, lanes=lanes, slots=slots, lib=lib, e=None):
+                        ck.launch_reg(*args, es[j % 2] if e is None else e, x["w"],
+                                      x["r1"], x["p"], w_out, lanes=lanes, slots=slots,
+                                      lib=lib, **kw)
+                    e = x["e"].clone()
+                    call(0, e=e)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(w_out, rw, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                    torch.testing.assert_close(e, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                    parts.append(f"{lanes}x{slots} {device_ms(call, n=20):.4f}")
+            log(f"sweep-tune rowpatch C {c} D_pad {d} build {v}: "
+                + ", ".join(parts) + " ms")
+        del x, es, rw, re, psi
 
 
 def bound(nbytes: float, flops: float):
@@ -1108,6 +1214,10 @@ TUCKER_RTOL, TUCKER_ATOL = 1e-3, 1e-4
 # the CtxMF log (phase 10): its shape at full width, which phase 10 checks
 CTX = dict(n_buckets=24, days=28, ts_seed=1, k_tucker=8, nnz=3_399_385,
            d_user=128, d_bucket=142_464, d_item=1_024)
+# phase 10's objective before and after each of its 3 epochs with the
+# warp-row and block-row row-patch forms (chip_smoke.py of the commit before
+# the split-row form, on an H100), which the new forms must keep to rtol 1e-4
+CTX_OBJECTIVES = (4.09181e+07, 2.12352e+07, 2.12054e+07, 2.11854e+07)
 
 
 def rowpatch_inputs(gen, dev, c, d, kb, n_src, pad_frac=0.3, ids=None,
@@ -1134,9 +1244,10 @@ def rowpatch_inputs(gen, dev, c, d, kb, n_src, pad_frac=0.3, ids=None,
 
 def hold_rowpatch(cs, cr, x, *, gather=True, cpl=None, alpha0=1.0, l2=0.1,
                   eta=1.0):
-    """One launch of a row-patch sweep (or, with a 2-D ``cpl``, the
-    shared-J sweep) against its plain version; returns (max |error| over W
-    and e, whether it ran in the block-row form, W)."""
+    """Two launches of a row-patch sweep (or, with a 2-D ``cpl``, the
+    shared-J sweep) on the same inputs, which must give the same bits, held
+    against the plain version; returns (max |error| over W and e, whether
+    it ran on long rows — the block-row or split-row form —, W)."""
     from repro_torch.kernels import vmem
 
     cpl = x["p"] if cpl is None else cpl
@@ -1147,26 +1258,26 @@ def hold_rowpatch(cs, cr, x, *, gather=True, cpl=None, alpha0=1.0, l2=0.1,
     first = (x["tab"], x["ids"]) if gather else (psi,)
     kw = dict(alpha0=alpha0, l2=l2, eta=eta)
     d, kb = x["alpha"].shape[1], x["w"].shape[1]
-    long_rows = vmem.cd_sweep_form(d, kb, gather=gather,
-                                   rowpatch=cpl.dim() == 3) == vmem.BLOCK_ROW
-    before = (fn.launches, fn.launches_block_row)
+    form = vmem.cd_sweep_form(d, kb, gather=gather, rowpatch=cpl.dim() == 3)
+    long_rows = form in (vmem.BLOCK_ROW, vmem.SPLIT_ROW)
+    before = (fn.launches, fn.launches_block_row, fn.launches_split_row,
+              fn.launches_reg_row)
     rw, re = plain(*first, x["alpha"], x["e"], x["w"], x["r1"], cpl, **kw)
-    e = x["e"].clone()
+    e, e_again = x["e"].clone(), x["e"].clone()
     w, e2 = fn(*first, x["alpha"], e, x["w"], x["r1"], cpl, **kw)
+    w_again, _ = fn(*first, x["alpha"], e_again, x["w"], x["r1"], cpl, **kw)
     torch.cuda.synchronize()
     assert e2 is e, "the residual grid must be updated in place"
-    assert (fn.launches - before[0], fn.launches_block_row - before[1]) == \
-        (1, int(long_rows)), (name, long_rows)
+    assert torch.equal(w, w_again) and torch.equal(e, e_again), \
+        f"{name}: two calls differ"
+    assert (fn.launches - before[0], fn.launches_block_row - before[1],
+            fn.launches_split_row - before[2], fn.launches_reg_row - before[3]) \
+        == (2, 2 * long_rows, 2 * (form == vmem.SPLIT_ROW),
+            2 * (form == vmem.REG_ROW)), (name, form)
     assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
     atol_w = atol_e = SWEEP_ATOL
     if long_rows:
-        a = x["alpha"][:, None, :]
-        den = ((a * psi * psi).sum(-1) + alpha0 * torch.diagonal(
-            cpl, dim1=-2, dim2=-1) + l2).clamp(min=1e-12)
-        scale = ((a * x["e"].abs()[:, None, :] * psi.abs()).sum(-1)
-                 / den).sum(1, keepdim=True)
-        atol_w = SWEEP_ATOL + LONG_ROW_REL * scale
-        atol_e = atol_w * psi.abs().amax(1)
+        atol_w, atol_e = long_row_atol(x, psi, cpl, alpha0, l2)
     bad_w = (w - rw).abs() > SWEEP_RTOL * rw.abs() + atol_w
     bad_e = (e - re).abs() > SWEEP_RTOL * re.abs() + atol_e
     err = max(float((w - rw).abs().max()), float((e - re).abs().max()))
@@ -1174,15 +1285,32 @@ def hold_rowpatch(cs, cr, x, *, gather=True, cpl=None, alpha0=1.0, l2=0.1,
     return err, long_rows, w
 
 
+def long_row_atol(x, psi, cpl, alpha0, l2):
+    """(per-row atol of W, per-slot atol of e) of a sweep on long rows:
+    SWEEP_ATOL plus LONG_ROW_REL of the row's Σ_j (Σ_d |α·e·ψ_j|) / den_j,
+    in e times the slot's largest |ψ_j|."""
+    a = x["alpha"][:, None, :]
+    den = ((a * psi * psi).sum(-1) + alpha0 * torch.diagonal(
+        cpl, dim1=-2, dim2=-1) + l2).clamp(min=1e-12)
+    scale = ((a * x["e"].abs()[:, None, :] * psi.abs()).sum(-1)
+             / den).sum(1, keepdim=True)
+    atol_w = SWEEP_ATOL + LONG_ROW_REL * scale
+    return atol_w, atol_w * psi.abs().amax(1)
+
+
 def hold_rowpatch_kernels(dev, n_src) -> dict:
     """Phase 9: both row-patch kernels against their plain versions at the
-    full-width shapes and at edge cases; ``n_src`` = nnz + 1."""
-    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    full-width shapes and at edge cases; ``n_src`` = nnz + 1. The gather
+    sweep runs in the register-row form (user side) and the split-row form
+    (bucket side), the pre-gathered one in the warp-row and block-row
+    forms."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
 
     gen = torch.Generator(device=dev).manual_seed(9)
     err = {"cd_block_sweep_rowpatch": 0.0, "cd_block_sweep_rowpatch_gather": 0.0}
-    # user side (warp-row; 13% of the slots filled at full width), bucket
-    # side (block-row; full rows)
+    # user side (13% of the slots filled at full width), bucket side (full
+    # rows)
     for c, d, pad, long_rows in ((FULL["n_ctx"], 128, 0.87, False),
                                  (CTX["n_buckets"], CTX["d_bucket"], 0.01, True)):
         x = rowpatch_inputs(gen, dev, c, d, 8, n_src, pad)
@@ -1192,13 +1320,25 @@ def hold_rowpatch_kernels(dev, n_src) -> dict:
             assert lr == long_rows
             err[name] = max(err[name], got)
             log(f"phase 9 hold {name} C {c} D_pad {d}: "
-                f"{'block-row' if lr else 'warp-row'} form, max |err| {got:.3g}")
+                f"{vmem.cd_sweep_form(d, 8, gather=gather, rowpatch=True)} "
+                f"form, max |err| {got:.3g}, two calls the same bits")
+        if not long_rows:
+            # the register-row row-patch form at 32 lanes against the
+            # warp-row form it replaced, bit for bit
+            same = rowpatch_reg_vs_warp_row(ck, cs, x)
+            assert same, "register-row and warp-row row-patch forms differ"
+            log(f"phase 9 hold: the register-row row-patch form equals the "
+                f"warp-row form bit for bit at C {c} D_pad {d} "
+                f"({vmem.cd_sweep_reg_group(d, 8)[0]} lanes)")
         del x
     # edge cases: C off the row tile, a 4-column tail, k_b = 1, η ≠ 1,
-    # long rows in both couplings
+    # long rows in both couplings at k_b 8, 4, 3 and 1, row lengths that no
+    # chunk divides (20,000, 16,000 and 18,000 at chunks of 256) and one
+    # off a multiple of 4 (15,001: scalar loads in pass 2)
     for c, d, kb, eta in ((1001, 40, 8, 1.0), (1001, 40, 4, 0.7),
                           (13, 200, 1, 0.5), (9, 33, 3, 1.3),
-                          (5, 20_000, 8, 0.9), (3, 16_000, 4, 1.0)):
+                          (5, 20_000, 8, 0.9), (3, 16_000, 4, 1.0),
+                          (4, 15_001, 3, 1.1), (6, 18_000, 1, 0.7)):
         x = rowpatch_inputs(gen, dev, c, d, kb, 60)
         for gather in (True, False):
             hold_rowpatch(cs, cr, x, gather=gather, eta=eta)
@@ -1215,12 +1355,33 @@ def hold_rowpatch_kernels(dev, n_src) -> dict:
         for gather in (True, False):
             _, _, w = hold_rowpatch(cs, cr, x, gather=gather, alpha0=0.0, l2=0.0)
             assert torch.equal(w[:4], x["w"][:4]), "an empty row moved"
-    # the shared-J sweep (MF's kernel 2) in the block-row form
+    # the shared-J sweep (MF's kernel 2) on long rows: the split-row form
+    # with one J (cs0 = 0) in the gather routing, the block-row form
+    # pre-gathered
     x = rowpatch_inputs(gen, dev, 5, 20_000, 8, 3_000)
     for gather in (True, False):
         _, lr, _ = hold_rowpatch(cs, cr, x, gather=gather, cpl=x["p"][0])
         assert lr
     return err
+
+
+def rowpatch_reg_vs_warp_row(ck, cs, x) -> bool:
+    """The gather row-patch sweep through its wrapper (the register-row
+    form) and through the warp-row form's binding, on the same inputs:
+    whether W and e agree bit for bit."""
+    from repro_torch.kernels import vmem
+
+    c, d = x["alpha"].shape
+    kw = dict(alpha0=1.0, l2=0.1, eta=1.0)
+    e_new, e_old = x["e"].clone(), x["e"].clone()
+    w_new, _ = cs.cd_block_sweep_rowpatch_gather(
+        x["tab"], x["ids"], x["alpha"], e_new, x["w"], x["r1"], x["p"], **kw)
+    w_old = torch.empty_like(w_new)
+    ck.launch(None, x["tab"], x["ids"], x["alpha"], e_old, x["w"], x["r1"],
+              x["p"], w_old, rows_per_block=vmem.cd_sweep_gather_block_ctx(
+                  d, 8, n_rows=c, rowpatch=True), **kw)
+    torch.cuda.synchronize()
+    return torch.equal(w_new, w_old) and torch.equal(e_new, e_old)
 
 
 def make_ctx_log(dev):
@@ -1250,11 +1411,15 @@ def _counters():
             cs.cd_block_sweep_rowpatch, cs.cd_block_sweep_rowpatch_gather)
 
 
+SWEEP_FORM_COUNTERS = ("block_row", "split_row", "reg_row")
+
+
 def reset_counts() -> None:
     for c in _counters():
         c.launches = 0
         if hasattr(c, "launches_block_row"):
-            c.launches_block_row = c.launches_reg_row = 0
+            for f in SWEEP_FORM_COUNTERS:
+                setattr(c, f"launches_{f}", 0)
 
 
 def read_counts() -> dict:
@@ -1262,8 +1427,8 @@ def read_counts() -> dict:
     for c in _counters():
         out[c.__name__] = c.launches
         if hasattr(c, "launches_block_row"):
-            out[c.__name__ + ":block_row"] = c.launches_block_row
-            out[c.__name__ + ":reg_row"] = c.launches_reg_row
+            for f in SWEEP_FORM_COUNTERS:
+                out[f"{c.__name__}:{f}"] = getattr(c, f"launches_{f}")
     return out
 
 
@@ -1299,7 +1464,7 @@ def train_ctxmf_full_width(dev) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     assert (data.nnz, d1, d2, di) == (CTX["nnz"], CTX["d_user"], CTX["d_bucket"],
                                       CTX["d_item"]), (data.nnz, d1, d2, di)
-    assert forms == [vmem.WARP_ROW, vmem.BLOCK_ROW], forms
+    assert forms == [vmem.REG_ROW, vmem.SPLIT_ROW], forms
 
     hp = ctxmf.CtxMFHyperParams(k=FULL["k"], alpha0=FULL["alpha0"],
                                 l2=FULL["l2"], implementation="pallas")
@@ -1319,29 +1484,34 @@ def train_ctxmf_full_width(dev) -> dict:
         first = first or (p, e)
         objs.append(float(ctxmf.objective(p, tc, data, hp)))
     launches = read_counts()
-    rp = launches["cd_block_sweep_rowpatch_gather"]
-    rp_block = launches["cd_block_sweep_rowpatch_gather:block_row"]
+    rp_split = launches["cd_block_sweep_rowpatch_gather:split_row"]
+    rp_reg = launches["cd_block_sweep_rowpatch_gather:reg_row"]
     log(f"phase 10 train: ctxmf.epoch_padded x3 (k {FULL['k']}, block_k 0 -> k_b 8, "
         f"gather, Gram kernel for J_I): objective "
         f"{' -> '.join(f'{o:.6g}' for o in objs)}; epoch s "
         f"{', '.join(f'{s:.3f}' for s in epoch_s)} (objective excluded); "
-        f"launches {launches}: an epoch {(rp - rp_block) // 3} warp-row + "
-        f"{rp_block // 3} block-row row-patch, "
-        f"{launches['cd_block_sweep_gather'] // 3} item-sweep (register-row) and "
-        f"{launches['gram'] // 3} Gram launches")
+        f"launches {launches}: in 3 epochs {rp_reg} register-row + {rp_split} "
+        f"split-row row-patch launch chains, "
+        f"{launches['cd_block_sweep_gather']} item-sweep (register-row) and "
+        f"{launches['gram']} Gram launches")
     assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
+    # the split-row form sums the bucket rows in another order than the
+    # block-row form did: the objectives agree with the earlier form's to
+    # rtol 1e-4
+    for got, want_obj in zip(objs, CTX_OBJECTIVES):
+        assert abs(got - want_obj) <= 1e-4 * abs(want_obj), (objs, CTX_OBJECTIVES)
     nb = -(-FULL["k"] // 8)  # k_b = 8 blocks a mode: 16 at k = 128
-    want = {"gram": 3, "cd_block_sweep": 0, "cd_block_sweep:block_row": 0,
-            "cd_block_sweep_gather": 3 * nb,
-            "cd_block_sweep_gather:block_row": 0,
-            "cd_block_sweep_gather:reg_row": 3 * nb,
-            "cd_block_sweep_rowpatch": 0,
-            "cd_block_sweep_rowpatch:block_row": 0,
-            "cd_block_sweep_rowpatch_gather": 6 * nb,
-            "cd_block_sweep_rowpatch_gather:block_row": 3 * nb}
-    want.update({f"{n}:reg_row": 0 for n in (
-        "cd_block_sweep", "cd_block_sweep_rowpatch",
-        "cd_block_sweep_rowpatch_gather")})
+    want = {f"{n}:{f}": 0 for n in (
+        "cd_block_sweep", "cd_block_sweep_gather", "cd_block_sweep_rowpatch",
+        "cd_block_sweep_rowpatch_gather") for f in SWEEP_FORM_COUNTERS}
+    want.update({"gram": 3, "cd_block_sweep": 0,
+                 "cd_block_sweep_gather": 3 * nb,
+                 "cd_block_sweep_gather:reg_row": 3 * nb,
+                 "cd_block_sweep_rowpatch": 0,
+                 "cd_block_sweep_rowpatch_gather": 6 * nb,
+                 "cd_block_sweep_rowpatch_gather:block_row": 3 * nb,
+                 "cd_block_sweep_rowpatch_gather:split_row": 3 * nb,
+                 "cd_block_sweep_rowpatch_gather:reg_row": 3 * nb})
     assert launches == want, launches
 
     # one epoch from one start through the pregather route and the flat path
@@ -1385,8 +1555,10 @@ def train_ctxmf_full_width(dev) -> dict:
     dense_s, dense_launches = time.perf_counter() - t, read_counts()
     od1 = float(ctxmf.objective(pd, tc, data, hpd))
     assert od1 < od0 and all(bool(torch.isfinite(x).all()) for x in pd)
+    # one P for every row: the bucket side in the split-row form with cs0 = 0
     assert dense_launches["cd_block_sweep_rowpatch_gather"] == 2 * nb and \
-        dense_launches["cd_block_sweep_rowpatch_gather:block_row"] == nb
+        dense_launches["cd_block_sweep_rowpatch_gather:split_row"] == nb and \
+        dense_launches["cd_block_sweep_rowpatch_gather:reg_row"] == nb
     del pd
     log(f"phase 10 dense_context epoch: objective {od0:.6g} -> {od1:.6g}, "
         f"{dense_s:.3f}s, launches {dense_launches}")
@@ -1490,14 +1662,17 @@ def train_tucker_full_width(dev, tc, data, padded) -> None:
 
 
 def time_rowpatch_kernels(dev, padded, n_src) -> dict:
-    """Phase 12: CUDA-event times of both row-patch forms at the
-    full-width user (warp-row) and bucket (block-row) shapes, on the real
-    layouts' ids and α with random values, one launch of k_b = 8."""
-    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    """Phase 12: CUDA-event times of both row-patch routings at the
+    full-width user and bucket shapes, on the real layouts' ids and α with
+    random values, one launch of k_b = 8; the gather routing's new forms
+    (register-row, split-row) beside the warp-row and block-row forms they
+    replaced, through their binding."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
     from repro_torch.obs.costs import cd_sweep_cost
 
     gen = torch.Generator(device=dev).manual_seed(12)
-    out = {d: {"ms": [], "plain": [], "bound": []}
+    out = {d: {"ms": [], "plain": [], "bound": [], "old": []}
            for d in ("gather", "pregather")}
     kw = dict(alpha0=1.0, l2=0.1)
     for side, g in (("user", padded.g1), ("bucket", padded.g2)):
@@ -1507,25 +1682,38 @@ def time_rowpatch_kernels(dev, padded, n_src) -> dict:
         es = [x["e"].clone() for _ in range(2)]
         psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
         rest = (x["alpha"], None, x["w"], x["r1"], x["p"])
+        w_old = torch.empty((c, 8), device=dev)
+        long_rows = vmem.cd_sweep_form(d, 8, gather=False, rowpatch=True) == vmem.BLOCK_ROW
+        rows = 0 if long_rows else vmem.cd_sweep_gather_block_ctx(
+            d, 8, n_rows=c, rowpatch=True)
 
         def args(first, i):
             return (*first, rest[0], es[i % 2], *rest[2:])
+
+        def old(i):  # the form the gather routing took before, its binding
+            ck.launch(None, x["tab"], x["ids"], x["alpha"], es[i % 2], x["w"],
+                      x["r1"], x["p"], w_old, eta=1.0, rows_per_block=rows, **kw)
 
         for disp in ("gather", "pregather"):
             first = (x["tab"], x["ids"]) if disp == "gather" else (psi,)
             name = "cd_block_sweep_rowpatch" + ("_gather" if disp == "gather" else "")
             fn, plain = getattr(cs, name), getattr(cr, name + "_ref")
             r = out[disp]
-            r["ms"].append(device_ms(lambda i: fn(*args(first, i), **kw),
-                                     n=20 if side == "user" else 10))
+            n = 20 if side == "user" else 10
+            r["ms"].append(device_ms(lambda i: fn(*args(first, i), **kw), n=n))
             r["plain"].append(device_ms(lambda i: plain(*args(first, i), **kw),
                                         n=5))
             cost = cd_sweep_cost(c, d, 8, 8, n_src=n_src,
                                  gather=disp == "gather", rowpatch=True)
             r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
             own = bound(cost["form_bytes"], cost["flops"])
+            old_txt = ""
+            if disp == "gather":
+                r["old"].append(device_ms(old, n=n))
+                old_txt = (f", the {'block-row' if long_rows else 'warp-row'} "
+                           f"form it replaced {r['old'][-1]:.4f} ms")
             log(f"phase 12 {name} {side} side (C {c}, D_pad {d}, k_b 8, "
-                f"{cost['form']}): kernel {r['ms'][-1]:.4f} ms, plain "
+                f"{cost['form']}): kernel {r['ms'][-1]:.4f} ms{old_txt}, plain "
                 f"{r['plain'][-1]:.4f} ms, library —, bound "
                 f"{r['bound'][-1][0]:.4f} ms ({r['bound'][-1][1]}: "
                 f"{cost['hbm_bytes']:.0f} B, {cost['flops']:.0f} FLOP); the "
@@ -1619,7 +1807,11 @@ def hold_slab(cs, cr, x) -> dict:
     LONG_ROW_REL of the row's Σ|terms|; P symmetric bit for bit, and the
     same bits from a second call (the gather form at m ≤ 8 in its one-tile
     form); e patched in place to SWEEP_RTOL / SWEEP_ATOL (m terms a slot,
-    no long sum)."""
+    no long sum), the gather patch in its register-slot form (m ≤ 8)
+    equal bit for bit to the one-slot kernel it replaced."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck
+
     tab, ids, alpha, e, dphi = (x[n] for n in ("tab", "ids", "alpha", "e", "dphi"))
     psi = cr.gather_psi_blk(tab, ids).contiguous()
     c, d = alpha.shape
@@ -1628,7 +1820,6 @@ def hold_slab(cs, cr, x) -> dict:
     aps = alpha[:, None, :] * psi.abs()
     q_abs = (aps * e.abs()[:, None, :]).sum(-1)
     p_abs = torch.einsum("cid,cjd->cij", aps, psi.abs())
-    from repro_torch.kernels import vmem
 
     rel = LONG_ROW_REL if d >= SLAB_LONG_D else 0.0
     err = {}
@@ -1651,16 +1842,23 @@ def hold_slab(cs, cr, x) -> dict:
         err[name] = max(float((q - rq).abs().max()), float((p - rp).abs().max()))
         assert not bool(bad_q.any()) and not bool(bad_p.any()), (name, c, d, err[name])
     re = cr.cd_resid_patch_ref(psi, e, dphi)
+    reg = vmem.cd_resid_patch_form(d, tab.shape[1], gather=True) == vmem.PATCH_REG_SLOTS
     for name, first in (("cd_resid_patch_gather", (tab, ids)),
                         ("cd_resid_patch", (psi,))):
         fn = getattr(cs, name)
-        before = fn.launches
+        before = (fn.launches, getattr(fn, "launches_reg_slots", 0))
         e2 = e.clone()
         assert fn(*first, e2, dphi) is e2, "the residual grid must be patched in place"
         torch.cuda.synchronize()
-        assert fn.launches == before + 1, name
+        assert fn.launches == before[0] + 1, name
         torch.testing.assert_close(e2, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
         err[name] = float((e2 - re).abs().max())
+        if len(first) == 2:
+            assert fn.launches_reg_slots == before[1] + reg, name
+            e_old = e.clone()
+            ck.resid_patch(None, tab, ids, e_old, dphi)  # the one-slot kernel
+            torch.cuda.synchronize()
+            assert torch.equal(e2, e_old), f"{name}: forms differ"
     return err
 
 
@@ -1699,6 +1897,14 @@ def hold_slab_kernels(dev) -> dict:
     x["ids"][:, :5] = torch.tensor([-7, 29, 30, 1000, -1], dtype=torch.int32,
                                    device=dev)
     hold(x, "ids past the slab")
+    # the residual patch's register-slot form at every m ≤ 8 (m = 9 keeps
+    # the one-slot kernel), on slabs of ld 8 (16-byte loads at m = 4 and 8)
+    # and of ld m + 3 (scalar gathers), and at a D_pad off a multiple of 4
+    # (the one-slot kernel)
+    for m in range(1, 10):
+        for k, d in ((max(m, 8), 128), (m + 3, 128), (m, 37)):
+            hold(slab_inputs(gen, dev, 301, d, m, 500, pad_frac=0.3, k=k),
+                 f"m {m}, ld {k}, D_pad {d}")
     return worst
 
 
@@ -1741,10 +1947,12 @@ def train_mfsi_full_width(dev) -> dict:
             c.launches = 0
         cs.cd_slab_reduce.launches_one_tile = 0
         cs.cd_slab_reduce_gather.launches_one_tile = 0
+        cs.cd_resid_patch_gather.launches_reg_slots = 0
 
     def counts():
         out = {c.__name__: c.launches for c in counters}
         out["cd_slab_reduce_gather:one_tile"] = cs.cd_slab_reduce_gather.launches_one_tile
+        out["cd_resid_patch_gather:reg_slots"] = cs.cd_resid_patch_gather.launches_reg_slots
         return out
 
     objs = [float(mfsi.objective(params0, x, z, data, hp))]
@@ -1771,7 +1979,8 @@ def train_mfsi_full_width(dev) -> dict:
                         "cd_slab_reduce_gather": 3 * 2 * nb,
                         "cd_slab_reduce_gather:one_tile": 3 * 2 * nb,
                         "cd_resid_patch": 0,
-                        "cd_resid_patch_gather": 3 * 2 * nb}, launches
+                        "cd_resid_patch_gather": 3 * 2 * nb,
+                        "cd_resid_patch_gather:reg_slots": 3 * 2 * nb}, launches
 
     # one epoch from one start through the pregather route and the flat path
     pg, eg = first
@@ -1849,8 +2058,8 @@ def time_slab_kernels(dev, pdata) -> dict:
     m = 8
     names = ("cd_slab_reduce", "cd_slab_reduce_gather", "cd_resid_patch",
              "cd_resid_patch_gather")
-    out = {n: {"ms": [], "plain": [], "bound": [], "lib": [], "tiled": []}
-           for n in names}
+    out = {n: {"ms": [], "plain": [], "bound": [], "lib": [], "tiled": [],
+               "one_slot": []} for n in names}
     sides = (("context", pdata.item_ids, pdata.alpha_c, FULL["n_items"]),
              ("item", pdata.ctx_ids, pdata.alpha_i, FULL["n_ctx"]))
     for side, ids, alpha, n_src in sides:
@@ -1885,6 +2094,9 @@ def time_slab_kernels(dev, pdata) -> dict:
         def tiled(i):  # the tiled gather form the one-tile form replaced
             ck.slab_reduce(None, tab, ids, alpha, es[i % 2], q_t, p_t)
             return q_t, p_t
+
+        def one_slot(i):  # the gather patch the register-slot form replaced
+            ck.resid_patch(None, tab, ids, es[i % 2], dphi)
         for name in names:
             fn, plain, lib = calls[name]
             gather = name.endswith("gather")
@@ -1909,6 +2121,19 @@ def time_slab_kernels(dev, pdata) -> dict:
                         f"equal bit for bit: {same}); the tiled form it replaced "
                         f"{r['tiled'][-1]:.4f} ms")
                 del q_n, p_n
+            if name == "cd_resid_patch_gather":
+                e_new, e_old = e.clone(), e.clone()
+                cs.cd_resid_patch_gather(tab, ids, e_new, dphi)
+                ck.resid_patch(None, tab, ids, e_old, dphi)
+                torch.cuda.synchronize()
+                same = torch.equal(e_new, e_old)
+                assert same, "register-slot and one-slot patches differ"
+                r["one_slot"].append(device_ms(one_slot, n=20))
+                form = (f", form {cost['form']} ({vmem.CDG_PATCH_SLOTS} slots a "
+                        f"thread; equal bit for bit to the one-slot kernel: "
+                        f"{same}); the one-slot kernel it replaced "
+                        f"{r['one_slot'][-1]:.4f} ms")
+                del e_new, e_old
             log(f"phase 15 {name} {side} side (C {c}, D_pad {d}, m {m}, n_src "
                 f"{n_src}){form}: kernel {r['ms'][-1]:.4f} ms, plain "
                 f"{r['plain'][-1]:.4f} ms, library {lib_txt}, bound "
@@ -2524,7 +2749,8 @@ def main() -> None:
         f"{rp_errs['cd_block_sweep_rowpatch']:.3g}, gather "
         f"{rp_errs['cd_block_sweep_rowpatch_gather']:.3g} (rtol {SWEEP_RTOL}, "
         f"atol {SWEEP_ATOL}; long rows + {LONG_ROW_REL} x the row's sum of "
-        f"|a e psi| / den); edge cases pass; {time.perf_counter() - t0:.1f}s")
+        f"|a e psi| / den); edge cases pass, each form twice for the same "
+        f"bits; {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     ctx = train_ctxmf_full_width(dev)
     log(f"phase 10 done in {time.perf_counter() - t0:.1f}s")
@@ -2603,12 +2829,12 @@ def main() -> None:
            "src/repro/kernels/cd_sweep/kernel.py:207",
            ctx["pre_launches"]["cd_block_sweep_rowpatch"],
            rp_errs["cd_block_sweep_rowpatch"], rp_times["pregather"], None),
-       row("cd_block_sweep_rowpatch_gather", cd_src,
+       row("cd_block_sweep_rowpatch_gather", gather_src,
            "src/repro/kernels/cd_sweep/kernel.py:519",
            ctx["launches"]["cd_block_sweep_rowpatch_gather"],
            rp_errs["cd_block_sweep_rowpatch_gather"], rp_times["gather"],
            None)] + [
-        row(name, gather_src if name == "cd_slab_reduce_gather" else
+        row(name, gather_src if name.endswith("gather") else
             "src/repro_torch/kernels/cd_sweep/csrc/cd_slab.cu",
             f"src/repro/kernels/cd_sweep/kernel.py:{line}",
             (fm["launches"] if name.endswith("gather") else fm["pre_launches"])[name],

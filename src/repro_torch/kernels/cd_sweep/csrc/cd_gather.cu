@@ -1,53 +1,84 @@
-// The gather forms of the shared-J block sweep and of the slab reduce,
-// redesigned for Hopper (sm_90a): each slot's ψ gathered once a launch, the
-// row held in registers.
+// The gather forms of the block sweep, the slab reduce and the residual
+// patch, redesigned for Hopper (sm_90a): each slot's ψ gathered once a pass,
+// the row held in registers or split over the card.
 //
 // Replaces: repro/kernels/cd_sweep/kernel.py, cd_block_sweep_gather_pallas
-// (body _sweep_gather_kernel) with one shared J block, and
-// cd_slab_reduce_gather_pallas (body _slab_reduce_gather_kernel) at m ≤ 8.
-// The functions are those of csrc/cd_sweep.cu's cd_sweep_kernel<true, false>
-// and csrc/cd_slab.cu's cd_slab_reduce_kernel<true>, which keep the rows and
-// widths these forms do not take (kernels/vmem.py: cd_sweep_form,
-// cd_slab_reduce_form). ψ_j[r, d] = tab[ids[r, d], j] of the (n_src, ld_tab)
+// (body _sweep_gather_kernel), cd_block_sweep_rowpatch_gather_pallas (body
+// _sweep_rowpatch_gather_kernel), cd_slab_reduce_gather_pallas (body
+// _slab_reduce_gather_kernel) at m ≤ 8 and cd_resid_patch_gather_pallas
+// (body _resid_patch_gather_kernel) at m ≤ 8. The functions are those of
+// csrc/cd_sweep.cu's cd_sweep_kernel<true, ·> and cd_sweep_block_row_kernel
+// <true>, and csrc/cd_slab.cu's cd_slab_reduce_kernel<true> and
+// cd_resid_patch_kernel<true>, which keep the rows and widths these forms do
+// not take (kernels/vmem.py: cd_sweep_form, cd_slab_reduce_form,
+// cd_resid_patch_form). ψ_j[r, d] = tab[ids[r, d], j] of the (n_src, ld_tab)
 // ψ slab, the id clipped to [0, n_src) as jnp.take(mode="clip") does.
 //
 // What bounds them on an H100: the bytes. The sweep must read ids, α and e
-// and write e (16 B a slot), read W and R' and write W, and read the ψ slab
-// once; the slab reduce reads ids, α and e (12 B a slot) and the slab once
-// and writes Q and P. What held the forms they replace far above that bound
-// was latency and issue:
-//   * the sweep re-gathered ψ_j from a slot's 32-byte slab row on each of its
-//     k_b steps, a dependent 4-byte load inside a serial chain (shared id
-//     read, gather, FMAs, butterfly, division, e patch through shared
-//     memory), and staged 16 B a slot in shared memory, which held a
+// and write e (16 B a slot), read W, R' (and the row patch P) and write W,
+// and read the ψ slab once; the slab reduce reads ids, α and e (12 B a slot)
+// and the slab once and writes Q and P; the residual patch reads ids and e
+// and writes e (12 B a slot) and reads the slab and Δφ once. What held the
+// forms they replace far above that bound was latency, issue and idle SMs:
+//   * the warp-row sweep re-gathered ψ_j from a slot's 32-byte slab row on
+//     each of its k_b steps, a dependent 4-byte load inside a serial chain
+//     (shared id read, gather, FMAs, butterfly, division, e patch through
+//     shared memory), and staged 16 B a slot in shared memory, which held a
 //     1,024-slot row to 10 warps an SM;
+//   * the block-row sweep gave one 1,024-thread block to each long row (24
+//     hour-of-day rows of 142,464 slots: 24 of 132 SMs busy) and made two
+//     passes over the row on each of its k_b steps, re-gathering ψ_j from a
+//     slab (109 MB) that does not fit the 50 MB L2, 16 times a launch;
 //   * the slab reduce gathered a slot's columns as guarded scalar loads, kept
 //     a run-time tile loop's 8 × 8 accumulators and operands live across a
 //     branch (118–143 registers, one 256-thread block an SM), and reduced
-//     each of its 44 sums by a full butterfly (220 shuffles a row).
+//     each of its 44 sums by a full butterfly (220 shuffles a row);
+//   * the residual patch gave a thread one slot: m guarded scalar loads of
+//     the row's Δφ and m scalar gathers, one slot in flight a thread.
 //
-// Sweep, register-row form. A group of LANES threads owns one row, a thread
-// SLOTS fixed slots, d = (t mod W) + W·(⌊t/W⌋·SLOTS + s) for W = min(LANES,
-// 32), so every load is coalesced. Before the first step a thread loads its
-// slots' ids, α and e and starts their ψ gathers, so every gather of the
-// launch is in flight at once. Up to CDG_SWEEP_REG_SLOTS slots a thread it
-// gathers a slot's k_b ψ values once, with two 16-byte loads of the 32-byte
-// slab row where the slab allows (else scalar loads), and holds them in
-// registers; with more slots (long rows), where those registers would
-// spill, it keeps each slot's row pointer and reads ψ_j a step ahead, so
-// the row's sector comes from L2 once and from L1 after
-// (chip_smoke.py --sweep-tune measured both). The k_b steps then run on
-// registers: two group sums a step (xor levels over the row's lanes in a
+// Sweep, register-row form (rows of up to CDG_THREADS · 8 slots). A group of
+// LANES threads owns one row, a thread SLOTS fixed slots, d = (t mod W) +
+// W·(⌊t/W⌋·SLOTS + s) for W = min(LANES, 32), so every load is coalesced.
+// Before the first step a thread loads its slots' ids, α and e and starts
+// their ψ gathers, so every gather of the launch is in flight at once. Up to
+// CDG_SWEEP_REG_SLOTS slots a thread it gathers a slot's k_b ψ values once,
+// with two 16-byte loads of the 32-byte slab row where the slab allows (else
+// scalar loads), and holds them in registers; with more slots (long rows),
+// where those registers would spill, it keeps each slot's row pointer and
+// reads ψ_j a step ahead, so the row's sector comes from L2 once and from L1
+// after (chip_smoke.py --sweep-tune measured both). The k_b steps then run
+// on registers: two group sums a step (xor levels over the row's lanes in a
 // warp, shared by the two sums; for a row of several warps, the per-warp
 // partials summed in warp order by every thread, through a double-buffered
 // shared array, one barrier a step), Δ, the e patch, W, and R'_j, built on
-// step j from the earlier steps' Δ (R' is no output, so only its j-th
-// entry is needed then), all kept by every thread of the group (its sums
-// are the same bits in every thread). A k_b of 8 is a compile-time
-// constant. e and W are written once, at the end. Shared memory holds only
-// the J block and the partial sums. At LANES = 32 a thread sums its slots
-// in the order of the warp-row form, which it therefore matches bit for
-// bit.
+// step j from the earlier steps' Δ and the coupling block (R' is no output,
+// so only its j-th entry is needed then), all kept by every thread of the
+// group (its sums are the same bits in every thread). The coupling block is
+// the shared J, staged once a block, or (ROWPATCH) each row's own patch P,
+// staged once a group (k_b² floats a row of shared memory). A k_b of 8 is a
+// compile-time constant. e and W are written once, at the end. At LANES = 32
+// a thread sums its slots in the order of the warp-row form, which it
+// therefore matches bit for bit, in both couplings.
+//
+// Sweep, split-row form (rows too long for one block). For one row, with e
+// as it stands before the launch, let Q_j = Σ_d α·e·ψ_j and G_ij = Σ_d
+// α·ψ_i·ψ_j. The k_b Gauss–Seidel steps are then exactly
+//   L'_j/2  = Q_j + Σ_{i<j} Δ_i·G_ij        L''_j/2 = G_jj
+//   R'_j    = R'_j + Σ_{i<j} Δ_i·P(i, j)
+//   Δ_j     = −η·(L'_j/2 + α₀R'_j + λw_j) / max(L''_j/2 + α₀P(j, j) + λ, 1e-12)
+// and then, once, e += Σ_j Δ_j·ψ_j. Three launches on the caller's stream:
+// pass 1 cuts each row into chunks of `chunk` slots, one block a (chunk,
+// row), so a few long rows fill every SM; a thread gathers each slot's k_b ψ
+// values once and adds the 44 sums (Q and G's upper triangle) in registers,
+// as the one-tile slab reduce does, then the block reduces them in a fixed
+// order (a transpose-reduce in each warp, the warps' partials summed in warp
+// order) into a (C, n_chunks, 44) scratch; the solve sums a row's chunk
+// partials in chunk order and runs the k_b-step recurrence above on one
+// thread a row (P read with its strides; cs0 = 0 is one J for every row),
+// writing W and Δ; pass 2 is the residual patch below with Δφ = Δ. Each pass
+// moves 12 B and one slab row a slot: two passes in all, not 2·k_b. The sums
+// are taken in another order than the block-row form's, so the bits differ
+// from it; every run gives the same bits.
 //
 // Slab reduce, one-tile form (m ≤ 8). A group of LANES ≤ 32 threads owns
 // one row and streams its slots (d ≡ t mod LANES), CDG_SLAB_INFLIGHT at a
@@ -62,6 +93,13 @@
 // tree over the lanes — at 32 lanes the butterfly's, so the form matches the
 // tiled one bit for bit — and every run gives the same bits. P is written
 // symmetric from the one sum of each pair.
+//
+// Residual patch, register-slot form (m ≤ 8). A thread takes CDG_PATCH_SLOTS
+// consecutive slots of one row (16-byte loads of ids and e where D_pad is a
+// multiple of 4 and both grids start 16-byte aligned, else scalar loads),
+// holds the row's Δφ in registers, issues every slot's ψ gather (two
+// 16-byte loads where the slab allows) before its first FMA, and sums e +
+// Σ_j Δφ_j·ψ_j in ascending j, as cd_resid_patch_kernel does: the same bits.
 //
 // Interface: plain C functions bound with ctypes. They launch on the
 // caller's stream, allocate nothing and return cudaGetLastError().
@@ -84,10 +122,14 @@
 #ifndef CDG_SLAB_INFLIGHT
 #define CDG_SLAB_INFLIGHT 2       // slots a thread gathers at once
 #endif
+#ifndef CDG_PATCH_SLOTS
+#define CDG_PATCH_SLOTS 4         // residual patch: slots a thread, a multiple of 4
+#endif
 
 #define CDG_KB 8                                      // columns in registers
 #define CDG_NSUM (CDG_KB + CDG_KB * (CDG_KB + 1) / 2)  // Q and P's triangle: 44
 #define FULL_MASK 0xffffffffu
+static_assert(CDG_PATCH_SLOTS % 4 == 0, "the patch loads slots four at a time");
 
 // Slab row ``id``'s first kb ≤ CDG_KB columns into x, zeros beyond. vec:
 // every slab row starts 16-byte aligned and kb is 4 or 8.
@@ -127,8 +169,9 @@ __device__ __forceinline__ void row_sums(float& lp, float& lpp, int lane) {
 }
 
 // KB: k_b fixed at compile time (8, the fused epochs' block), or 0 for any
-// k_b ≤ CDG_KB given at run time.
-template <int LANES, int SLOTS, int KB>
+// k_b ≤ CDG_KB given at run time. ROWPATCH: each row's own coupling block P
+// (element (r, i, f) at r·cs0 + i·cs1 + f·cs2), else one J (cs0 = 0).
+template <int LANES, int SLOTS, int KB, bool ROWPATCH>
 __global__ void __launch_bounds__(CDG_THREADS, CDG_SWEEP_MIN_BLOCKS)
 cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
                            const int* __restrict__ ids,      // (C, D)
@@ -136,7 +179,8 @@ cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int 
                            float* __restrict__ e,            // (C, D), in place
                            const float* __restrict__ w_in, long long ld_w,
                            const float* __restrict__ r1_in, long long ld_r1,
-                           const float* __restrict__ jb, long long js0, long long js1,
+                           const float* __restrict__ cpl, long long cs0, long long cs1,
+                           long long cs2,
                            float* __restrict__ w_out,        // (C, kb)
                            int C, int D, int kb_run, float alpha0, float l2, float eta) {
     const int kb = KB ? KB : kb_run;
@@ -144,14 +188,19 @@ cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int 
     constexpr int W = LANES < 32 ? LANES : 32;  // a row's lanes in one warp
     constexpr int WARPS_ROW = LANES / W;
     constexpr int ROWS = CDG_THREADS / LANES;
+    constexpr int NCPL = ROWPATCH ? ROWS : 1;   // coupling blocks a block stages
     static_assert(CDG_THREADS % LANES == 0 && LANES % W == 0, "whole rows a block");
-    __shared__ float J[CDG_KB * CDG_KB];
+    __shared__ float J[NCPL][CDG_KB * CDG_KB];
     __shared__ float red[2][2][CDG_THREADS / 32];  // [step parity][L', L''][warp]
 
     const int tid = threadIdx.x;
-    for (int i = tid; i < kb * kb; i += CDG_THREADS)
-        J[(i / kb) * CDG_KB + i % kb] = jb[(long long)(i / kb) * js0 + (long long)(i % kb) * js1];
+    for (int i = tid; i < NCPL * kb * kb; i += CDG_THREADS) {
+        const int r = i / (kb * kb), a = i % (kb * kb) / kb, f = i % kb;
+        const long long src = min((long long)blockIdx.x * ROWS + r, (long long)C - 1);
+        J[r][a * CDG_KB + f] = cpl[src * cs0 + (long long)a * cs1 + (long long)f * cs2];
+    }
     __syncthreads();
+    const float* Jr = J[ROWPATCH ? tid / LANES : 0];  // this row's coupling block
 
     const int t = tid % LANES;
     const long long row = (long long)blockIdx.x * ROWS + tid / LANES;
@@ -161,7 +210,8 @@ cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int 
     const int d0 = t % W + W * (t / W) * SLOTS;
 
     // R' is needed only at R'_j on step j: R'_j + Σ_{i<j} Δ_i·J(i, j), summed
-    // in the order of the warp-row form's patch R' += Δ_i·J(i, ·)
+    // in the order of the warp-row form's patch R' += Δ_i·J(i, ·) (J: this
+    // row's coupling block)
     float r1[CDG_KB], wv[CDG_KB], dl[CDG_KB];
 #pragma unroll
     for (int f = 0; f < CDG_KB; ++f) {
@@ -224,9 +274,9 @@ cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int 
         }
         float r1j = r1[j];
 #pragma unroll
-        for (int i = 0; i < j; ++i) r1j += dl[i] * J[i * CDG_KB + j];
+        for (int i = 0; i < j; ++i) r1j += dl[i] * Jr[i * CDG_KB + j];
         const float num = lp + alpha0 * r1j + l2 * wv[j];
-        const float den = lpp + alpha0 * J[j * CDG_KB + j] + l2;
+        const float den = lpp + alpha0 * Jr[j * CDG_KB + j] + l2;
         const float delta = -eta * num / fmaxf(den, 1e-12f);
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s) ev[s] += delta * pj[s];
@@ -296,38 +346,29 @@ __device__ __forceinline__ int reduced_index(int k, int lane) {
     }
 }
 
-template <int LANES>
-__global__ void __launch_bounds__(CDG_THREADS, CDG_SLAB_MIN_BLOCKS)
-cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
-                                 int vec, const int* __restrict__ ids,  // (C, D)
-                                 const float* __restrict__ alpha,       // (C, D)
-                                 const float* __restrict__ e,           // (C, D)
-                                 float* __restrict__ q_out,             // (C, m)
-                                 float* __restrict__ p_out,             // (C, m, m)
-                                 int C, int D, int m) {
-    constexpr int ROWS = CDG_THREADS / LANES;
+// Adds to acc the 44 moments (Q_a, and P(a, b) for a ≤ b) of the slots
+// d = d_first, d_first + STEP, … < d_end of the row at offset g, m ≤ CDG_KB
+// columns (zeros beyond), CDG_SLAB_INFLIGHT slots gathered at a time.
+template <int STEP>
+__device__ __forceinline__ void add_moments(float (&acc)[CDG_NSUM], const float* __restrict__ tab,
+                                            long long ld_tab, int n_src, int vec,
+                                            const int* __restrict__ ids,
+                                            const float* __restrict__ alpha,
+                                            const float* __restrict__ e, size_t g, int d_first,
+                                            int d_end, int m) {
     constexpr int U = CDG_SLAB_INFLIGHT;
-    static_assert(LANES <= 32 && 32 % LANES == 0, "a row's lanes share a warp");
-    const int lane = threadIdx.x & 31, t = threadIdx.x % LANES;
-    const long long row = (long long)blockIdx.x * ROWS + threadIdx.x / LANES;
-    const bool live = row < C;
-    const size_t g = (size_t)(live ? row : C - 1) * D;
-
-    float acc[CDG_NSUM];
-#pragma unroll
-    for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
     // the next chunk's ids, α and e load while this chunk's ψ rows are
     // gathered: one round trip a chunk, not two
     int idn[U];
     float aln[U], en[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-        const int d = t + u * LANES;
-        idn[u] = d < D ? ids[g + d] : 0;
-        aln[u] = d < D ? alpha[g + d] : 0.f;
-        en[u] = d < D ? e[g + d] : 0.f;
+        const int d = d_first + u * STEP;
+        idn[u] = d < d_end ? ids[g + d] : 0;
+        aln[u] = d < d_end ? alpha[g + d] : 0.f;
+        en[u] = d < d_end ? e[g + d] : 0.f;
     }
-    for (int d0 = t; d0 < D; d0 += U * LANES) {
+    for (int d0 = d_first; d0 < d_end; d0 += U * STEP) {
         float al[U], ae[U], x[U][CDG_KB];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -337,10 +378,10 @@ cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-            const int d = d0 + (U + u) * LANES;
-            idn[u] = d < D ? ids[g + d] : 0;
-            aln[u] = d < D ? alpha[g + d] : 0.f;
-            en[u] = d < D ? e[g + d] : 0.f;
+            const int d = d0 + (U + u) * STEP;
+            idn[u] = d < d_end ? ids[g + d] : 0;
+            aln[u] = d < d_end ? alpha[g + d] : 0.f;
+            en[u] = d < d_end ? e[g + d] : 0.f;
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -353,6 +394,28 @@ cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab
             }
         }
     }
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(CDG_THREADS, CDG_SLAB_MIN_BLOCKS)
+cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
+                                 int vec, const int* __restrict__ ids,  // (C, D)
+                                 const float* __restrict__ alpha,       // (C, D)
+                                 const float* __restrict__ e,           // (C, D)
+                                 float* __restrict__ q_out,             // (C, m)
+                                 float* __restrict__ p_out,             // (C, m, m)
+                                 int C, int D, int m) {
+    constexpr int ROWS = CDG_THREADS / LANES;
+    static_assert(LANES <= 32 && 32 % LANES == 0, "a row's lanes share a warp");
+    const int lane = threadIdx.x & 31, t = threadIdx.x % LANES;
+    const long long row = (long long)blockIdx.x * ROWS + threadIdx.x / LANES;
+    const bool live = row < C;
+    const size_t g = (size_t)(live ? row : C - 1) * D;
+
+    float acc[CDG_NSUM];
+#pragma unroll
+    for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
+    add_moments<LANES>(acc, tab, ld_tab, n_src, vec, ids, alpha, e, g, t, D, m);
 
     transpose_reduce<CDG_NSUM, LANES / 2>(acc, lane);
     if (!live) return;
@@ -378,45 +441,212 @@ cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab
     }
 }
 
+// Split-row sweep, pass 1: block (chunk, row) adds the 44 moments of the
+// chunk's slots, reduces them in a fixed order and writes them to
+// part[row][chunk] (44 floats).
+__global__ void __launch_bounds__(CDG_THREADS, CDG_SLAB_MIN_BLOCKS)
+cd_split_reduce_kernel(const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
+                       const int* __restrict__ ids,      // (C, D)
+                       const float* __restrict__ alpha,  // (C, D)
+                       const float* __restrict__ e,      // (C, D)
+                       float* __restrict__ part,         // (C, n_chunks, CDG_NSUM)
+                       int D, int kb, int chunk) {
+    constexpr int WARPS = CDG_THREADS / 32;
+    __shared__ float red[WARPS][CDG_NSUM];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long row = blockIdx.y;
+    const int c0 = blockIdx.x * chunk;
+    float acc[CDG_NSUM];
+#pragma unroll
+    for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
+    add_moments<CDG_THREADS>(acc, tab, ld_tab, n_src, vec, ids, alpha, e, (size_t)row * D,
+                             c0 + threadIdx.x, min(D, c0 + chunk), kb);
+    transpose_reduce<CDG_NSUM, 16>(acc, lane);
+#pragma unroll
+    for (int k = 0; k < Reduced<CDG_NSUM, 16>::n; ++k) {
+        const int idx = reduced_index<CDG_NSUM, 16>(k, lane);
+        if (idx >= 0) red[warp][idx] = acc[k];
+    }
+    __syncthreads();
+    if (threadIdx.x < CDG_NSUM) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) s += red[w][threadIdx.x];  // warp order
+        part[((size_t)row * gridDim.x + blockIdx.x) * CDG_NSUM + threadIdx.x] = s;
+    }
+}
+
+// Split-row sweep, the solve: one warp a row sums the chunk partials in
+// chunk order, then one thread runs the k_b Gauss–Seidel steps on the sums
+// (Q_j + Σ_{i<j} Δ_i·G_ij for L'/2, G_jj for L''/2, R'_j built on step j as
+// the register-row form builds it) and writes W and Δ.
+__global__ void __launch_bounds__(32)
+cd_split_solve_kernel(const float* __restrict__ part, int n_chunks,
+                      const float* __restrict__ w_in, long long ld_w,
+                      const float* __restrict__ r1_in, long long ld_r1,
+                      const float* __restrict__ cpl, long long cs0, long long cs1, long long cs2,
+                      float* __restrict__ w_out,      // (C, kb)
+                      float* __restrict__ delta_out,  // (C, kb)
+                      int kb, float alpha0, float l2, float eta) {
+    __shared__ float S[CDG_NSUM];
+    const long long row = blockIdx.x;
+    const float* pr = part + (size_t)row * n_chunks * CDG_NSUM;
+    for (int i = threadIdx.x; i < CDG_NSUM; i += 32) {
+        float s = 0.f;
+        for (int c = 0; c < n_chunks; ++c) s += pr[(size_t)c * CDG_NSUM + i];
+        S[i] = s;
+    }
+    __syncwarp();
+    if (threadIdx.x != 0) return;
+    const float* P = cpl + row * cs0;
+    float dl[CDG_KB];
+    for (int j = 0; j < kb; ++j) {
+        float lp = S[q_at(j)];
+        float r1j = r1_in[row * ld_r1 + j];
+        for (int i = 0; i < j; ++i) {
+            lp += dl[i] * S[p_at(i, j)];
+            r1j += dl[i] * P[i * cs1 + j * cs2];
+        }
+        const float wj = w_in[row * ld_w + j];
+        const float num = lp + alpha0 * r1j + l2 * wj;
+        const float den = S[p_at(j, j)] + alpha0 * P[j * cs1 + j * cs2] + l2;
+        const float delta = -eta * num / fmaxf(den, 1e-12f);
+        dl[j] = delta;
+        w_out[row * kb + j] = wj + delta;
+        delta_out[row * kb + j] = delta;
+    }
+}
+
+// Residual patch, register-slot form: thread t takes slots d0 … d0 +
+// CDG_PATCH_SLOTS − 1 of one row. VEC: D a multiple of 4 and ids, e 16-byte
+// aligned, so a slot quad is one int4 and one float4 (whole or past D).
+template <bool VEC>
+__global__ void __launch_bounds__(CDG_THREADS)
+cd_resid_patch_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
+                                 int vec, const int* __restrict__ ids,  // (C, D)
+                                 float* __restrict__ e,                  // (C, D), in place
+                                 const float* __restrict__ dphi, long long ld_dphi,  // (C, m)
+                                 long long n_threads, int per_row, int D, int m) {
+    constexpr int S = CDG_PATCH_SLOTS;
+    const long long t = (long long)blockIdx.x * CDG_THREADS + threadIdx.x;
+    if (t >= n_threads) return;
+    const long long row = t / per_row;
+    const int d0 = (int)(t - row * per_row) * S;
+    const size_t g = (size_t)row * D + d0;
+    float dp[CDG_KB];
+#pragma unroll
+    for (int j = 0; j < CDG_KB; ++j) dp[j] = j < m ? dphi[row * ld_dphi + j] : 0.f;
+    int id[S];
+    float ev[S];
+#pragma unroll
+    for (int q = 0; q < S / 4; ++q) {
+        if (VEC) {
+            const bool in = d0 + 4 * q < D;
+            const int4 iv = in ? __ldg(reinterpret_cast<const int4*>(ids + g) + q)
+                               : make_int4(0, 0, 0, 0);
+            const float4 fv = in ? reinterpret_cast<const float4*>(e + g)[q]
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+            id[4 * q] = iv.x; id[4 * q + 1] = iv.y; id[4 * q + 2] = iv.z; id[4 * q + 3] = iv.w;
+            ev[4 * q] = fv.x; ev[4 * q + 1] = fv.y; ev[4 * q + 2] = fv.z; ev[4 * q + 3] = fv.w;
+        } else {
+#pragma unroll
+            for (int s = 4 * q; s < 4 * q + 4; ++s) {
+                const bool in = d0 + s < D;
+                id[s] = in ? ids[g + s] : 0;
+                ev[s] = in ? e[g + s] : 0.f;
+            }
+        }
+    }
+    float x[S][CDG_KB];
+#pragma unroll
+    for (int s = 0; s < S; ++s) gather_cols(x[s], tab, ld_tab, clip_id(id[s], n_src), m, vec);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+        float v = ev[s];
+#pragma unroll
+        for (int j = 0; j < CDG_KB; ++j)
+            if (j < m) v += dp[j] * x[s][j];
+        ev[s] = v;
+    }
+#pragma unroll
+    for (int q = 0; q < S / 4; ++q) {
+        if (VEC) {
+            if (d0 + 4 * q < D)
+                reinterpret_cast<float4*>(e + g)[q] =
+                    make_float4(ev[4 * q], ev[4 * q + 1], ev[4 * q + 2], ev[4 * q + 3]);
+        } else {
+#pragma unroll
+            for (int s = 4 * q; s < 4 * q + 4; ++s)
+                if (d0 + s < D) e[g + s] = ev[s];
+        }
+    }
+}
+
 static bool vec_loads(const float* tab, long long ld_tab, int cols) {
     return ((uintptr_t)tab & 15) == 0 && ld_tab % 4 == 0 && (cols == 4 || cols == 8);
 }
 
+static cudaError_t launch_patch(const float* tab, long long ld_tab, int n_src, const int* ids,
+                                float* e, const float* dphi, long long ld_dphi, int C, int D,
+                                int m, cudaStream_t st) {
+    const int vec = vec_loads(tab, ld_tab, m);
+    const bool quads = D % 4 == 0 && ((uintptr_t)ids & 15) == 0 && ((uintptr_t)e & 15) == 0;
+    const int per_row = (D + CDG_PATCH_SLOTS - 1) / CDG_PATCH_SLOTS;
+    const long long n_threads = (long long)C * per_row;
+    const long long blocks = (n_threads + CDG_THREADS - 1) / CDG_THREADS;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    if (quads)
+        cd_resid_patch_gather_reg_kernel<true><<<(unsigned)blocks, CDG_THREADS, 0, st>>>(
+            tab, ld_tab, n_src, vec, ids, e, dphi, ld_dphi, n_threads, per_row, D, m);
+    else
+        cd_resid_patch_gather_reg_kernel<false><<<(unsigned)blocks, CDG_THREADS, 0, st>>>(
+            tab, ld_tab, n_src, vec, ids, e, dphi, ld_dphi, n_threads, per_row, D, m);
+    return cudaGetLastError();
+}
+
 template <int LANES, int SLOTS, typename... Args>
-static cudaError_t launch_sweep(int C, int kb, cudaStream_t st, Args... args) {
+static cudaError_t launch_sweep(int C, int kb, bool rowpatch, cudaStream_t st, Args... args) {
     constexpr int rows = CDG_THREADS / LANES;
     const int blocks = (C + rows - 1) / rows;
-    if (kb == CDG_KB)
-        cd_sweep_gather_reg_kernel<LANES, SLOTS, CDG_KB><<<blocks, CDG_THREADS, 0, st>>>(args...);
+    if (kb == CDG_KB && rowpatch)
+        cd_sweep_gather_reg_kernel<LANES, SLOTS, CDG_KB, true><<<blocks, CDG_THREADS, 0, st>>>(
+            args...);
+    else if (kb == CDG_KB)
+        cd_sweep_gather_reg_kernel<LANES, SLOTS, CDG_KB, false><<<blocks, CDG_THREADS, 0, st>>>(
+            args...);
+    else if (rowpatch)
+        cd_sweep_gather_reg_kernel<LANES, SLOTS, 0, true><<<blocks, CDG_THREADS, 0, st>>>(args...);
     else
-        cd_sweep_gather_reg_kernel<LANES, SLOTS, 0><<<blocks, CDG_THREADS, 0, st>>>(args...);
+        cd_sweep_gather_reg_kernel<LANES, SLOTS, 0, false><<<blocks, CDG_THREADS, 0, st>>>(args...);
     return cudaGetLastError();
 }
 
 // tab: the ψ slab, row stride ld_tab, columns contiguous; ids, alpha, e:
-// (C, D) contiguous; w_in, r1_in: (C, kb) with row strides; jb: the shared
-// (kb, kb) J block, element (i, f) at i·js0 + f·js1; w_out: (C, kb)
-// contiguous. lanes (8 … CDG_THREADS, a power of two) threads own a row,
-// slots (4, 8 or 16) slots each; lanes · slots ≥ D.
+// (C, D) contiguous; w_in, r1_in: (C, kb) with row strides; cpl: the
+// coupling block, element (r, i, f) at r·cs0 + i·cs1 + f·cs2 — cs0 = 0 for
+// one (kb, kb) block J shared by every row, else the per-row patch P;
+// w_out: (C, kb) contiguous. lanes (8 … CDG_THREADS, a power of two)
+// threads own a row, slots (4, 8 or 16) slots each; lanes · slots ≥ D.
 extern "C" int cd_sweep_gather_reg_f32(const float* tab, long long ld_tab, int n_src,
                                        const int* ids, const float* alpha, float* e,
                                        const float* w_in, long long ld_w, const float* r1_in,
-                                       long long ld_r1, const float* jb, long long js0,
-                                       long long js1, float* w_out, int C, int D, int kb,
-                                       float alpha0, float l2, float eta, int lanes, int slots,
-                                       void* stream) {
+                                       long long ld_r1, const float* cpl, long long cs0,
+                                       long long cs1, long long cs2, float* w_out, int C, int D,
+                                       int kb, float alpha0, float l2, float eta, int lanes,
+                                       int slots, void* stream) {
     if (C < 0 || D < 1 || kb < 1 || kb > CDG_KB || n_src < 1 || ld_tab < kb || tab == nullptr ||
         ids == nullptr || alpha == nullptr || e == nullptr || w_in == nullptr ||
-        r1_in == nullptr || jb == nullptr || w_out == nullptr || (long long)lanes * slots < D)
+        r1_in == nullptr || cpl == nullptr || w_out == nullptr || (long long)lanes * slots < D)
         return (int)cudaErrorInvalidValue;
     if (C == 0) return (int)cudaSuccess;
     const int vec = vec_loads(tab, ld_tab, kb);
+    const bool rowpatch = cs0 != 0;
     cudaStream_t st = (cudaStream_t)stream;
 #define CDG_SWEEP_CASE(L, S)                                                                  \
     if (lanes == L && slots == S)                                                             \
-        return (int)launch_sweep<L, S>(C, kb, st, tab, ld_tab, n_src, vec, ids, alpha, e, w_in, \
-                                       ld_w, r1_in, ld_r1, jb, js0, js1, w_out, C, D, kb,     \
-                                       alpha0, l2, eta);
+        return (int)launch_sweep<L, S>(C, kb, rowpatch, st, tab, ld_tab, n_src, vec, ids,     \
+                                       alpha, e, w_in, ld_w, r1_in, ld_r1, cpl, cs0, cs1,     \
+                                       cs2, w_out, C, D, kb, alpha0, l2, eta);
 #define CDG_SWEEP_LANES(S)                                                                    \
     CDG_SWEEP_CASE(8, S) CDG_SWEEP_CASE(16, S) CDG_SWEEP_CASE(32, S) CDG_SWEEP_CASE(64, S)   \
     CDG_SWEEP_CASE(128, S) CDG_SWEEP_CASE(256, S)
@@ -453,6 +683,48 @@ extern "C" int cd_slab_reduce_gather_reg_f32(const float* tab, long long ld_tab,
     CDG_SLAB_CASE(32)
 #undef CDG_SLAB_CASE
     return (int)cudaErrorInvalidValue;
+}
+
+// The split-row sweep: the arguments of cd_sweep_gather_reg_f32, and part
+// (C, ⌈D/chunk⌉, CDG_NSUM) and delta (C, kb), contiguous scratch the caller
+// allocates; chunk ≥ 1 slots a pass-1 block. C ≤ 65,535 rows.
+extern "C" int cd_sweep_split_row_f32(const float* tab, long long ld_tab, int n_src,
+                                      const int* ids, const float* alpha, float* e,
+                                      const float* w_in, long long ld_w, const float* r1_in,
+                                      long long ld_r1, const float* cpl, long long cs0,
+                                      long long cs1, long long cs2, float* w_out, float* part,
+                                      float* delta, int C, int D, int kb, float alpha0,
+                                      float l2, float eta, int chunk, void* stream) {
+    if (C < 0 || C > 65535 || D < 1 || kb < 1 || kb > CDG_KB || n_src < 1 || ld_tab < kb ||
+        chunk < 1 || tab == nullptr || ids == nullptr || alpha == nullptr || e == nullptr ||
+        w_in == nullptr || r1_in == nullptr || cpl == nullptr || w_out == nullptr ||
+        part == nullptr || delta == nullptr)
+        return (int)cudaErrorInvalidValue;
+    if (C == 0) return (int)cudaSuccess;
+    const int n_chunks = (D + chunk - 1) / chunk;
+    cudaStream_t st = (cudaStream_t)stream;
+    cd_split_reduce_kernel<<<dim3(n_chunks, C), CDG_THREADS, 0, st>>>(
+        tab, ld_tab, n_src, vec_loads(tab, ld_tab, kb), ids, alpha, e, part, D, kb, chunk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    cd_split_solve_kernel<<<C, 32, 0, st>>>(part, n_chunks, w_in, ld_w, r1_in, ld_r1, cpl, cs0,
+                                            cs1, cs2, w_out, delta, kb, alpha0, l2, eta);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_patch(tab, ld_tab, n_src, ids, e, delta, kb, C, D, kb, st);
+}
+
+// As csrc/cd_slab.cu's cd_resid_patch_f32 in the gather form, for m ≤ 8.
+extern "C" int cd_resid_patch_gather_reg_f32(const float* tab, long long ld_tab, int n_src,
+                                             const int* ids, float* e, const float* dphi,
+                                             long long ld_dphi, int C, int D, int m,
+                                             void* stream) {
+    if (C < 0 || D < 1 || m < 1 || m > CDG_KB || n_src < 1 || ld_tab < m || ld_dphi < 0 ||
+        tab == nullptr || ids == nullptr || e == nullptr || dphi == nullptr)
+        return (int)cudaErrorInvalidValue;
+    if (C == 0) return (int)cudaSuccess;
+    return (int)launch_patch(tab, ld_tab, n_src, ids, e, dphi, ld_dphi, C, D, m,
+                             (cudaStream_t)stream);
 }
 
 extern "C" const char* cd_gather_error_string(int code) {

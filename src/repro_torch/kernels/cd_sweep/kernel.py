@@ -9,10 +9,11 @@ source (so ``build_all`` compiles them at once):
     both launch forms (warp-row, block-row; ``kernels/vmem.cd_sweep_form``).
   * ``csrc/cd_slab.cu`` (:data:`SLAB_LIB`) — the feature models' slab
     reduce and rank-m residual patch, each in both ψ routings.
-  * ``csrc/cd_gather.cu`` (:data:`GATHER_LIB`) — the gather forms that
-    hold a row in registers: the shared-J sweep's register-row form and
-    the slab reduce's one-tile form (m ≤ 8); their sizes come from
-    ``kernels/vmem`` as ``-D`` flags."""
+  * ``csrc/cd_gather.cu`` (:data:`GATHER_LIB`) — the redesigned gather
+    forms: the sweep's register-row form (shared J or per-row patch) and
+    split-row form (long rows, three launches), the slab reduce's one-tile
+    form and the residual patch's register-slot form (m ≤ 8); their sizes
+    come from ``kernels/vmem`` as ``-D`` flags."""
 from __future__ import annotations
 
 import ctypes
@@ -55,11 +56,19 @@ SLAB_LIB = CudaLibrary(
 def _bind_gather(lib) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.cd_sweep_gather_reg_f32.argtypes = [p, ll, i, p, p, p, p, ll, p, ll, p,
-                                            ll, ll, p, i, i, i, f, f, f, i, i, p]
+                                            ll, ll, ll, p, i, i, i, f, f, f, i,
+                                            i, p]
     lib.cd_sweep_gather_reg_f32.restype = i
+    lib.cd_sweep_split_row_f32.argtypes = [p, ll, i, p, p, p, p, ll, p, ll, p,
+                                           ll, ll, ll, p, p, p, i, i, i, f, f,
+                                           f, i, p]
+    lib.cd_sweep_split_row_f32.restype = i
     lib.cd_slab_reduce_gather_reg_f32.argtypes = [p, ll, i, p, p, p, p, p, i,
                                                   i, i, i, p]
     lib.cd_slab_reduce_gather_reg_f32.restype = i
+    lib.cd_resid_patch_gather_reg_f32.argtypes = [p, ll, i, p, p, p, ll, i, i,
+                                                  i, p]
+    lib.cd_resid_patch_gather_reg_f32.restype = i
 
 
 GATHER_DEFINES = {
@@ -68,6 +77,7 @@ GATHER_DEFINES = {
     "CDG_SWEEP_REG_SLOTS": vmem.CDG_SWEEP_REG_SLOTS,
     "CDG_SLAB_MIN_BLOCKS": vmem.CDG_SLAB_MIN_BLOCKS,
     "CDG_SLAB_INFLIGHT": vmem.CDG_SLAB_INFLIGHT,
+    "CDG_PATCH_SLOTS": vmem.CDG_PATCH_SLOTS,
 }
 
 GATHER_LIB = CudaLibrary(
@@ -90,6 +100,12 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _cpl_strides(cpl):
+    """(row, i, f) strides of a coupling block: a 2-D J is one block for
+    every row (row stride 0)."""
+    return (0, *cpl.stride()) if cpl.dim() == 2 else cpl.stride()
+
+
 def launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, *,
            alpha0: float, l2: float, eta: float, rows_per_block: int) -> None:
     """Enqueue one sweep on the current stream; ``e`` is updated in place
@@ -103,7 +119,7 @@ def launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, *,
     c, d = alpha.shape
     kb = w_out.shape[1]
 
-    s0, s1, s2 = (0, *cpl.stride()) if cpl.dim() == 2 else cpl.stride()
+    s0, s1, s2 = _cpl_strides(cpl)
     gather = psi_tab is not None
     with torch.cuda.device(alpha.device):
         rc = lib.cd_sweep_f32(
@@ -116,14 +132,15 @@ def launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, *,
     LIB.check(rc, "cd_sweep")
 
 
-def launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, w_out, *,
+def launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, *,
                alpha0: float, l2: float, eta: float, lanes: int, slots: int,
                lib=None) -> None:
-    """Enqueue one shared-J gather sweep in the register-row form:
-    ``lanes`` threads a row, ``slots`` slots a thread
-    (``vmem.cd_sweep_reg_group``); ``e`` in place, W into ``w_out``.
-    ``lib`` is :data:`GATHER_LIB` or a variant build of its source. The
-    caller has checked shapes, dtypes, device and strides (``ops``)."""
+    """Enqueue one gather sweep in the register-row form: ``lanes``
+    threads a row, ``slots`` slots a thread (``vmem.cd_sweep_reg_group``);
+    ``e`` in place, W into ``w_out``. ``cpl`` is the shared (k_b, k_b) J
+    or the (C, k_b, k_b) per-row patch, read with its strides. ``lib`` is
+    :data:`GATHER_LIB` or a variant build of its source. The caller has
+    checked shapes, dtypes, device and strides (``ops``)."""
     lib = lib or GATHER_LIB
     fn = lib.load().cd_sweep_gather_reg_f32
     c, d = alpha.shape
@@ -131,10 +148,32 @@ def launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, j_blk, w_out, *,
     with torch.cuda.device(alpha.device):
         rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
                 _ptr(alpha), _ptr(e), _ptr(w_blk), _ld(w_blk), _ptr(r1_blk),
-                _ld(r1_blk), j_blk.data_ptr(), *j_blk.stride(), _ptr(w_out),
+                _ld(r1_blk), cpl.data_ptr(), *_cpl_strides(cpl), _ptr(w_out),
                 c, d, kb, float(alpha0), float(l2), float(eta), lanes, slots,
                 _stream(alpha))
     lib.check(rc, "cd_sweep_gather_reg")
+
+
+def launch_split(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, part,
+                 delta, *, alpha0: float, l2: float, eta: float, chunk: int,
+                 lib=None) -> None:
+    """Enqueue one gather sweep in the split-row form, three launches:
+    pass 1 (one block a ``chunk``-slot chunk of a row) writes each chunk's
+    44 moments to ``part`` (C, ⌈D_pad/chunk⌉, 44), the solve writes W to
+    ``w_out`` and Δ to ``delta`` (C, k_b), pass 2 patches ``e`` in place.
+    ``cpl`` as in :func:`launch_reg`; the caller has checked the rest and
+    allocated the scratch (``ops``)."""
+    lib = lib or GATHER_LIB
+    fn = lib.load().cd_sweep_split_row_f32
+    c, d = alpha.shape
+    kb = w_out.shape[1]
+    with torch.cuda.device(alpha.device):
+        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
+                _ptr(alpha), _ptr(e), _ptr(w_blk), _ld(w_blk), _ptr(r1_blk),
+                _ld(r1_blk), cpl.data_ptr(), *_cpl_strides(cpl), _ptr(w_out),
+                _ptr(part), _ptr(delta), c, d, kb, float(alpha0), float(l2),
+                float(eta), chunk, _stream(alpha))
+    lib.check(rc, "cd_sweep_split_row")
 
 
 def slab_reduce_reg(psi_tab, ids, alpha, e, q_out, p_out, *, lanes: int,
@@ -166,6 +205,20 @@ def slab_reduce(psi_blk, psi_tab, ids, alpha, e, q_out, p_out) -> None:
             psi_tab.shape[0] if gather else 0, _ptr(ids), _ptr(alpha),
             _ptr(e), _ptr(q_out), _ptr(p_out), c, d, m, _stream(alpha))
     SLAB_LIB.check(rc, "cd_slab_reduce")
+
+
+def resid_patch_reg(psi_tab, ids, e, dphi, lib=None) -> None:
+    """Enqueue one gather residual patch in the register-slot form (m ≤ 8,
+    ``vmem.CDG_PATCH_SLOTS`` slots a thread); as :func:`resid_patch`
+    otherwise."""
+    lib = lib or GATHER_LIB
+    fn = lib.load().cd_resid_patch_gather_reg_f32
+    c, d = e.shape
+    with torch.cuda.device(e.device):
+        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
+                _ptr(e), _ptr(dphi), _ld(dphi), c, d, dphi.shape[1],
+                _stream(e))
+    lib.check(rc, "cd_resid_patch_gather_reg")
 
 
 def resid_patch(psi_blk, psi_tab, ids, e, dphi) -> None:

@@ -6,20 +6,26 @@ A CUDA tensor launches a hand-written kernel: ``csrc/cd_sweep.cu`` for
 :func:`cd_block_sweep_rowpatch` and :func:`cd_block_sweep_rowpatch_gather`,
 ``csrc/cd_slab.cu`` for the feature models' :func:`cd_slab_reduce`,
 :func:`cd_slab_reduce_gather`, :func:`cd_resid_patch` and
-:func:`cd_resid_patch_gather`, and ``csrc/cd_gather.cu`` for the forms of
-:func:`cd_block_sweep_gather` and :func:`cd_slab_reduce_gather` that hold a
-row in registers. A CPU tensor takes the plain version (``ref.py``) in
-every entry point.
+:func:`cd_resid_patch_gather`, and ``csrc/cd_gather.cu`` for the
+redesigned forms of the gather entry points. A CPU tensor takes the plain
+version (``ref.py``) in every entry point.
 
 Each block-sweep launch takes the form :func:`~repro_torch.kernels.vmem.cd_sweep_form`
-picks: for the shared-J gather sweep, the register-row form where
-:func:`~repro_torch.kernels.vmem.cd_sweep_reg_group` takes the row; else the
-warp-row form when one row fits a block's shared memory, else the
-block-row form (one thread block a row). A wrapper's ``launches`` counts
-its kernel launches, ``launches_reg_row`` and ``launches_block_row`` those
-of them in the register-row and block-row forms. A gather slab reduce at
-m ≤ 8 takes the one-tile form (``vmem.cd_slab_reduce_form``), counted in
-``launches_one_tile``.
+picks: for the gather sweep (shared J or per-row patch), the register-row
+form where :func:`~repro_torch.kernels.vmem.cd_sweep_reg_group` takes the
+row; else the warp-row form when one row fits a block's shared memory;
+beyond that the split-row form for the gather sweep (each row cut into
+chunks over the whole card, three launches) and the block-row form (one
+thread block a row) for the pre-gathered one. A wrapper's ``launches``
+counts its calls that launch (one launch chain each),
+``launches_reg_row`` those in the register-row form,
+``launches_block_row`` those on long rows (the block-row or split-row
+form) and ``launches_split_row`` those in the split-row form. A gather slab
+reduce at m ≤ 8 takes the one-tile form (``vmem.cd_slab_reduce_form``),
+counted in ``launches_one_tile``; a gather residual patch at m ≤ 8 on a
+grid of D_pad % 4 == 0 whose ids and e start 16-byte aligned takes the
+register-slot form (``vmem.cd_resid_patch_form``), counted in
+``launches_reg_slots``.
 
 ``e`` is updated in place, as the reference donates it: the returned
 ``e`` is the caller's tensor on either device, and callers rebind
@@ -108,24 +114,33 @@ def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, *,
     w_out = torch.empty((c, kb), dtype=torch.float32, device=e.device)
     if not c:
         return w_out, e, form
+    kw = dict(alpha0=alpha0, l2=l2, eta=eta)
     if form == vmem.REG_ROW:
         lanes, slots = vmem.cd_sweep_reg_group(d, kb)
         kernel.launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out,
-                          alpha0=alpha0, l2=l2, eta=eta, lanes=lanes,
-                          slots=slots)
+                          lanes=lanes, slots=slots, **kw)
+        return w_out, e, form
+    if form == vmem.SPLIT_ROW:
+        chunk = vmem.cd_sweep_split_chunk(d, c)
+        part = torch.empty((c, -(-d // chunk), vmem.CDG_NSUM),
+                           dtype=torch.float32, device=e.device)
+        delta = torch.empty((c, kb), dtype=torch.float32, device=e.device)
+        kernel.launch_split(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out,
+                            part, delta, chunk=chunk, **kw)
         return w_out, e, form
     rows = 0
     if form == vmem.WARP_ROW:
         rows = (vmem.cd_sweep_gather_block_ctx if gather else
                 vmem.cd_sweep_block_ctx)(d, kb, n_rows=c, rowpatch=rowpatch)
     kernel.launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl,
-                  w_out, alpha0=alpha0, l2=l2, eta=eta, rows_per_block=rows)
+                  w_out, rows_per_block=rows, **kw)
     return w_out, e, form
 
 
 def _counted(fn, form):
     fn.launches += 1
-    fn.launches_block_row += int(form == vmem.BLOCK_ROW)
+    fn.launches_block_row += int(form in (vmem.BLOCK_ROW, vmem.SPLIT_ROW))
+    fn.launches_split_row += int(form == vmem.SPLIT_ROW)
     fn.launches_reg_row += int(form == vmem.REG_ROW)
 
 
@@ -202,12 +217,14 @@ def cd_block_sweep_rowpatch_gather(psi_tab, ids, alpha, e, w_blk, r1_blk,
     return w, e
 
 
-# CUDA kernel launches, and those of them in the block-row and register-row
-# forms (chip_smoke.py reads them)
+# CUDA launch chains, and those of them on long rows (block-row or
+# split-row form), in the split-row form and in the register-row form
+# (chip_smoke.py reads them)
 for _fn in (cd_block_sweep, cd_block_sweep_gather, cd_block_sweep_rowpatch,
             cd_block_sweep_rowpatch_gather):
     _fn.launches = 0
     _fn.launches_block_row = 0
+    _fn.launches_split_row = 0
     _fn.launches_reg_row = 0
 del _fn
 
@@ -279,9 +296,14 @@ def _patch_launch(psi_blk, psi_tab, ids, e, dphi_blk):
         _check_ids_slab(psi_tab, ids, c, d, m)
     else:
         _check_grid("psi_blk", psi_blk, (c, m, d))
-    if c:
+    form = vmem.cd_resid_patch_form(d, m, gather=psi_tab is not None)
+    if form == vmem.PATCH_REG_SLOTS and (ids.data_ptr() | e.data_ptr()) % 16:
+        form = vmem.PATCH_ONE_SLOT  # a quad of slots is one 16-byte load
+    if c and form == vmem.PATCH_REG_SLOTS:
+        kernel.resid_patch_reg(psi_tab, ids, e, dphi_blk)
+    elif c:
         kernel.resid_patch(psi_blk, psi_tab, ids, e, dphi_blk)
-    return e
+    return e, form
 
 
 def cd_resid_patch(psi_blk, e, dphi_blk):
@@ -290,7 +312,7 @@ def cd_resid_patch(psi_blk, e, dphi_blk):
     if not on_cuda(psi_blk, e, dphi_blk):
         e.copy_(ref.cd_resid_patch_ref(psi_blk, e, dphi_blk))
         return e
-    e = _patch_launch(psi_blk, None, None, e, dphi_blk)
+    e, _ = _patch_launch(psi_blk, None, None, e, dphi_blk)
     cd_resid_patch.launches += int(e.shape[0] > 0)
     return e
 
@@ -301,16 +323,21 @@ def cd_resid_patch_gather(psi_tab, ids, e, dphi_blk):
     if not on_cuda(psi_tab, ids, e, dphi_blk):
         e.copy_(ref.cd_resid_patch_gather_ref(psi_tab, ids, e, dphi_blk))
         return e
-    e = _patch_launch(None, psi_tab, ids, e, dphi_blk)
-    cd_resid_patch_gather.launches += int(e.shape[0] > 0)
+    e, form = _patch_launch(None, psi_tab, ids, e, dphi_blk)
+    launched = int(e.shape[0] > 0)
+    cd_resid_patch_gather.launches += launched
+    cd_resid_patch_gather.launches_reg_slots += launched * (
+        form == vmem.PATCH_REG_SLOTS)
     return e
 
 
-# CUDA kernel launches, and the slab reduces' in the one-tile form
-# (chip_smoke.py reads them)
+# CUDA kernel launches, the slab reduces' in the one-tile form and the
+# gather residual patch's in the register-slot form (chip_smoke.py reads
+# them)
 for _fn in (cd_slab_reduce, cd_slab_reduce_gather, cd_resid_patch,
             cd_resid_patch_gather):
     _fn.launches = 0
 for _fn in (cd_slab_reduce, cd_slab_reduce_gather):
     _fn.launches_one_tile = 0
+cd_resid_patch_gather.launches_reg_slots = 0
 del _fn

@@ -230,11 +230,11 @@ def gram_row_splits(rows: int, k: int) -> tuple:
 # holds only the row's coupling block (J or P), R', W and the reduction's
 # per-warp partial sums.
 #
-# cd_sweep_form picks the form: the register-row form below for the shared-J
-# gather sweep where it takes the row, else warp-row when one row fits a
-# block's shared memory, block-row otherwise. VmemBudgetError is left for
-# what no form can launch (a k_b whose k_b × k_b block alone overflows a
-# block).
+# cd_sweep_form picks the form: the register-row form below for the gather
+# sweep where it takes the row, else warp-row when one row fits a block's
+# shared memory; beyond that the split-row form below for the gather sweep
+# at k_b ≤ CDG_KB, block-row otherwise. VmemBudgetError is left for what no
+# form can launch (a k_b whose k_b × k_b block alone overflows a block).
 # ---------------------------------------------------------------------------
 CD_SWEEP_SMEM_TARGET = 96 * 1024  # two blocks per SM's 228 KB
 CD_SWEEP_MAX_ROWS = 8             # warps (rows) per block
@@ -260,16 +260,21 @@ def cd_sweep_block_row_smem_bytes(k_b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Register-row form of the shared-J gather sweep and one-tile form of the
-# gather slab reduce (csrc/cd_gather.cu). A group of `lanes` threads owns a
-# row and every thread holds `slots` slots' e, α and k_b ≤ CDG_KB ψ values
-# in registers for the whole launch (the slab reduce: Q and P's upper
-# triangle, 44 sums); shared memory holds only the J block and per-warp
-# partial sums. Blocks have CDG_THREADS threads; __launch_bounds__ asks for
-# CDG_*_MIN_BLOCKS of them an SM. A sweep thread of more than
-# CDG_SWEEP_REG_SLOTS slots re-reads ψ_j from L1 a step ahead instead of
-# holding it. The values are the fastest of
-# ``chip_smoke.py --sweep-tune``'s variants at icd-mf's two sides (PERF.md).
+# The redesigned gather forms (csrc/cd_gather.cu). Register-row sweep and
+# one-tile slab reduce: a group of `lanes` threads owns a row and every
+# thread holds `slots` slots' e, α and k_b ≤ CDG_KB ψ values in registers
+# for the whole launch (the slab reduce: Q and P's upper triangle, 44
+# sums); shared memory holds only the coupling block (the shared J, or each
+# row's patch P) and per-warp partial sums. Blocks have CDG_THREADS threads;
+# __launch_bounds__ asks for CDG_*_MIN_BLOCKS of them an SM. A sweep thread
+# of more than CDG_SWEEP_REG_SLOTS slots re-reads ψ_j from L1 a step ahead
+# instead of holding it. Split-row sweep (rows longer than a block's shared
+# memory): pass 1 gives each chunk of a row one block, which writes the
+# chunk's 44 moments to a scratch; a solve runs the k_b steps on them; pass
+# 2 is the residual patch. The residual patch's register-slot form gives a
+# thread CDG_PATCH_SLOTS consecutive slots. The values are the fastest of
+# ``chip_smoke.py --sweep-tune``'s variants at the full-width shapes
+# (PERF.md).
 # ---------------------------------------------------------------------------
 CDG_THREADS = 256
 CDG_KB = 8                          # block columns held in registers
@@ -283,8 +288,13 @@ CDG_SWEEP_REG_SLOTS = 4             # ψ in registers up to this many slots
 CDG_SLAB_LANES = (8, 16, 32)        # compiled group sizes
 CDG_SLAB_MIN_BLOCKS = 3
 CDG_SLAB_INFLIGHT = 2               # slots a thread gathers at once
-REG_ROW = "reg_row"
+CDG_NSUM = CDG_KB + CDG_KB * (CDG_KB + 1) // 2   # Q and P's triangle: 44
+CDG_SPLIT_CHUNK = 4_096             # most slots a split-row pass-1 block
+CDG_SPLIT_TARGET_BLOCKS = 4 * 132   # pass-1 blocks to aim for: 4 an SM
+CDG_PATCH_SLOTS = 4                 # residual patch: slots a thread
+REG_ROW, SPLIT_ROW = "reg_row", "split_row"
 SLAB_ONE_TILE, SLAB_TILED = "one_tile", "tiled"
+PATCH_REG_SLOTS, PATCH_ONE_SLOT = "reg_slots", "one_slot"
 
 
 def cd_sweep_reg_group(d_pad: int, k_b: int):
@@ -296,7 +306,8 @@ def cd_sweep_reg_group(d_pad: int, k_b: int):
     (each extra warp costs a barrier a step, so it packs more slots a
     thread). None where the form does not take the row (k_b > CDG_KB, or
     more than CDG_THREADS · CDG_SWEEP_MAX_SLOTS slots): those rows keep
-    the shared-memory forms (:func:`cd_sweep_form`)."""
+    the shared-memory forms (:func:`cd_sweep_form`). The same sizing
+    serves both couplings."""
     if k_b > CDG_KB or d_pad < 1:
         return None
     lanes = max(CDG_SWEEP_MIN_LANES, _pow2_ceil(-(-d_pad // CDG_SWEEP_WARP_SLOTS)))
@@ -306,10 +317,37 @@ def cd_sweep_reg_group(d_pad: int, k_b: int):
     return (lanes, CDG_SWEEP_MAX_SLOTS) if lanes <= CDG_THREADS else None
 
 
-def cd_sweep_reg_smem_bytes() -> int:
-    """Static shared memory of one register-row block: the J block and two
+def cd_sweep_reg_smem_bytes(lanes: int = CDG_THREADS, *,
+                            rowpatch: bool = False) -> int:
+    """Static shared memory of one register-row block of ``lanes``-thread
+    groups: the J block (a row patch: one block a group) and two
     double-buffered partial sums per warp."""
-    return 4 * (CDG_KB * CDG_KB + 4 * (CDG_THREADS // 32))
+    blocks = CDG_THREADS // lanes if rowpatch else 1
+    return 4 * (blocks * CDG_KB * CDG_KB + 4 * (CDG_THREADS // 32))
+
+
+def cd_sweep_split_chunk(d_pad: int, n_rows: int) -> int:
+    """Slots a pass-1 block of the split-row sweep takes from its row: at
+    most CDG_SPLIT_CHUNK, fewer where the rows would otherwise give the
+    card fewer than CDG_SPLIT_TARGET_BLOCKS blocks, a multiple of
+    CDG_THREADS. A row has ⌈d_pad / chunk⌉ chunks."""
+    want = -(-max(1, d_pad * n_rows) // CDG_SPLIT_TARGET_BLOCKS)
+    return min(CDG_SPLIT_CHUNK, -(-want // CDG_THREADS) * CDG_THREADS)
+
+
+def cd_sweep_split_smem_bytes() -> int:
+    """Static shared memory of one split-row pass-1 block: the 44 sums of
+    each warp."""
+    return 4 * (CDG_THREADS // 32) * CDG_NSUM
+
+
+def cd_resid_patch_form(d_pad: int, m: int, *, gather: bool) -> str:
+    """:data:`PATCH_REG_SLOTS` for the gather residual patch at m ≤ CDG_KB
+    and D_pad a multiple of 4 (a thread's slots loaded four at a time;
+    the wrapper also needs ids and e 16-byte aligned), else
+    :data:`PATCH_ONE_SLOT` (``csrc/cd_slab.cu``, one slot a thread)."""
+    ok = gather and m <= CDG_KB and d_pad % 4 == 0
+    return PATCH_REG_SLOTS if ok else PATCH_ONE_SLOT
 
 
 def cd_slab_reduce_form(m: int, *, gather: bool) -> str:
@@ -331,16 +369,19 @@ def cd_slab_reduce_lanes(d_pad: int) -> int:
 
 def cd_sweep_form(d_pad: int, k_b: int, *, gather: bool,
                   rowpatch: bool = False) -> str:
-    """The launch form of one sweep: :data:`REG_ROW` for the shared-J
-    gather sweep where :func:`cd_sweep_reg_group` takes the row, else
-    :data:`WARP_ROW` when one row fits a block's shared memory, else
+    """The launch form of one sweep: :data:`REG_ROW` for the gather sweep
+    (either coupling) where :func:`cd_sweep_reg_group` takes the row, else
+    :data:`WARP_ROW` when one row fits a block's shared memory; beyond
+    that :data:`SPLIT_ROW` for the gather sweep at k_b ≤ CDG_KB, else
     :data:`BLOCK_ROW`. Raises :class:`VmemBudgetError` when no form can
     launch."""
-    if gather and not rowpatch and cd_sweep_reg_group(d_pad, k_b) is not None:
+    if gather and cd_sweep_reg_group(d_pad, k_b) is not None:
         return REG_ROW
     if cd_sweep_smem_bytes(d_pad, k_b, 1, gather=gather,
                            rowpatch=rowpatch) <= SMEM_BLOCK_MAX:
         return WARP_ROW
+    if gather and k_b <= CDG_KB:
+        return SPLIT_ROW
     need = cd_sweep_block_row_smem_bytes(k_b)
     if need > SMEM_BLOCK_MAX:
         raise VmemBudgetError(

@@ -83,13 +83,17 @@ def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
 
     ``form`` is the launch form (``vmem.cd_sweep_form``) and ``form_bytes``
     what that form itself moves: the register-row and warp-row forms move
-    ``hbm_bytes`` (the register-row form's shared memory is its J block and
-    partial sums, ``vmem.cd_sweep_reg_smem_bytes``); the block-row form
-    keeps e, α and ids in device memory and makes two
+    ``hbm_bytes`` (the register-row form's shared memory is its coupling
+    blocks and partial sums, ``vmem.cd_sweep_reg_smem_bytes``); the
+    block-row form keeps e, α and ids in device memory and makes two
     passes over the row on each of its k_b steps, one reading α, e, ids and
     ψ_j, one reading ids, ψ_j and e and writing e (32 B a slot and step;
     24 B pre-gathered), in place of the one pass over the slots and the
-    one read of the ψ slab."""
+    one read of the ψ slab; the split-row form makes two passes a launch,
+    pass 1 reading ids, α, e and the slot's k_b ψ values, pass 2 ids, ψ
+    and e and writing e ((12 + 4·k_b) B a slot each), and writes and reads
+    back its scratch: 44 partial sums a chunk of a row
+    (``vmem.cd_sweep_split_chunk``) and Δ (k_b a row)."""
     n_blocks = -(-k // k_b)
     slot = (16.0 if gather else 12.0) * c * d_pad
     psi = 4.0 * n_src * k if gather else 4.0 * c * d_pad * k
@@ -99,8 +103,16 @@ def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
     hbm = n_blocks * slot + psi + rest
     form = vmem.cd_sweep_form(d_pad, k_b, gather=gather, rowpatch=rowpatch)
     if form == vmem.REG_ROW:
-        smem = vmem.cd_sweep_reg_smem_bytes()
+        lanes, _ = vmem.cd_sweep_reg_group(d_pad, k_b)
+        smem = vmem.cd_sweep_reg_smem_bytes(lanes, rowpatch=rowpatch)
         own = hbm
+    elif form == vmem.SPLIT_ROW:
+        smem = vmem.cd_sweep_split_smem_bytes()
+        n_chunks = -(-d_pad // vmem.cd_sweep_split_chunk(d_pad, c))
+        own = rest + sum(
+            2.0 * (12 + 4 * kb) * c * d_pad
+            + 4.0 * c * (2 * vmem.CDG_NSUM * n_chunks + 2 * kb)
+            for kb in (min(k_b, k - f0) for f0 in range(0, k, k_b)))
     elif form == vmem.WARP_ROW:
         rows = (vmem.cd_sweep_gather_block_ctx if gather else
                 vmem.cd_sweep_block_ctx)(d_pad, k_b, n_rows=c,
@@ -158,12 +170,14 @@ def cd_resid_patch_cost(c: int, d_pad: int, m: int, *, n_src: int = 0,
 
     Bytes: ids (gather form) and e read and e written — 12 B a slot, the
     ψ slab once; pre-gathered, the Ψ tile, e read and written, (m + 2)·4 B
-    a slot — and Δφ (C, m) read. FLOPs: 2m a slot."""
+    a slot — and Δφ (C, m) read. FLOPs: 2m a slot. ``form`` is the launch
+    form (``vmem.cd_resid_patch_form``)."""
     slot = 12.0 if gather else 4.0 * (m + 2)
     psi = 4.0 * n_src * m if gather else 0.0
     hbm = slot * c * d_pad + psi + 4.0 * c * m
     return {"hbm_bytes": hbm, "flops": 2.0 * c * d_pad * m,
-            "smem_bytes": 0.0}
+            "smem_bytes": 0.0,
+            "form": vmem.cd_resid_patch_form(d_pad, m, gather=gather)}
 
 
 class KernelCostRecorder:

@@ -749,21 +749,22 @@ def test_sweep_launch_form_follows_the_row_length():
     """Warp-row while one row fits a block's shared memory (the user side
     of the tensor models at D_pad 128, MF's item side at 1,024), block-row
     beyond (CtxMF's hour-of-day buckets at 142,464); only a k_b whose
-    block alone overflows a block fits neither. The shared-J gather sweep
-    takes the register-row form where its rows fit registers (D_pad 128
-    and 1,024 here). The cost model carries the form and its own
-    traffic."""
+    block alone overflows a block fits neither. The gather sweep, with
+    either coupling, takes the register-row form where its rows fit
+    registers (D_pad 128 and 1,024 here) and the split-row form where the
+    pre-gathered one takes the block-row form. The cost model carries the
+    form and its own traffic."""
     from repro_torch.kernels import vmem
     from repro_torch.obs.costs import cd_sweep_cost
 
-    for d, want in ((128, vmem.WARP_ROW), (1_024, vmem.WARP_ROW),
-                    (142_464, vmem.BLOCK_ROW)):
+    for d, want, want_gather in ((128, vmem.WARP_ROW, vmem.REG_ROW),
+                                 (1_024, vmem.WARP_ROW, vmem.REG_ROW),
+                                 (142_464, vmem.BLOCK_ROW, vmem.SPLIT_ROW)):
         for gather in (True, False):
             for rowpatch in (True, False):
-                reg = gather and not rowpatch and d <= 1_024
                 assert vmem.cd_sweep_form(d, 8, gather=gather,
                                           rowpatch=rowpatch) == (
-                    vmem.REG_ROW if reg else want)
+                    want_gather if gather else want)
     # the row patch costs k_b² floats a row in place of the shared block
     assert vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True, rowpatch=True) \
         == vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True) - 4 * 64 + 4 * 4 * 64
@@ -778,16 +779,27 @@ def test_sweep_launch_form_follows_the_row_length():
         vmem.cd_sweep_gather_block_ctx(142_464, 8, rowpatch=True)
     nnz = 3_399_385
     user = cd_sweep_cost(200_000, 128, 8, 8, n_src=nnz + 1, rowpatch=True)
-    assert user["form"] == vmem.WARP_ROW
+    assert user["form"] == vmem.REG_ROW
     assert user["hbm_bytes"] == user["form_bytes"] == (
         200_000 * 128 * 16 + 200_000 * 8 * 12 + 200_000 * 64 * 4
         + (nnz + 1) * 8 * 4)
+    assert user["smem_bytes"] == vmem.cd_sweep_reg_smem_bytes(32, rowpatch=True)
     bucket = cd_sweep_cost(24, 142_464, 8, 8, n_src=nnz + 1, rowpatch=True)
-    assert bucket["form"] == vmem.BLOCK_ROW
+    assert bucket["form"] == vmem.SPLIT_ROW
     assert bucket["hbm_bytes"] == (24 * 142_464 * 16 + 24 * 8 * 12
                                    + 24 * 64 * 4 + (nnz + 1) * 8 * 4)
-    assert bucket["form_bytes"] == 32 * 24 * 142_464 * 8 + 24 * 8 * 12 + 24 * 64 * 4
-    assert bucket["smem_bytes"] == vmem.cd_sweep_block_row_smem_bytes(8)
+    # two passes of 44 B a slot, 35 chunks of 4,096 slots a row, each with
+    # 44 partial sums written and read back, and Δ written and read back
+    assert vmem.cd_sweep_split_chunk(142_464, 24) == 4_096
+    assert bucket["form_bytes"] == (2 * 44 * 24 * 142_464
+                                    + 4 * 24 * (2 * 44 * 35 + 2 * 8)
+                                    + 24 * 8 * 12 + 24 * 64 * 4)
+    assert bucket["smem_bytes"] == vmem.cd_sweep_split_smem_bytes()
+    # the pre-gathered bucket side keeps the block-row form
+    pre = cd_sweep_cost(24, 142_464, 8, 8, gather=False, rowpatch=True)
+    assert pre["form"] == vmem.BLOCK_ROW
+    assert pre["form_bytes"] == 24 * 24 * 142_464 * 8 + 24 * 8 * 12 + 24 * 64 * 4
+    assert pre["smem_bytes"] == vmem.cd_sweep_block_row_smem_bytes(8)
 
 
 def test_register_row_sizing_holds_each_row_in_registers():
@@ -816,9 +828,9 @@ def test_register_row_sizing_holds_each_row_in_registers():
     assert vmem.cd_sweep_form(128, 9, gather=True) == vmem.WARP_ROW
     assert vmem.cd_sweep_reg_group(longest + 1, 8) is None
     assert vmem.cd_sweep_form(longest + 1, 8, gather=True) == vmem.WARP_ROW
-    assert vmem.cd_sweep_form(20_000, 8, gather=True) == vmem.BLOCK_ROW
-    for kw in (dict(gather=False), dict(gather=True, rowpatch=True)):
-        assert vmem.cd_sweep_form(128, 8, **kw) == vmem.WARP_ROW
+    assert vmem.cd_sweep_form(20_000, 8, gather=True) == vmem.SPLIT_ROW
+    assert vmem.cd_sweep_form(128, 8, gather=False) == vmem.WARP_ROW
+    assert vmem.cd_sweep_form(128, 8, gather=True, rowpatch=True) == vmem.REG_ROW
     with pytest.raises(vmem.VmemBudgetError):
         vmem.resolve_cd_sweep_dispatch(20_000, 8)
     assert vmem.resolve_cd_sweep_dispatch(1_024, 8) is True
@@ -1113,12 +1125,14 @@ def _rowpatch_operands(dev, c, d, kb, n_src, seed, pad_frac=0.3):
                 r1=t(rng.normal(size=(c, kb)).astype(np.float32)))
 
 
-def _hold_sweep(fn, plain, x, first, cpl, long_rows=False, **kw):
+def _hold_sweep(fn, plain, x, first, cpl, long_rows=False, long_form=None,
+                **kw):
     """One launch against the plain version on the same inputs: the
     reference's kernel-vs-oracle rtol 2e-5 / atol 2e-6; for rows of many
     thousands of slots, whose sums the two take in other orders, an
     absolute tolerance per row of 1e-5 of the row's Σ|α·e·ψ_j|/den_j summed
-    over j (in W; times max|ψ| in e)."""
+    over j (in W; times max|ψ| in e). The launch counts as a long-row one
+    (``launches_block_row``) when ``long_form`` (default ``long_rows``)."""
     from repro_torch.kernels.cd_sweep import ref as cr
 
     before = (fn.launches, fn.launches_block_row)
@@ -1127,7 +1141,8 @@ def _hold_sweep(fn, plain, x, first, cpl, long_rows=False, **kw):
     rw, re = plain(*first, x["alpha"], x["e"], x["w"], x["r1"], cpl, **kw)
     torch.cuda.synchronize()
     assert e2 is e and fn.launches == before[0] + 1
-    assert fn.launches_block_row == before[1] + int(long_rows)
+    long_form = long_rows if long_form is None else long_form
+    assert fn.launches_block_row == before[1] + int(long_form)
     assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
     atol_w = torch.full((w.shape[0], 1), 2e-6, device=w.device)
     atol_e = atol_w
@@ -1196,6 +1211,144 @@ def test_rowpatch_kernel_clamps_empty_rows_and_clips_ids(cuda, d):
                        (x["tab"], x["ids"]), x["p"], long_rows=d > 128,
                        alpha0=0.0, l2=0.0)
     assert torch.equal(w[:4], x["w"][:4])
+
+
+def test_split_row_and_patch_sizing():
+    """The split-row form's chunks (a multiple of the block, at most
+    CDG_SPLIT_CHUNK, enough blocks for the card on few rows) and scratch,
+    and the residual patch's register-slot form at m ≤ 8 and D_pad a
+    multiple of 4; the cost model names the patch's form."""
+    from repro_torch.kernels import vmem
+    from repro_torch.obs.costs import cd_resid_patch_cost
+
+    for d, rows in ((142_464, 24), (20_000, 5), (15_001, 4), (1, 1),
+                    (10_000_000, 3)):
+        chunk = vmem.cd_sweep_split_chunk(d, rows)
+        assert chunk % vmem.CDG_THREADS == 0
+        assert vmem.CDG_THREADS <= chunk <= vmem.CDG_SPLIT_CHUNK
+        n_chunks = -(-d // chunk)
+        assert rows * n_chunks >= min(vmem.CDG_SPLIT_TARGET_BLOCKS,
+                                      rows * -(-d // vmem.CDG_THREADS))
+    assert vmem.CDG_NSUM == 44
+    assert vmem.cd_sweep_split_smem_bytes() <= vmem.SMEM_STATIC_BYTES
+    assert vmem.cd_sweep_reg_smem_bytes(8, rowpatch=True) <= vmem.SMEM_STATIC_BYTES
+    assert vmem.cd_sweep_reg_smem_bytes(32, rowpatch=True) == \
+        4 * (8 * 64 + 4 * vmem.CDG_THREADS // 32)
+    for m in range(1, 9):
+        assert vmem.cd_resid_patch_form(128, m, gather=True) == vmem.PATCH_REG_SLOTS
+        assert vmem.cd_resid_patch_form(130, m, gather=True) == vmem.PATCH_ONE_SLOT
+        assert vmem.cd_resid_patch_form(128, m, gather=False) == vmem.PATCH_ONE_SLOT
+    assert vmem.cd_resid_patch_form(128, 9, gather=True) == vmem.PATCH_ONE_SLOT
+    assert cd_resid_patch_cost(200_000, 128, 8, n_src=68_000)["form"] == \
+        vmem.PATCH_REG_SLOTS
+    # the sweep's k_b > 8 on long gather rows keeps the block-row form
+    assert vmem.cd_sweep_form(142_464, 9, gather=True, rowpatch=True) == vmem.BLOCK_ROW
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,kb,shared", [
+    (5, 20_000, 8, False),      # no chunk divides the row
+    (4, 15_001, 3, False),      # off a multiple of 4: scalar loads in pass 2
+    (6, 18_000, 1, False),      # k_b = 1
+    (3, 16_000, 8, True),       # one J for every row (cs0 = 0)
+    (24, 142_464, 8, False),    # the bucket shape
+])
+def test_split_row_form_matches_plain_on_cuda(cuda, c, d, kb, shared):
+    """The gather sweep on long rows in the split-row form against the
+    plain version at ``_hold_sweep``'s long-row tolerance: ids past both
+    ends of the slab, then (at l2 = α₀ = 0, as
+    ``test_rowpatch_kernel_clamps_empty_rows_and_clips_ids``) a row with
+    α = 0 and P = 0 keeping W; each call one launch chain counted as a
+    long-row and a split-row launch, two calls giving the same bits."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+
+    assert vmem.cd_sweep_form(d, kb, gather=True, rowpatch=not shared) == vmem.SPLIT_ROW
+    x = _rowpatch_operands(cuda, c, d, kb, 3_000, c + d + kb)
+    x["ids"][:, :4] = torch.tensor([-7, 3_000, 10**6, -1], dtype=torch.int32,
+                                   device=cuda)
+    name = "cd_block_sweep" + ("" if shared else "_rowpatch") + "_gather"
+    fn, plain = getattr(cs, name), getattr(cr, name + "_ref")
+    first = (x["tab"], x["ids"])
+    for kw in (dict(alpha0=0.7, l2=0.05, eta=0.9), dict(alpha0=0.0, l2=0.0)):
+        if kw["l2"] == 0:
+            x["alpha"][:1] = 0
+            x["p"][:1] = 0
+        cpl = x["p"][1] if shared else x["p"]
+        before = (fn.launches_split_row, fn.launches_reg_row)
+        w, _ = _hold_sweep(fn, plain, x, first, cpl, long_rows=True, **kw)
+        e2 = x["e"].clone()
+        w2, _ = fn(*first, x["alpha"], e2, x["w"], x["r1"], cpl, **kw)
+        e1 = x["e"].clone()
+        w1, _ = fn(*first, x["alpha"], e1, x["w"], x["r1"], cpl, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(w, w2) and torch.equal(w1, w2) and torch.equal(e1, e2)
+        assert (fn.launches_split_row - before[0],
+                fn.launches_reg_row - before[1]) == (3, 0)
+        if kw["l2"] == 0 and not shared:
+            assert torch.equal(w[:1], x["w"][:1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,kb", [(2_000, 128, 8), (301, 100, 8), (97, 40, 3),
+                                    (50, 1_000, 8), (33, 2_048, 4)])
+def test_register_row_rowpatch_matches_plain_on_cuda(cuda, c, d, kb):
+    """The gather row-patch sweep in the register-row form against the
+    plain version (rtol 2e-5 / atol 2e-6; ``_hold_sweep``'s row-scaled atol
+    from 1,024 slots), each launch counted in its form; at 32 lanes a row
+    (64 < D_pad ≤ 128) equal bit for bit to the warp-row form it replaced,
+    through that form's binding."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    assert vmem.cd_sweep_form(d, kb, gather=True, rowpatch=True) == vmem.REG_ROW
+    x = _rowpatch_operands(cuda, c, d, kb, 500, c + d)
+    x["ids"][:, :2] = torch.tensor([-3, 10**5], dtype=torch.int32, device=cuda)
+    fn = cs.cd_block_sweep_rowpatch_gather
+    kw = dict(alpha0=0.7, l2=0.05, eta=0.9)
+    before = fn.launches_reg_row
+    w, _ = _hold_sweep(fn, cr.cd_block_sweep_rowpatch_gather_ref, x,
+                       (x["tab"], x["ids"]), x["p"], long_rows=d >= 1_024,
+                       long_form=False, **kw)
+    assert fn.launches_reg_row == before + 1
+    if vmem.cd_sweep_reg_group(d, kb)[0] == 32:
+        e_new, e_old = x["e"].clone(), x["e"].clone()
+        w_new, _ = fn(x["tab"], x["ids"], x["alpha"], e_new, x["w"], x["r1"],
+                      x["p"], **kw)
+        w_old = torch.empty_like(w_new)
+        kernel.launch(None, x["tab"], x["ids"], x["alpha"], e_old, x["w"],
+                      x["r1"], x["p"], w_old, rows_per_block=vmem.cd_sweep_gather_block_ctx(
+                          d, kb, n_rows=c, rowpatch=True), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(w_new, w_old) and torch.equal(e_new, e_old)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", range(1, 10))
+def test_resid_patch_register_slots_equal_one_slot_on_cuda(cuda, m):
+    """The gather residual patch at m ≤ 8 in the register-slot form equal
+    bit for bit to the one-slot kernel it replaced (m = 9 keeps that
+    kernel): a slab of 16-byte rows (ld 8 or 12), a slab of odd ld, ids
+    past the slab; a D_pad off a multiple of 4 keeps the one-slot kernel."""
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    fn = cs.cd_resid_patch_gather
+    for d, ld, want_reg in ((128, 8 if m <= 8 else 12, m <= 8),
+                            (1_024, m + 3, m <= 8), (37, m, False)):
+        x = _slab_operands(cuda, 203, d, ld, 300, m + d + ld, past=True)
+        tab, dphi = x["tab"][:, ld - m:], x["dphi"][:, :m]
+        before = (fn.launches, fn.launches_reg_slots)
+        e = x["e"].clone()
+        assert fn(tab, x["ids"], e, dphi) is e
+        e_old = x["e"].clone()
+        kernel.resid_patch(None, tab, x["ids"], e_old, dphi)
+        torch.cuda.synchronize()
+        assert (fn.launches - before[0], fn.launches_reg_slots - before[1]) == \
+            (1, int(want_reg))
+        assert torch.equal(e, e_old)
+        torch.testing.assert_close(
+            e, cr.cd_resid_patch_gather_ref(tab, x["ids"], x["e"], dphi),
+            rtol=2e-5, atol=2e-6)
 
 
 def _tensor_problem(dev, seed=7, n_c1=40, n_c2=6, n_items=30, nnz=600):

@@ -13,7 +13,8 @@ chains k1·k2·k3 scalar steps, to rtol 1e-3 / atol 1e-4, the reference's
 autodiff tolerance for it; the row-patch sweeps to the kernel-vs-oracle
 rtol 2e-5 / atol 2e-6 (``tests/test_kernels.py``); layouts, bucket ids and
 pair lists exactly; and weights=None against weights=ones exactly within
-the port.
+the port. The split-row sweep's two-pass algebra, stated here in torch,
+is held to the row-patch sweeps' tolerance.
 """
 import dataclasses
 
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from repro.core import padded as jpadded
+from repro.core import sweeps as jsweeps
 from repro.core.models import ctxmf as jctxmf
 from repro.core.models import parafac as jpf
 from repro.core.models import tucker as jtk
@@ -31,9 +33,10 @@ from repro.kernels.cd_sweep.kernel import (
     cd_block_sweep_rowpatch_pallas,
 )
 from repro.sparse.interactions import build_interactions as jbuild
-from repro_torch.core import padded
+from repro_torch.core import padded, sweeps
 from repro_torch.core.models import ctxmf, parafac, tucker
-from repro_torch.kernels.cd_sweep import ops
+from repro_torch.kernels import vmem
+from repro_torch.kernels.cd_sweep import ops, ref
 from repro_torch.sparse.interactions import build_interactions
 
 torch.set_num_threads(1)
@@ -272,6 +275,103 @@ def test_parafac_fit_matches_reference():
         _close(a, b)
 
 
+def _weights(seed, nnz):
+    return np.random.default_rng(seed).uniform(0.3, 2.5, nnz).astype(np.float32)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dense", [False, True])
+def test_parafac_weighted_epochs_match_reference(fused, dense):
+    """Non-uniform per-interaction weights through two flat or fused
+    epochs, sparse and dense context."""
+    jtc, jd, ttc, td = _problem(seed=50)
+    kw = dict(k=3, alpha0=0.3, l2=0.05, dense_context=dense, block_k=2)
+    jhp, thp = jpf.PARAFACHyperParams(**kw), parafac.PARAFACHyperParams(**kw)
+    jp, tp = _parafac_params(51, jtc, jd.n_items, 3)
+    wts = _weights(52, jd.nnz)
+    jw, tw = jnp.asarray(wts), _t(wts)
+    je, te = jpf.residuals(jp, jtc, jd), parafac.residuals(tp, ttc, td)
+    jpad, tpad = jpf.pad_tensor_groups(jtc, jd), parafac.pad_tensor_groups(ttc, td)
+    for _ in range(2):
+        if fused:
+            jp, je = jpf.epoch_padded(jp, jtc, jd, jpad, je, jhp, weights=jw)
+            tp, te = parafac.epoch_padded(tp, ttc, td, tpad, te, thp, weights=tw)
+        else:
+            jp, je = jpf.epoch(jp, jtc, jd, je, jhp, weights=jw)
+            tp, te = parafac.epoch(tp, ttc, td, te, thp, weights=tw)
+    for a, b in zip(tp, jp):
+        _close(a, b)
+    _close(te, je, atol=E_ATOL)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tucker_weighted_epochs_match_reference(fused):
+    jtc, jd, ttc, td = _problem(seed=53)
+    kw = dict(k1=2, k2=3, k3=2, alpha0=0.3, l2=0.05, l2_core=0.02, block_k=2)
+    jhp, thp = jtk.TuckerHyperParams(**kw), tucker.TuckerHyperParams(**kw)
+    f = _factors(54, [(5, 2), (4, 3), (6, 2), (2, 3, 2)])
+    jp = jtk.TuckerParams(*map(jnp.asarray, f))
+    tp = tucker.params_from_numpy(*f, device="cpu")
+    wts = _weights(55, jd.nnz)
+    jw, tw = jnp.asarray(wts), _t(wts)
+    je, te = jtk.residuals(jp, jtc, jd), tucker.residuals(tp, ttc, td)
+    jpad, tpad = jtk.pad_tensor_groups(jtc, jd), tucker.pad_tensor_groups(ttc, td)
+    for _ in range(2):
+        if fused:
+            jp, je = jtk.epoch_padded(jp, jtc, jd, jpad, je, jhp, weights=jw)
+            tp, te = tucker.epoch_padded(tp, ttc, td, tpad, te, thp, weights=tw)
+        else:
+            jp, je = jtk.epoch(jp, jtc, jd, je, jhp, weights=jw)
+            tp, te = tucker.epoch(tp, ttc, td, te, thp, weights=tw)
+    for a, b in zip(tp, jp):
+        _close(a, b, TUCKER_RTOL, TUCKER_ATOL)
+    _close(te, je, TUCKER_RTOL, TUCKER_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["rotating", "randomized"])
+@pytest.mark.parametrize("model", ["parafac", "tucker"])
+def test_scheduled_epochs_match_reference(model, kind):
+    """Two flat epochs (sweep index 0 and 1) under a rotating or a
+    randomized schedule of 1-column blocks, repeats (1, 2)."""
+    jtc, jd, ttc, td = _problem(seed=56)
+    sched = dict(kind=kind, block=1, repeats=(1, 2), seed=3)
+    js, ts = jsweeps.SweepSchedule(**sched), sweeps.SweepSchedule(**sched)
+    if model == "parafac":
+        jm, tm, rtol, atol = jpf, parafac, RTOL, ATOL
+        kw = dict(k=3, alpha0=0.3, l2=0.05)
+        jhp, thp = jpf.PARAFACHyperParams(**kw), parafac.PARAFACHyperParams(**kw)
+        jp, tp = _parafac_params(57, jtc, jd.n_items, 3)
+    else:
+        jm, tm, rtol, atol = jtk, tucker, TUCKER_RTOL, TUCKER_ATOL
+        kw = dict(k1=2, k2=2, k3=3, alpha0=0.3, l2=0.05, l2_core=0.02)
+        jhp, thp = jtk.TuckerHyperParams(**kw), tucker.TuckerHyperParams(**kw)
+        f = _factors(57, [(5, 2), (4, 2), (6, 3), (2, 2, 3)])
+        jp = jtk.TuckerParams(*map(jnp.asarray, f))
+        tp = tucker.params_from_numpy(*f, device="cpu")
+    je, te = jm.residuals(jp, jtc, jd), tm.residuals(tp, ttc, td)
+    for sweep in range(2):
+        jp, je = jm.epoch(jp, jtc, jd, je, jhp, js, sweep)
+        tp, te = tm.epoch(tp, ttc, td, te, thp, ts, sweep)
+    for a, b in zip(tp, jp):
+        _close(a, b, rtol, atol)
+    _close(te, je, rtol, atol if model == "tucker" else E_ATOL)
+
+
+def test_parafac_fit_with_schedule_and_weights_matches_reference():
+    jtc, jd, ttc, td = _problem(seed=58)
+    kw = dict(k=3, alpha0=0.3, l2=0.05)
+    jp, tp = _parafac_params(59, jtc, jd.n_items, 3)
+    sched = dict(kind="rotating", block=2)
+    wts = _weights(60, jd.nnz)
+    got = parafac.fit(tp, ttc, td, parafac.PARAFACHyperParams(**kw), 3,
+                      schedule=sweeps.SweepSchedule(**sched), weights=_t(wts))
+    want = jpf.fit(jp, jtc, jd, jpf.PARAFACHyperParams(**kw), 3,
+                   schedule=jsweeps.SweepSchedule(**sched),
+                   weights=jnp.asarray(wts))
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
 # ------------------------------------------------------------- Tucker ---
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("block_k", [0, 2])
@@ -429,3 +529,84 @@ def test_rowpatch_with_one_patch_for_every_row_is_the_shared_sweep():
     w2, _ = ops.cd_block_sweep_gather(*args, e2, _t(x["w"]), _t(x["r1"]), p0,
                                       **kw)
     assert torch.equal(w1, w2) and torch.equal(e1, e2)
+
+
+# ------------------------------------------ split-row sweep, the algebra ---
+def _split_row_sweep(psi_tab, ids, alpha, e, w, r1, cpl, *, alpha0, l2, eta,
+                     chunk):
+    """The split-row form of ``csrc/cd_gather.cu`` in torch, from its
+    contract: pass 1 sums Q_j = Σ_d α·e·ψ_j and G_ij = Σ_d α·ψ_i·ψ_j chunk
+    by chunk (``chunk`` slots each) and adds the chunks in order; the solve
+    runs L'_j/2 = Q_j + Σ_{i<j} Δ_i·G_ij, L''_j/2 = G_jj, R'_j = R'_j +
+    Σ_{i<j} Δ_i·P(i, j) and Δ_j = −η·(L'_j/2 + α₀R'_j + λw_j) /
+    max(L''_j/2 + α₀P(j, j) + λ, 1e-12); pass 2 adds Σ_j Δ_j·ψ_j to e once,
+    in j order. ``cpl`` is the (C, k_b, k_b) patch or one (k_b, k_b) J."""
+    psi = ref.gather_psi_blk(psi_tab, ids)                  # (C, k_b, D)
+    c, kb, d = psi.shape
+    p = cpl.expand(c, kb, kb) if cpl.dim() == 2 else cpl
+    q = torch.zeros((c, kb))
+    g = torch.zeros((c, kb, kb))
+    for d0 in range(0, d, chunk):
+        sl = slice(d0, d0 + chunk)
+        a, ps = alpha[:, None, sl], psi[:, :, sl]
+        q = q + (a * e[:, None, sl] * ps).sum(-1)
+        g = g + torch.einsum("cid,cjd->cij", a * ps, ps)
+    deltas, w_new = [], w.clone()
+    for j in range(kb):
+        lp, r1j = q[:, j].clone(), r1[:, j].clone()
+        for i in range(j):
+            lp = lp + deltas[i] * g[:, i, j]
+            r1j = r1j + deltas[i] * p[:, i, j]
+        num = lp + alpha0 * r1j + l2 * w[:, j]
+        den = g[:, j, j] + alpha0 * p[:, j, j] + l2
+        deltas.append(-eta * num / torch.clamp(den, min=1e-12))
+        w_new[:, j] = w[:, j] + deltas[j]
+    e_new = e.clone()
+    for j in range(kb):
+        e_new = e_new + deltas[j][:, None] * psi[:, j, :]
+    return w_new, e_new
+
+
+@pytest.mark.parametrize("kb,d,chunk,shared", [
+    (3, 40, 16, False),    # rows of 2½ chunks
+    (8, 37, 8, False),     # k_b = 8, a chunk of 5 slots last
+    (1, 50, 64, False),    # k_b = 1, one chunk
+    (4, 33, 10, True),     # one J for every row (cs0 = 0)
+])
+def test_split_row_algebra_matches_the_sweep(kb, d, chunk, shared):
+    """The two-pass algebra against the plain row-patch sweep and the
+    reference's Pallas kernel (interpret mode) on the same inputs, rows
+    with α = 0 and P = 0 keeping W at l2 = α₀ = 0, and ids past the slab
+    clipped: to the row-patch sweeps' rtol 2e-5 / atol 2e-6."""
+    x = _rowpatch_case(70 + kb + d, d=d, kb=kb)
+    x["alpha"][:3] = 0
+    x["p"][:3] = 0
+    x["ids"][3:, :2] = [-5, 1000]
+    args = [_t(x[n]) for n in ("tab", "ids", "alpha", "e", "w", "r1", "p")]
+    if shared:
+        args[-1] = args[-1][5]
+    for alpha0, l2 in ((0.6, 0.1), (0.0, 0.0)):
+        kw = dict(alpha0=alpha0, l2=l2, eta=0.9)
+        w, e = _split_row_sweep(*args, chunk=chunk, **kw)
+        plain = (ref.cd_block_sweep_gather_ref if shared else
+                 ref.cd_block_sweep_rowpatch_gather_ref)
+        rw, re = plain(*args, **kw)
+        _close(w, rw, SWEEP_RTOL, SWEEP_ATOL)
+        _close(e, re, SWEEP_RTOL, SWEEP_ATOL)
+        p = x["p"][5:6].repeat(len(x["p"]), 0) if shared else x["p"]
+        jw, je = cd_block_sweep_rowpatch_gather_pallas(
+            *map(jnp.asarray, (x["tab"], x["ids"], x["alpha"], x["e"], x["w"],
+                               x["r1"], p)), block_ctx=8, interpret=True, **kw)
+        _close(w, jw, SWEEP_RTOL, SWEEP_ATOL)
+        _close(e, je, SWEEP_RTOL, SWEEP_ATOL)
+        if l2 == 0 and not shared:
+            _eq(w[:3], x["w"][:3])
+
+
+def test_split_row_form_takes_the_long_gather_rows():
+    """The tensor models' long context rows (CtxMF's hour-of-day buckets)
+    take the split-row form in the gather routing, the block-row form
+    pre-gathered; short rows take the register-row form."""
+    assert vmem.cd_sweep_form(142_464, 8, gather=True, rowpatch=True) == vmem.SPLIT_ROW
+    assert vmem.cd_sweep_form(142_464, 8, gather=False, rowpatch=True) == vmem.BLOCK_ROW
+    assert vmem.cd_sweep_form(128, 8, gather=True, rowpatch=True) == vmem.REG_ROW
