@@ -13,15 +13,20 @@ Phases, one line each or more:
      with and without exclude-id lists, plus small-integer cases whose
      scores are exact (ties across blocks, K > n_valid, fully excluded
      rows, ragged chunks and row blocks), where ids must match exactly;
+     every call at K ≤ 256 (the one-launch form) also against the
+     three-launch chain it replaced, bit for bit;
   3. serve 256 requests through ``repro_torch.launch.serve.main`` at full
      icd-mf width (200,000 × 68,000 × k=128, top-100, 2 shards × 2
      replicas, replica (0, 0) killed), after a 32-request warm-up run of
      the same driver, and check coverage, the kernel's launch count, and
      16 users' results against a plain recompute over
      the whole ψ table;
-  4. time the top-K kernel, its plain version and
+  4. time the top-K kernel (one launch, ``topk_fused_kernel``), the
+     three-launch chain it replaced, its plain version and
      ``torch.topk(phi @ psi.T)`` (a yardstick the port never calls) with
-     CUDA events, beside the card's bound for the same work;
+     CUDA events, beside the card's bound for the same work; the
+     profiler's breakdown (one kernel a call); a call with 20 excluded ids
+     a row, the serving trace's form;
   5. hold the Gram and block-sweep kernels against their plain versions:
      at the full-width dispatch shapes (Gram of 200,000 × 128 and
      68,000 × 128, weighted and not, in small integers, where the sums are
@@ -33,6 +38,10 @@ Phases, one line each or more:
      ``mf_padded`` epoch on the card against the same epoch on the CPU),
      each sweep called twice for the same bits, the gather sweep's rows of
      up to 2,048 slots in the register-row form (``csrc/cd_gather.cu``);
+     and long rows (ROADMAP fault 3.3): ``mf_padded`` with one item row
+     at D_pad 20,096, k_b 8, two epochs on the card — the item side in the
+     split-row form with the shared J, or pre-gathered in the block-row
+     form — against the same epochs on the CPU;
   6. train icd-mf at full width on a seeded log (200,000 users × 68,000
      items, k = 128): ``mf_padded.fit`` for 3 epochs with the defaults,
      the objective falling every epoch, the kernels' launches counted;
@@ -90,14 +99,16 @@ Phases, one line each or more:
      context design: 3 ``epoch_padded`` epochs (objective falling, 96
      launches each of the gather slab reduce and residual patch, all in
      the one-tile and register-slot forms), one
-     pregather and one flat epoch from one start held against the default
-     one, one profiled epoch, and 16 users' queries through the top-K
-     kernel against a plain recompute;
+     pregather epoch (its slab reduce in the one-tile form, its objective
+     beside the gather epoch's) and one flat epoch from one start held
+     against the default one, one profiled epoch, and 16 users' queries
+     through the top-K kernel against a plain recompute;
  15. time kernels 6–9 at both sides' full-width shapes beside their plain
      versions, their bounds and, for the pre-gathered forms, one
-     ``torch.bmm``/``baddbmm`` over the same tile; the gather slab reduce's
-     one-tile form and the gather residual patch's register-slot form
-     beside the tiled and one-slot kernels they replaced.
+     ``torch.bmm``/``baddbmm`` over the same tile; the slab reduce's
+     one-tile form (both routings, equal bit for bit) and the gather
+     residual patch's register-slot form beside the tiled and one-slot
+     kernels they replaced.
 
  16. serve the quantized IVF tier at full icd-mf width on phase 6's trained
      factors: ``FaultTolerantRetrievalMesh(retrieval="ivf",
@@ -122,8 +133,10 @@ Phases, one line each or more:
      and the yardstick ``torch.topk(phi @ deq(psi).T, k)``; its IVF form
      over phase 16's shard-0 index of each storage form (16 rows, n_probe
      46), held against its plain version and timed beside the yardstick
-     ``torch.topk`` over the masked dense scores; tables of 9, 40 and 100
-     rows in their narrowest chunk and in the full one; and the large-K merge
+     ``torch.topk`` over the masked dense scores; the three-launch chain
+     beside each exact form's one launch; tables of 9, 40 and 100 rows in
+     one launch and in the chain at their narrowest chunk and at the full
+     one; and the large-K merge
      at K = 257, 512, 1,000 and 8,192 likewise;
  18. run the serve_retrieval twin on the card (train → publish, cluster,
      batcher, sharded eval, failover, canary rollout, IVF with int8 ψ).
@@ -140,7 +153,9 @@ rows (the device-memory merge).
 check (:func:`serve_first_runs`); ``--gram-tune`` only the Gram's variants
 (:func:`gram_tune`); ``--sweep-tune`` only the variants of
 ``csrc/cd_gather.cu`` (:func:`sweep_tune`: blocks an SM, slots a thread,
-the split-row form's chunk length, the residual patch's slots a thread).
+the split-row form's chunk length, the residual patch's slots a thread);
+``--topk-tune`` only the variants of the top-K kernel's one-launch form
+(:func:`topk_tune`: threads a block, blocks an SM, blocks a cluster).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -198,6 +213,26 @@ def ids_agree(s_ref, i_ref, i_got, s_next) -> None:
                              f"{got[r, c]} vs plain {ref[r, c]}")
 
 
+CHAIN_HELD = {"calls": 0}
+
+
+def hold_chain(ops, got, phi, psi, k, *args, **kw) -> None:
+    """The one-launch form's result ``got`` against the three-launch chain
+    it replaced on the same inputs, bit for bit (NaN and −0.0 included),
+    for K ≤ 256 (larger K takes the chain in both); counted in
+    CHAIN_HELD."""
+    from repro_torch.kernels import vmem
+
+    if vmem.topk_form(k) != vmem.TOPK_FUSED:
+        return
+    s, i = ops.topk_score(phi, psi, k, *args, form=vmem.TOPK_CHAIN, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(i, got[1]) and torch.equal(
+        s.view(torch.int32), got[0].view(torch.int32)), (
+        "the fused and chain forms differ", tuple(phi.shape), tuple(psi.shape), k)
+    CHAIN_HELD["calls"] += 1
+
+
 def check_random(ops, ref, gen, dev, exclude: bool) -> float:
     b, rows, d, k = (SERVE_SHAPE[x] for x in ("b", "rows", "d", "k"))
     phi = torch.randn((b, d), generator=gen, device=dev)
@@ -213,6 +248,8 @@ def check_random(ops, ref, gen, dev, exclude: bool) -> float:
     rs, ri = ref.topk_score_ref(phi, psi, k + 1, exclude_ids=eids,
                                 id_offset=off, n_valid=n_valid)
     torch.cuda.synchronize()
+    hold_chain(ops, (s, i), phi, psi, k, exclude_ids=eids, id_offset=off,
+               n_valid=n_valid)
     torch.testing.assert_close(s, rs[:, :k], rtol=RTOL, atol=ATOL)
     ids_agree(rs[:, :k], ri[:, :k], i, rs[:, k])
     if exclude:
@@ -248,6 +285,8 @@ def check_exact(ops, ref, rng, dev) -> None:
         rs, ri = ref.topk_score_ref(phi, psi, k, exclude_ids=eids,
                                     id_offset=off, n_valid=n_valid)
         torch.cuda.synchronize()
+        hold_chain(ops, (s, i), phi, psi, k, exclude_ids=eids, id_offset=off,
+                   n_valid=n_valid)
         assert torch.equal(i, ri), f"ids differ on integer case {b, rows, d, k}"
         assert torch.equal(s, rs), f"scores differ on integer case {b, rows, d, k}"
         if full:
@@ -284,6 +323,8 @@ def check_forms_random(ops, ref, gen, dev) -> dict:
         rs, ri = ref.topk_score_ref(phi, stored, k + 1, psi_scale=scale,
                                     id_offset=off, n_valid=n_valid)
         torch.cuda.synchronize()
+        hold_chain(ops, (s, i), phi, stored, k, psi_scale=scale, id_offset=off,
+                   n_valid=n_valid)
         torch.testing.assert_close(s, rs[:, :k], rtol=RTOL, atol=ATOL)
         ids_agree(rs[:, :k], ri[:, :k], i, rs[:, k])
         errs[name] = float((s - rs[:, :k]).abs().max())
@@ -296,6 +337,7 @@ def check_forms_random(ops, ref, gen, dev) -> dict:
         rs, ri = ref.topk_score_ref(phi, psi, k + 1, mask.contiguous(),
                                     id_offset=off, n_valid=n_valid)
         torch.cuda.synchronize()
+        hold_chain(ops, (s, i), phi, psi, k, mask, id_offset=off, n_valid=n_valid)
         torch.testing.assert_close(s, rs[:, :k], rtol=RTOL, atol=ATOL)
         ids_agree(rs[:, :k], ri[:, :k], i, rs[:, k])
         hit = torch.gather(mask, 1, torch.clamp(i - off, min=0).long()) & (i >= 0)
@@ -335,6 +377,8 @@ def check_forms_exact(ops, ref, rng, dev) -> None:
             rs, ri = ref.topk_score_ref(phi, psi, k, m, psi_scale=scale,
                                         id_offset=off, n_valid=n_valid)
             torch.cuda.synchronize()
+            hold_chain(ops, (s, i), phi, psi, k, m, psi_scale=scale,
+                       id_offset=off, n_valid=n_valid)
             assert torch.equal(i, ri), f"ids differ: {name} {b, rows, d, k}"
             assert torch.equal(s, rs), f"scores differ: {name} {b, rows, d, k}"
             if m is not None:
@@ -418,9 +462,10 @@ def device_ms(fn, n: int = 50) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
-def kernel_breakdown(fn, n: int = 20) -> str:
+def kernel_breakdown(fn, n: int = 20, as_list: bool = False):
     """Device time per call of each CUDA kernel ``fn`` launches, by name,
-    from torch.profiler; "not measured" when the profiler sees none."""
+    from torch.profiler; "not measured" when the profiler sees none (with
+    ``as_list``, the list of "name ms" parts)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -434,6 +479,8 @@ def kernel_breakdown(fn, n: int = 20) -> str:
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us > 0 and "topk" in ev.key and ev.device_type.name == "CUDA":
             parts.append(f"{ev.key.split('(')[0]} {us / n / 1e3:.4f} ms")
+    if as_list:
+        return parts
     return ", ".join(parts) or "not measured"
 
 
@@ -608,7 +655,66 @@ def hold_training_kernels(dev) -> dict:
     for hpkw in (dict(block_k=8), dict(block_k=8, psi_dispatch="pregather"),
                  dict(block_k=1), dict(block_k=0, eta=0.8)):
         small_epoch_on_card_vs_cpu(dev, hpkw)
+    err["long_rows"] = long_item_row_on_card_vs_cpu(dev)
     return err
+
+
+def long_item_row_on_card_vs_cpu(dev) -> dict:
+    """Phase 5, long rows (ROADMAP fault 3.3): MF with one item row of
+    20,001 slots (D_pad 20,096, k = 8, block_k 8), two ``mf_padded`` epochs
+    on the card — the item side in the gather sweep's split-row form with
+    the shared J, or, pre-gathered, the block-row form — against the same
+    epochs through the plain versions on the CPU, to the fused-vs-flat
+    tolerance (rtol 3e-4, atol 3e-5). Returns the max |error| by route."""
+    from repro_torch.core.models import mf, mf_padded
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(21)
+    n_ctx, n_items, k = 20_001, 5, 8
+    ctx = np.concatenate([np.arange(n_ctx), rng.integers(0, n_ctx, 3_000)])
+    item = np.concatenate([np.zeros(n_ctx, np.int64), rng.integers(1, n_items, 3_000)])
+    cells = np.unique(ctx * n_items + item)
+    ctx, item = cells // n_items, cells % n_items
+    y = rng.integers(1, 5, len(cells)).astype(np.float64)
+    alpha = 1.0 + rng.random(len(cells))
+    w0 = (0.1 * rng.normal(size=(n_ctx, k))).astype(np.float32)
+    h0 = (0.1 * rng.normal(size=(n_items, k))).astype(np.float32)
+    errs = {}
+    for route in ("gather", "pregather"):
+        gather = route == "gather"
+        hp = mf.MFHyperParams(k=k, alpha0=0.5, l2=0.1, block_k=8, psi_dispatch=route)
+        fn = cs.cd_block_sweep_gather if gather else cs.cd_block_sweep
+        out = {}
+        for where in ("cpu", dev):
+            data = build_interactions(ctx, item, y, alpha, n_ctx, n_items,
+                                      alpha0=0.5, device=where)
+            pdata = mf_padded.pad_interactions(data)
+            d_item = pdata.ctx_ids.shape[1]
+            p = mf.params_from_numpy(w0, h0, device=where)
+            e = mf_padded.residuals(p, pdata)
+            before = (fn.launches_split_row, fn.launches_block_row)
+            for _ in range(2):
+                p, e = mf_padded.epoch(p, pdata, e, hp)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                got = (fn.launches_split_row - before[0],
+                       fn.launches_block_row - before[1])
+                assert got == ((2, 2) if gather else (0, 2)), (route, got)
+            out[str(where)] = [t.cpu() for t in (p.w, p.h, e)]
+        form = vmem.cd_sweep_form(d_item, 8, gather=gather)
+        assert d_item == 20_096 and form == (vmem.SPLIT_ROW if gather else vmem.BLOCK_ROW)
+        for a, b_ in zip(out[str(dev)], out["cpu"]):
+            torch.testing.assert_close(a, b_, rtol=3e-4, atol=3e-5)
+        errs[route] = max(float((a - b_).abs().max())
+                          for a, b_ in zip(out[str(dev)], out["cpu"]))
+        log(f"phase 5 long rows: mf_padded, one item row at D_pad {d_item}, "
+            f"k_b 8, {route}: item side in the {form} form"
+            f"{' with the shared J' if gather else ''}, 2 epochs on the card "
+            f"against the CPU's plain versions, max |err| {errs[route]:.3g} "
+            f"(rtol 3e-4, atol 3e-5)")
+    return errs
 
 
 def small_epoch_on_card_vs_cpu(dev, hpkw) -> None:
@@ -1175,6 +1281,156 @@ def sweep_tune_rowpatch(libs) -> None:
             log(f"sweep-tune rowpatch C {c} D_pad {d} build {v}: "
                 + ", ".join(parts) + " ms")
         del x, es, rw, re, psi
+
+
+# --topk-tune: builds of csrc/topk_score.cu, each (threads a block, blocks
+# an SM in __launch_bounds__ and in the grid, blocks a cluster) of the
+# one-launch exact form; the first is vmem's
+TOPK_TUNE = ((512, 2, 8), (512, 1, 8), (512, 2, 4), (512, 2, 16), (256, 2, 8),
+             (256, 3, 8))
+
+
+# --topk-tune's stage split: builds of csrc/topk_score.cu that stop the
+# one-launch form after a stage (each a (name, anchor, text inserted before
+# the anchor)), timed at the serving shard: the difference between two
+# consecutive builds is the time of the stage between them
+TOPK_STAGES = (
+    ("launch", "    cg::cluster_group cluster = cg::this_cluster();\n",
+     "    if (B == -1) out_s[0] = 1.f;\n    return;\n"),
+    ("scoring", "    for (int rr = warp; rr < TOPK_ROWS; rr += TF_WARPS) {\n"
+                "        const key_t64* kr = keys + rr * KEY_PITCH;\n",
+     "    if (keys[t] == 1ull) out_s[0] = 1.f;\n    return;\n"),
+    ("bound", "    __syncthreads();\n    // later chunks (tables past the grid)",
+     "    cluster.sync();\n    if (thr_s[t % TOPK_ROWS] == 1ull) out_s[0] = 1.f;\n    return;\n"),
+    ("survivors", "    // the cluster's lists are complete: block q merges rows",
+     "    cluster.sync();\n    if (lists[t] == 1ull) out_s[0] = 1.f;\n    return;\n"),
+    ("cluster merge", "    if (n_clusters == 1) {\n        if (live && s == 0) decode_row",
+     "    if (live && s == 0 && merged[lane] == 1ull) out_s[0] = 1.f;\n    return;\n"),
+)
+
+
+def _topk_stage_sources(build_dir) -> list:
+    """(stage, path) of TOPK_STAGES' stop-after builds of the source; the
+    bound's build also skips the survivors' selection."""
+    from repro_torch.kernels.topk_score import kernel
+
+    src = kernel.LIB.source.read_text()
+    out = []
+    for name, anchor, text in TOPK_STAGES:
+        assert src.count(anchor) == 1, name
+        body = src.replace(anchor, text + anchor)
+        if name == "bound":  # stop before the survivors are kept
+            sel = "        select_row(rr, bound, true);\n"
+            assert body.count(sel) == 1
+            body = body.replace(sel, "")
+        path = build_dir / f"topk_score_until_{name.replace(' ', '_')}.cu"
+        path.write_text(body)
+        out.append((name, path))
+    return out
+
+
+def topk_tune() -> None:
+    """Build each of TOPK_TUNE's variants of ``csrc/topk_score.cu`` (all
+    nvcc at once) and time its one-launch form at the serving shard (B =
+    16, 34,000 × 128 fp32, K = 100; with and without 20 excluded ids a
+    row), at B = 64, and over 200,000 rows (blocks walk several chunks),
+    each held bit for bit against the three-launch chain, beside the
+    chain's time, with the fused kernel's registers and spills."""
+    from repro_torch.kernels import build, vmem
+    from repro_torch.kernels.build import CudaLibrary
+    from repro_torch.kernels.topk_score import kernel, ops
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    log(f"topk-tune on {smi.stdout.strip()}")
+    libs = []
+    for threads, mb, cl in TOPK_TUNE:
+        defines = dict(kernel.DEFINES, TOPK_FUSED_THREADS=threads,
+                       TOPK_FUSED_MIN_BLOCKS=mb, TOPK_FUSED_CLUSTER=cl)
+        libs.append(CudaLibrary("topk_score", kernel.LIB.source,
+                                defines=defines, bind=kernel._bind))
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stages = [(name, CudaLibrary("topk_score", path, defines=kernel.DEFINES,
+                                 bind=kernel._bind))
+              for name, path in _topk_stage_sources(build.BUILD_DIR)]
+    t0 = time.perf_counter()
+    build.build_all([kernel.LIB, *libs, *(lib for _, lib in stages)])
+    log(f"topk-tune build: {len(libs) + len(stages) + 1} libraries in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d, k = 128, 100
+    shapes = []
+    for b, rows, n_excl in ((16, 34_000, 0), (16, 34_000, 20), (64, 34_000, 0),
+                            (16, 200_000, 0)):
+        phi = torch.randn((b, d), generator=gen, device=dev)
+        tabs = [torch.randn((rows, d), generator=gen, device=dev)
+                for _ in range(max(2, 4 * 34_000 // rows))]
+        eids = (torch.randint(0, rows, (b, n_excl), generator=gen, device=dev,
+                              dtype=torch.int32) if n_excl else None)
+        chain_ms = device_ms(lambda j: ops.topk_score(
+            phi, tabs[j % len(tabs)], k, exclude_ids=eids, form="chain"))
+        want = ops.topk_score(phi, tabs[0], k, exclude_ids=eids, form="chain")
+        shapes.append((f"B {b} x {rows} rows, {n_excl} excluded ids", phi, tabs,
+                       eids, want, chain_ms))
+    for (threads, mb, cl), lib in zip(TOPK_TUNE, libs):
+        regs = ""
+        lines = lib.build_log.splitlines()
+        for n, ln in enumerate(lines):
+            if "Compiling entry" in ln and "topk_fused_kernelIfLb1E" in ln:
+                regs = " ".join(x.split(":")[-1].strip() for x in lines[n + 1:n + 4]
+                                if "registers" in x or "spill" in x)
+        parts = []
+        for label, phi, tabs, eids, want, chain_ms in shapes:
+            b = phi.shape[0]
+            n_blocks = vmem.topk_fused_blocks(tabs[0].shape[0], sms,
+                                              min_blocks=mb, cluster=cl)
+            cand = torch.empty((n_blocks // cl, b, vmem.topk_k_pad(k)),
+                               dtype=torch.int64, device=dev)
+            counters = torch.zeros(-(-b // vmem.TOPK_ROW_BLOCK), dtype=torch.int32,
+                                   device=dev)
+            out = (torch.empty((b, k), device=dev),
+                   torch.empty((b, k), dtype=torch.int32, device=dev))
+
+            def call(j, tabs=tabs, phi=phi, eids=eids, n_blocks=n_blocks,
+                     cand=cand, counters=counters, out=out):
+                kernel.launch_fused(phi, tabs[j % len(tabs)], None, eids, None, 0,
+                                    k, vmem.topk_k_pad(k), n_blocks, 0,
+                                    tabs[j % len(tabs)].shape[0], out[0], out[1],
+                                    cand, counters, lib=lib)
+            call(0)
+            torch.cuda.synchronize()
+            same = torch.equal(out[1], want[1]) and torch.equal(out[0], want[0])
+            ms = device_ms(call)
+            parts.append(f"{label}: {ms:.4f} ms ({n_blocks} blocks; chain "
+                         f"{chain_ms:.4f}; equal {same})")
+            assert same, (threads, mb, cl, label)
+        log(f"topk-tune threads {threads}, {mb} blocks an SM, clusters of {cl} "
+            f"[{regs}]: " + "; ".join(parts))
+    # where one launch's time goes at the serving shard (vmem's build)
+    label, phi, tabs, eids, want, chain_ms = shapes[0]
+    b, rows = phi.shape[0], tabs[0].shape[0]
+    n_blocks = vmem.topk_fused_blocks(rows, sms)
+    cand = torch.empty((n_blocks // vmem.TOPK_FUSED_CLUSTER, b, vmem.topk_k_pad(k)),
+                       dtype=torch.int64, device=dev)
+    counters = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = (torch.empty((b, k), device=dev),
+           torch.empty((b, k), dtype=torch.int32, device=dev))
+    until = []
+    for name, lib in [*stages, ("the last cluster's merge", kernel.LIB)]:
+        def call(j, lib=lib):
+            kernel.launch_fused(phi, tabs[j % len(tabs)], None, None, None, 0, k,
+                                vmem.topk_k_pad(k), n_blocks, 0, rows, out[0],
+                                out[1], cand, counters, lib=lib)
+        call(0)
+        torch.cuda.synchronize()
+        until.append((name, device_ms(call)))
+    split = [f"{name} {t - (until[i - 1][1] if i else 0.0):.4f}"
+             for i, (name, t) in enumerate(until)]
+    log(f"topk-tune stage split of one launch at {label} (ms a stage, from "
+        f"builds that stop after it; the bound's build keeps no survivor): "
+        f"{', '.join(split)}; whole call {until[-1][1]:.4f} ms")
 
 
 def bound(nbytes: float, flops: float):
@@ -1826,8 +2082,7 @@ def hold_slab(cs, cr, x) -> dict:
     for name, first in (("cd_slab_reduce_gather", (tab, ids)),
                         ("cd_slab_reduce", (psi,))):
         fn = getattr(cs, name)
-        one_tile = vmem.cd_slab_reduce_form(
-            tab.shape[1], gather=len(first) == 2) == vmem.SLAB_ONE_TILE
+        one_tile = vmem.cd_slab_reduce_form(tab.shape[1]) == vmem.SLAB_ONE_TILE
         before = (fn.launches, fn.launches_one_tile)
         q, p = fn(*first, alpha, e)
         q2, p2 = fn(*first, alpha, e)
@@ -1953,6 +2208,8 @@ def train_mfsi_full_width(dev) -> dict:
         out = {c.__name__: c.launches for c in counters}
         out["cd_slab_reduce_gather:one_tile"] = cs.cd_slab_reduce_gather.launches_one_tile
         out["cd_resid_patch_gather:reg_slots"] = cs.cd_resid_patch_gather.launches_reg_slots
+        if cs.cd_slab_reduce.launches:  # the pregather route: its one-tile form
+            out["cd_slab_reduce:one_tile"] = cs.cd_slab_reduce.launches_one_tile
         return out
 
     objs = [float(mfsi.objective(params0, x, z, data, hp))]
@@ -1992,9 +2249,11 @@ def train_mfsi_full_width(dev) -> dict:
     torch.cuda.synchronize()
     pre_s, pre_launches = time.perf_counter() - t, counts()
     assert pre_launches["cd_slab_reduce"] == 2 * nb and \
+        pre_launches["cd_slab_reduce:one_tile"] == 2 * nb and \
         pre_launches["cd_resid_patch"] == 2 * nb and \
         pre_launches["cd_slab_reduce_gather"] == 0, pre_launches
     d_pre = _hold_params(pp, pg, ep_, eg)
+    obj_pre = float(mfsi.objective(pp, x, z, data, hp))
     del pp, ep_
     t = time.perf_counter()
     pf, ef = mfsi.epoch(params0, x, z, data,
@@ -2004,7 +2263,10 @@ def train_mfsi_full_width(dev) -> dict:
     d_flat = _hold_params(pf, pg, ef, eg[pdata.c_rows, pdata.c_cols])
     del pf, ef
     log(f"phase 14 one epoch from one start: gather {epoch_s[0]:.3f}s, "
-        f"pregather {pre_s:.3f}s (max |d param| {d_pre:.3g}), flat mfsi.epoch "
+        f"pregather {pre_s:.3f}s (slab reduce one-tile in all "
+        f"{pre_launches['cd_slab_reduce:one_tile']} launches; objective "
+        f"{obj_pre:.6g}, the gather epoch's {objs[1]:.6g}; max |d param| "
+        f"{d_pre:.3g}), flat mfsi.epoch "
         f"{flat_s:.3f}s (max |d param| {d_flat:.3g}); rtol {TENSOR_RTOL} atol "
         f"{TENSOR_ATOL} (e atol {TENSOR_E_ATOL})")
     e0 = mfsi.residuals_padded(params0, x, z, data, pdata)
@@ -2091,8 +2353,9 @@ def time_slab_kernels(dev, pdata) -> dict:
         }
         q_t, p_t = torch.empty((c, m), device=dev), torch.empty((c, m, m), device=dev)
 
-        def tiled(i):  # the tiled gather form the one-tile form replaced
-            ck.slab_reduce(None, tab, ids, alpha, es[i % 2], q_t, p_t)
+        def tiled(i, gather=True):  # the tiled form the one-tile form replaced
+            ck.slab_reduce(None if gather else psi, tab if gather else None,
+                           ids if gather else None, alpha, es[i % 2], q_t, p_t)
             return q_t, p_t
 
         def one_slot(i):  # the gather patch the register-slot form replaced
@@ -2109,13 +2372,14 @@ def time_slab_kernels(dev, pdata) -> dict:
             r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
             lib_txt = f"{r['lib'][-1]:.4f} ms" if lib else "— (none: a gather comes first)"
             form = ""
-            if name == "cd_slab_reduce_gather":
+            if name in ("cd_slab_reduce", "cd_slab_reduce_gather"):
                 q_n, p_n = fn(0)
-                q_o, p_o = tiled(0)
+                q_o, p_o = tiled(0, gather)
                 torch.cuda.synchronize()
                 same = torch.equal(q_n, q_o) and torch.equal(p_n, p_o)
+                assert same, f"{name}: one-tile and tiled forms differ"
                 gap = max(float((q_n - q_o).abs().max()), float((p_n - p_o).abs().max()))
-                r["tiled"].append(device_ms(tiled, n=20))
+                r["tiled"].append(device_ms(lambda i: tiled(i, gather), n=20))
                 form = (f", form {cost['form']} ({vmem.cd_slab_reduce_lanes(d)} "
                         f"lanes a row; against the tiled form max |d| {gap:.3g}, "
                         f"equal bit for bit: {same}); the tiled form it replaced "
@@ -2408,14 +2672,20 @@ def serve_ivf_full_width(dev, params, pdata) -> dict:
 
 
 def _time_form(ops, tref, phi, tables, k, *, scale_of=None, mask=None,
-               n_valid=None, block_items=None, n=50):
+               n_valid=None, block_items=None, n=50, chain=None):
     """(kernel ms, plain ms, yardstick ms) of one top-K form, rotating over
-    ``tables`` (their total past the L2 cache where they are large)."""
+    ``tables`` (their total past the L2 cache where they are large); with
+    ``chain`` (a dict), also the three-launch chain's time, in
+    ``chain["ms"]``."""
     sc = scale_of or (lambda j: None)
     kw = dict(n_valid=n_valid)
     kern = device_ms(lambda j: ops.topk_score(
         phi, tables[j % len(tables)], k, mask, psi_scale=sc(j),
         block_items=block_items, **kw), n=n)
+    if chain is not None:
+        chain["ms"] = device_ms(lambda j: ops.topk_score(
+            phi, tables[j % len(tables)], k, mask, psi_scale=sc(j),
+            form="chain", **kw), n=n)
     plain = device_ms(lambda j: tref.topk_score_ref(
         phi, tables[j % len(tables)], k, mask, psi_scale=sc(j), **kw), n=n)
 
@@ -2448,10 +2718,15 @@ def time_topk_forms(dev, ivf) -> dict:
     quant = [int8_quantize_rows(t) for t in fp32]
     out = {}
 
+    chain = {}
+
     def put(name, t, nbytes, flops, label):
         bms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
         by = "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS else "operations"
         out[name] = dict(ms=t[0], plain=t[1], lib=t[2], bound=bms, bound_by=by)
+        if "ms" in chain:
+            out[name]["chain"] = chain.pop("ms")
+            label += f" (one launch; the three-launch chain {out[name]['chain']:.4f} ms)"
         log(f"phase 17 time {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
             f"yardstick torch.topk(phi @ deq(psi).T) {t[2]:.4f} ms, bound "
             f"{bms:.4f} ms ({by}: {nbytes:.0f} B, {flops:.0f} FLOP)")
@@ -2462,23 +2737,25 @@ def time_topk_forms(dev, ivf) -> dict:
         c = topk_score_cost(b, n_rows, d, k_, **kw)
         return c["hbm_bytes"], c["flops"]
 
-    put("fp32", _time_form(ops, tref, phi, fp32, k), *cost(rows, k),
+    put("fp32", _time_form(ops, tref, phi, fp32, k, chain=chain), *cost(rows, k),
         "fp32 psi (34,000 x 128)")
     # distinct copies, so that the rotation's total passes the 50 MB L2
     bf = [fp32[j % 4].bfloat16() for j in range(12)]
-    put("bf16", _time_form(ops, tref, phi, bf, k), *cost(rows, k, psi_bytes=2),
-        "bf16 psi")
+    put("bf16", _time_form(ops, tref, phi, bf, k, chain=chain),
+        *cost(rows, k, psi_bytes=2), "bf16 psi")
     q8 = [quant[j % 4][0].clone() for j in range(24)]
-    put("int8", _time_form(ops, tref, phi, q8, k,
+    put("int8", _time_form(ops, tref, phi, q8, k, chain=chain,
                            scale_of=lambda j: quant[j % 4][1]),
         *cost(rows, k, psi_bytes=1, per_row_scale=True),
         "int8 psi + per-row scale")
     del bf, q8
     mask = torch.rand((b, rows), generator=gen, device=dev) < 0.01
-    put("mask", _time_form(ops, tref, phi, fp32, k, mask=mask),
+    put("mask", _time_form(ops, tref, phi, fp32, k, mask=mask, chain=chain),
         *cost(rows, k, mask=True), "fp32 psi, dense (16, 34,000) bool mask")
     for name, e in time_ivf_form(dev, ivf, put).items():
         out[name]["err"] = e
+    put("k256", _time_form(ops, tref, phi, fp32, 256, chain=chain),
+        *cost(rows, 256), "fp32 psi, K = 256 (the one-launch form's largest K)")
     out["small"] = time_small_tables(dev, phi)
     put("k10000", _time_form(ops, tref, phi, fp32, 10_000, n=10),
         *cost(rows, 10_000), "fp32 psi, K = 10,000 (device-memory merge)")
@@ -2550,10 +2827,10 @@ def time_ivf_form(dev, ivf, put) -> dict:
 
 
 def time_small_tables(dev, phi) -> dict:
-    """Phase 17, the chunk of small tables: ``topk_score`` over n rows at
-    B = 1 and 16, K = 10, in the narrowest chunk that holds the table (at
-    least 32 rows and k_pad) and in the kernel's full chunk (256, the
-    wrapper's choice, ``vmem.topk_block_items``)."""
+    """Phase 17, small tables: ``topk_score`` over n rows at B = 1 and 16,
+    K = 10, in the one-launch form, and in the chain it replaced at the
+    narrowest chunk that holds the table (at least 32 rows and k_pad) and
+    at the full chunk (256, ``vmem.topk_block_items``)."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.topk_score import ops
 
@@ -2566,11 +2843,13 @@ def time_small_tables(dev, phi) -> dict:
         chunk = max(32, vmem.topk_k_pad(10), 1 << (n - 1).bit_length())
         for b in (1, 16):
             t = [device_ms(lambda j: ops.topk_score(phi[:b], tables[j % 4], 10,
-                                                    block_items=ch))
+                                                    block_items=ch, form="chain"))
                  for ch in (chunk, vmem.TOPK_MAX_CHUNK)]
-            out[(n, b)] = (chunk, *t)
-            parts.append(f"n {n} B {b}: chunk {chunk} {t[0]:.4f} ms, "
-                         f"chunk {vmem.TOPK_MAX_CHUNK} {t[1]:.4f} ms")
+            fused = device_ms(lambda j: ops.topk_score(phi[:b], tables[j % 4], 10))
+            out[(n, b)] = (chunk, *t, fused)
+            parts.append(f"n {n} B {b}: one launch {fused:.4f} ms; chain at "
+                         f"chunk {chunk} {t[0]:.4f} ms, chunk "
+                         f"{vmem.TOPK_MAX_CHUNK} {t[1]:.4f} ms")
     log("phase 17 small tables (K = 10): " + "; ".join(parts))
     return out
 
@@ -2662,7 +2941,10 @@ def main() -> None:
         f"mask (whole and a middle shard's strided slice) "
         f"{form_errs['mask']:.3g} (rtol {RTOL}, atol {ATOL}); small-integer "
         f"int8 (scale 1), bf16 (|x| <= 256), ties across chunks, fully "
-        f"masked rows, and K = 8193, 10000, 20000 over 40000 rows exact")
+        f"masked rows, and K = 8193, 10000, 20000 over 40000 rows exact; "
+        f"the one-launch form equal bit for bit to the three-launch chain in "
+        f"all {CHAIN_HELD['calls']} calls at K <= 256 (fp32, bf16, int8, "
+        f"mask)")
 
     # 3. the serving path at full icd-mf width. A first, shorter run of the
     # same driver takes the process's one-time costs (CUDA modules load at
@@ -2671,15 +2953,18 @@ def main() -> None:
     # ran before it; the timed run then measures serving alone
     warm = check_serve(ref, serve, SERVE_ARGV + ["--requests", "32"], dev)
     ops.topk_score.launches = 0
+    ops.topk_score.launches_chain = 0
     report = check_serve(ref, serve, SERVE_ARGV + ["--requests", "256"], dev)
     launches = ops.topk_score.launches
     ms = report["mesh_stats"]
     assert launches >= 1 and launches == ms["dispatches"] - ms["faults"], (
         "every successful mesh dispatch must launch the kernel once",
         launches, dict(ms))
+    assert ops.topk_score.launches_chain == 0, "the serving path took the chain"
     flushes = report["batcher_stats"]["flushes"]
     log(f"phase 3 serve: 256 requests, {flushes} flushes, "
-        f"{launches} kernel launches ({launches / flushes:.2f} per flush), "
+        f"{launches} kernel launches, all in the one-launch form "
+        f"({launches / flushes:.2f} per flush), "
         f"{ms['dispatches']} dispatches, {ms['faults']} faults, "
         f"coverage 1.0, 16 users match the plain recompute; "
         f"{256 / report['seconds']:.1f} req/s (after a 32-request warm-up "
@@ -2695,12 +2980,33 @@ def main() -> None:
     def serve_call(j):
         return ops.topk_score(phi, slabs[j % 4], k, id_offset=rows, n_valid=rows)
 
+    def chain_call(j):  # the three-launch chain the one-launch form replaced
+        return ops.topk_score(phi, slabs[j % 4], k, id_offset=rows,
+                              n_valid=rows, form="chain")
+
+    eids = torch.randint(rows, 2 * rows, (b, 20), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+    def excl_call(j):  # the serving trace's form: up to 20 excluded ids a row
+        return ops.topk_score(phi, slabs[j % 4], k, exclude_ids=eids,
+                              id_offset=rows, n_valid=rows)
+
     kernel_ms = device_ms(serve_call)
+    chain_ms = device_ms(chain_call)
+    excl_ms = device_ms(excl_call)
+    excl_chain_ms = device_ms(lambda j: ops.topk_score(
+        phi, slabs[j % 4], k, exclude_ids=eids, id_offset=rows, n_valid=rows,
+        form="chain"))
     plain_ms = device_ms(lambda j: ref.topk_score_ref(
         phi, slabs[j % 4], k, id_offset=rows, n_valid=rows))
     library_ms = device_ms(lambda j: torch.topk(phi @ slabs[j % 4].T, k))
-    log(f"phase 4 breakdown (torch.profiler, per call): "
-        f"{kernel_breakdown(serve_call)}")
+    parts = kernel_breakdown(serve_call, as_list=True)
+    assert len(parts) == 1 and "topk_fused_kernel" in parts[0], (
+        "the one-launch form must show one kernel a call", parts)
+    log(f"phase 4 breakdown (torch.profiler, per call): {parts[0]} (one "
+        f"kernel a call); the chain it replaced: {kernel_breakdown(chain_call)}")
+    log(f"phase 4 time, 20 excluded ids a row (the serving trace's form): "
+        f"one launch {excl_ms:.4f} ms, the chain {excl_chain_ms:.4f} ms")
     # the large-K path at the same shard (K = 1,000: whole sorted chunks,
     # pairwise merge levels in device memory)
     wide_ms = device_ms(lambda j: ops.topk_score(phi, slabs[j % 4], 1_000,
@@ -2715,14 +3021,16 @@ def main() -> None:
     flops = 2 * b * rows * d
     bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS else "operations"
-    log(f"phase 4 time: topk_score {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"phase 4 time: topk_score {kernel_ms:.4f} ms in one launch (the "
+        f"three-launch chain it replaced {chain_ms:.4f} ms in the same call), "
+        f"plain {plain_ms:.4f} ms, "
         f"torch.topk(phi @ psi.T) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes} B, {flops} FLOP); phase 3's {launches} launches "
         f"at this time are {launches * kernel_ms:.3f} ms of its "
         f"{report['seconds'] * 1e3:.3f} ms trace "
         f"({100 * launches * kernel_ms / (report['seconds'] * 1e3):.1f}%)")
 
-    del phi, slabs, report, warm
+    del phi, slabs, report, warm, eids
 
     # 5.-8. the training slice
     t0 = time.perf_counter()
@@ -2867,5 +3175,7 @@ if __name__ == "__main__":
         gram_tune()
     elif sys.argv[1:] == ["--sweep-tune"]:
         sweep_tune()
+    elif sys.argv[1:] == ["--topk-tune"]:
+        topk_tune()
     else:
         main()

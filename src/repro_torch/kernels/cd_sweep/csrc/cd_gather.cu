@@ -348,15 +348,49 @@ __device__ __forceinline__ int reduced_index(int k, int lane) {
 
 // Adds to acc the 44 moments (Q_a, and P(a, b) for a ≤ b) of the slots
 // d = d_first, d_first + STEP, … < d_end of the row at offset g, m ≤ CDG_KB
-// columns (zeros beyond), CDG_SLAB_INFLIGHT slots gathered at a time.
-template <int STEP>
+// columns (zeros beyond), CDG_SLAB_INFLIGHT slots at a time. A slot's m
+// values are gathered through ids from the slab (TILE false) or read from
+// the row's (m, D) block of the pre-gathered (C, m, D) tile (TILE true:
+// column a of slot d at tile[g·m + a·D + d], coalesced across the lanes).
+template <int STEP, bool TILE = false>
 __device__ __forceinline__ void add_moments(float (&acc)[CDG_NSUM], const float* __restrict__ tab,
                                             long long ld_tab, int n_src, int vec,
                                             const int* __restrict__ ids,
                                             const float* __restrict__ alpha,
                                             const float* __restrict__ e, size_t g, int d_first,
-                                            int d_end, int m) {
+                                            int d_end, int m, const float* __restrict__ tile = nullptr,
+                                            int D = 0) {
     constexpr int U = CDG_SLAB_INFLIGHT;
+    if constexpr (TILE) {
+        // every load is independent of the others: a chunk's U slots issue
+        // their α, e and m values at once
+        const float* tr = tile + g * m;
+        for (int d0 = d_first; d0 < d_end; d0 += U * STEP) {
+            float al[U], ae[U], x[U][CDG_KB];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int d = d0 + u * STEP;
+                const bool in = d < d_end;
+                al[u] = in ? alpha[g + d] : 0.f;
+                ae[u] = in ? e[g + d] : 0.f;
+#pragma unroll
+                for (int a = 0; a < CDG_KB; ++a)
+                    x[u][a] = in && a < m ? __ldg(tr + (size_t)a * D + d) : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                ae[u] = al[u] * ae[u];
+#pragma unroll
+                for (int a = 0; a < CDG_KB; ++a) {
+                    acc[q_at(a)] += x[u][a] * ae[u];
+                    const float api = al[u] * x[u][a];
+#pragma unroll
+                    for (int b = a; b < CDG_KB; ++b) acc[p_at(a, b)] += api * x[u][b];
+                }
+            }
+        }
+        return;
+    }
     // the next chunk's ids, α and e load while this chunk's ψ rows are
     // gathered: one round trip a chunk, not two
     int idn[U];
@@ -396,15 +430,17 @@ __device__ __forceinline__ void add_moments(float (&acc)[CDG_NSUM], const float*
     }
 }
 
-template <int LANES>
+// TILE: the pre-gathered form, ψ from the (C, m, D) tile (tab, ids unused).
+template <int LANES, bool TILE>
 __global__ void __launch_bounds__(CDG_THREADS, CDG_SLAB_MIN_BLOCKS)
-cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
-                                 int vec, const int* __restrict__ ids,  // (C, D)
-                                 const float* __restrict__ alpha,       // (C, D)
-                                 const float* __restrict__ e,           // (C, D)
-                                 float* __restrict__ q_out,             // (C, m)
-                                 float* __restrict__ p_out,             // (C, m, m)
-                                 int C, int D, int m) {
+cd_slab_reduce_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
+                          int vec, const int* __restrict__ ids,  // (C, D)
+                          const float* __restrict__ tile,        // (C, m, D)
+                          const float* __restrict__ alpha,       // (C, D)
+                          const float* __restrict__ e,           // (C, D)
+                          float* __restrict__ q_out,             // (C, m)
+                          float* __restrict__ p_out,             // (C, m, m)
+                          int C, int D, int m) {
     constexpr int ROWS = CDG_THREADS / LANES;
     static_assert(LANES <= 32 && 32 % LANES == 0, "a row's lanes share a warp");
     const int lane = threadIdx.x & 31, t = threadIdx.x % LANES;
@@ -415,7 +451,7 @@ cd_slab_reduce_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab
     float acc[CDG_NSUM];
 #pragma unroll
     for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
-    add_moments<LANES>(acc, tab, ld_tab, n_src, vec, ids, alpha, e, g, t, D, m);
+    add_moments<LANES, TILE>(acc, tab, ld_tab, n_src, vec, ids, alpha, e, g, t, D, m, tile, D);
 
     transpose_reduce<CDG_NSUM, LANES / 2>(acc, lane);
     if (!live) return;
@@ -658,24 +694,30 @@ extern "C" int cd_sweep_gather_reg_f32(const float* tab, long long ld_tab, int n
     return (int)cudaErrorInvalidValue;
 }
 
-// As csrc/cd_slab.cu's cd_slab_reduce_f32 in the gather form, for m ≤ 8;
-// lanes (8, 16 or 32) threads own a row.
-extern "C" int cd_slab_reduce_gather_reg_f32(const float* tab, long long ld_tab, int n_src,
-                                             const int* ids, const float* alpha, const float* e,
-                                             float* q_out, float* p_out, int C, int D, int m,
-                                             int lanes, void* stream) {
-    if (C < 0 || D < 1 || m < 1 || m > CDG_KB || n_src < 1 || ld_tab < m || tab == nullptr ||
-        ids == nullptr || alpha == nullptr || e == nullptr || q_out == nullptr ||
-        p_out == nullptr)
+// As csrc/cd_slab.cu's cd_slab_reduce_f32 for m ≤ 8: the gather form (tab,
+// ids; psi_blk null) or the pre-gathered form (psi_blk (C, m, D)
+// contiguous; tab, ids null); lanes (8, 16 or 32) threads own a row.
+extern "C" int cd_slab_reduce_reg_f32(const float* psi_blk, const float* tab, long long ld_tab,
+                                      int n_src, const int* ids, const float* alpha,
+                                      const float* e, float* q_out, float* p_out, int C, int D,
+                                      int m, int lanes, void* stream) {
+    const bool tile = psi_blk != nullptr;
+    if (C < 0 || D < 1 || m < 1 || m > CDG_KB || alpha == nullptr || e == nullptr ||
+        q_out == nullptr || p_out == nullptr ||
+        (!tile && (n_src < 1 || ld_tab < m || tab == nullptr || ids == nullptr)))
         return (int)cudaErrorInvalidValue;
     if (C == 0) return (int)cudaSuccess;
-    const int vec = vec_loads(tab, ld_tab, m);
+    const int vec = tile ? 0 : vec_loads(tab, ld_tab, m);
     cudaStream_t st = (cudaStream_t)stream;
 #define CDG_SLAB_CASE(L)                                                                      \
     if (lanes == L) {                                                                         \
         constexpr int rows = CDG_THREADS / L;                                                 \
-        cd_slab_reduce_gather_reg_kernel<L><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>(   \
-            tab, ld_tab, n_src, vec, ids, alpha, e, q_out, p_out, C, D, m);                   \
+        if (tile)                                                                             \
+            cd_slab_reduce_reg_kernel<L, true><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>( \
+                tab, ld_tab, n_src, vec, ids, psi_blk, alpha, e, q_out, p_out, C, D, m);      \
+        else                                                                                  \
+            cd_slab_reduce_reg_kernel<L, false><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>( \
+                tab, ld_tab, n_src, vec, ids, psi_blk, alpha, e, q_out, p_out, C, D, m);      \
         return (int)cudaGetLastError();                                                       \
     }
     CDG_SLAB_CASE(8)

@@ -9,11 +9,11 @@ source (so ``build_all`` compiles them at once):
     both launch forms (warp-row, block-row; ``kernels/vmem.cd_sweep_form``).
   * ``csrc/cd_slab.cu`` (:data:`SLAB_LIB`) — the feature models' slab
     reduce and rank-m residual patch, each in both ψ routings.
-  * ``csrc/cd_gather.cu`` (:data:`GATHER_LIB`) — the redesigned gather
-    forms: the sweep's register-row form (shared J or per-row patch) and
+  * ``csrc/cd_gather.cu`` (:data:`GATHER_LIB`) — the redesigned forms: the
+    gather sweep's register-row form (shared J or per-row patch) and
     split-row form (long rows, three launches), the slab reduce's one-tile
-    form and the residual patch's register-slot form (m ≤ 8); their sizes
-    come from ``kernels/vmem`` as ``-D`` flags."""
+    form in both ψ routings and the gather residual patch's register-slot
+    form (m ≤ 8); their sizes come from ``kernels/vmem`` as ``-D`` flags."""
 from __future__ import annotations
 
 import ctypes
@@ -63,9 +63,9 @@ def _bind_gather(lib) -> None:
                                            ll, ll, ll, p, p, p, i, i, i, f, f,
                                            f, i, p]
     lib.cd_sweep_split_row_f32.restype = i
-    lib.cd_slab_reduce_gather_reg_f32.argtypes = [p, ll, i, p, p, p, p, p, i,
-                                                  i, i, i, p]
-    lib.cd_slab_reduce_gather_reg_f32.restype = i
+    lib.cd_slab_reduce_reg_f32.argtypes = [p, p, ll, i, p, p, p, p, p, i, i,
+                                           i, i, p]
+    lib.cd_slab_reduce_reg_f32.restype = i
     lib.cd_resid_patch_gather_reg_f32.argtypes = [p, ll, i, p, p, p, ll, i, i,
                                                   i, p]
     lib.cd_resid_patch_gather_reg_f32.restype = i
@@ -177,18 +177,22 @@ def launch_split(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, part,
 
 
 def slab_reduce_reg(psi_tab, ids, alpha, e, q_out, p_out, *, lanes: int,
-                    lib=None) -> None:
-    """Enqueue one gather slab reduce in the one-tile form (m ≤ 8),
-    ``lanes`` threads a row (``vmem.cd_slab_reduce_lanes``); as
+                    psi_blk=None, lib=None) -> None:
+    """Enqueue one slab reduce in the one-tile form (m ≤ 8), ``lanes``
+    threads a row (``vmem.cd_slab_reduce_lanes``): ψ gathered from
+    ``psi_tab`` through ``ids``, or, with ``psi_blk`` (C, m, D_pad) given
+    (``psi_tab`` and ``ids`` None), read from the pre-gathered tile; as
     :func:`slab_reduce` otherwise."""
     lib = lib or GATHER_LIB
-    fn = lib.load().cd_slab_reduce_gather_reg_f32
+    fn = lib.load().cd_slab_reduce_reg_f32
     c, d = alpha.shape
+    gather = psi_tab is not None
     with torch.cuda.device(alpha.device):
-        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
-                _ptr(alpha), _ptr(e), _ptr(q_out), _ptr(p_out), c, d,
-                q_out.shape[1], lanes, _stream(alpha))
-    lib.check(rc, "cd_slab_reduce_gather_reg")
+        rc = fn(_ptr(psi_blk), _ptr(psi_tab), _ld(psi_tab) if gather else 0,
+                psi_tab.shape[0] if gather else 0, _ptr(ids), _ptr(alpha),
+                _ptr(e), _ptr(q_out), _ptr(p_out), c, d, q_out.shape[1], lanes,
+                _stream(alpha))
+    lib.check(rc, "cd_slab_reduce_reg")
 
 
 def slab_reduce(psi_blk, psi_tab, ids, alpha, e, q_out, p_out) -> None:

@@ -20,9 +20,10 @@ thread block a row) for the pre-gathered one. A wrapper's ``launches``
 counts its calls that launch (one launch chain each),
 ``launches_reg_row`` those in the register-row form,
 ``launches_block_row`` those on long rows (the block-row or split-row
-form) and ``launches_split_row`` those in the split-row form. A gather slab
-reduce at m ≤ 8 takes the one-tile form (``vmem.cd_slab_reduce_form``),
-counted in ``launches_one_tile``; a gather residual patch at m ≤ 8 on a
+form) and ``launches_split_row`` those in the split-row form. A slab
+reduce at m ≤ 8, gather or pre-gathered, takes the one-tile form
+(``vmem.cd_slab_reduce_form``), counted in ``launches_one_tile``; a
+gather residual patch at m ≤ 8 on a
 grid of D_pad % 4 == 0 whose ids and e start 16-byte aligned takes the
 register-slot form (``vmem.cd_resid_patch_form``), counted in
 ``launches_reg_slots``.
@@ -241,9 +242,9 @@ def _slab_launch(psi_blk, psi_tab, ids, alpha, e, m):
         _check_grid("psi_blk", psi_blk, (c, m, d))
     q = torch.empty((c, m), dtype=torch.float32, device=e.device)
     p = torch.empty((c, m, m), dtype=torch.float32, device=e.device)
-    form = vmem.cd_slab_reduce_form(m, gather=psi_tab is not None)
+    form = vmem.cd_slab_reduce_form(m)
     if c and form == vmem.SLAB_ONE_TILE:
-        kernel.slab_reduce_reg(psi_tab, ids, alpha, e, q, p,
+        kernel.slab_reduce_reg(psi_tab, ids, alpha, e, q, p, psi_blk=psi_blk,
                                lanes=vmem.cd_slab_reduce_lanes(d))
     elif c:
         kernel.slab_reduce(psi_blk, psi_tab, ids, alpha, e, q, p)

@@ -3,8 +3,10 @@
 
   * :func:`topk_score` — the fused kernel over one ψ table, or one
     row-range shard of it via ``id_offset``/``n_valid``. A CUDA tensor
-    launches the hand-written kernel (``csrc/topk_score.cu``); a CPU tensor
-    takes the plain version (``ref.topk_score_ref``).
+    launches the hand-written kernel (``csrc/topk_score.cu``): one launch
+    for K ≤ 256 (``topk_fused_kernel``), else the chain of pass 1 and
+    merge levels; a CPU tensor takes the plain version
+    (``ref.topk_score_ref``).
   * :func:`topk_score_ivf` — the same kernel's IVF form: one launch chain
     over the probed clusters of a cluster-contiguous index (plain version
     ``ref.topk_score_ivf_ref``).
@@ -34,7 +36,8 @@ _MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
 
 
 def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
-               psi_scale=None, id_offset=0, n_valid=None, block_items=None):
+               psi_scale=None, id_offset=0, n_valid=None, block_items=None,
+               form=None):
     """Fused top-K over the ψ table: ``(scores (B, k) f32, ids (B, k) i32)``.
 
     ``exclude_ids`` (B, L) int32 is a −1-padded list of GLOBAL excluded ids
@@ -48,13 +51,20 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
     (``core.quant.int8_quantize_rows``); each stored row is dequantized as
     ``q·scale`` before the fp32 products, as in the reference.
 
-    On CUDA, ``block_items`` is the ψ rows per pass-1 block (a power of
-    two; default :func:`~repro_torch.kernels.vmem.topk_block_items`). Any K
-    runs; a K whose key buffers exceed the card's free memory raises. The mask may be a column slice
-    of a wider mask (its rows are read at their own stride). Nothing falls
-    back to the plain version."""
+    On CUDA, K ≤ 256 takes one launch (``form="fused"``,
+    :func:`~repro_torch.kernels.vmem.topk_form`): blocks walk chunks of
+    TOPK_MAX_CHUNK ψ rows, keep each φ row's running list, and the last
+    cluster to finish merges and decodes; ``block_items``, if given, must
+    be that chunk. ``form="chain"`` runs the three-launch chain the fused
+    form replaced (pass 1 over chunks of ``block_items`` rows, a power of
+    two, default :func:`~repro_torch.kernels.vmem.topk_block_items`, then
+    merge levels), which also serves every K above 256; a K whose key
+    buffers exceed the card's free memory raises. Both give the same bits.
+    The mask may be a column slice of a wider mask (its rows are read at
+    their own stride). Nothing falls back to the plain version."""
     if exclude_mask is not None and exclude_ids is not None:
         raise ValueError("pass exclude_mask OR exclude_ids, not both")
+    form = vmem.topk_form(k, form)
     if psi.dtype == torch.int8 and psi_scale is None:
         raise ValueError("int8 psi needs psi_scale (per-row dequant scales)")
     if psi_scale is not None and psi_scale.shape[0] != psi.shape[0]:
@@ -96,25 +106,71 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
     _check(chunk & (chunk - 1) == 0 and lo <= chunk <= vmem.TOPK_MAX_CHUNK,
            f"block_items={chunk} must be a power of two in [{lo}, "
            f"{vmem.TOPK_MAX_CHUNK}]")
+    _check(form == vmem.TOPK_CHAIN or chunk == vmem.TOPK_MAX_CHUNK,
+           f"block_items={chunk}: the fused form walks chunks of "
+           f"{vmem.TOPK_MAX_CHUNK} rows (block_items is the chain's)")
     scores = torch.empty((b, k), dtype=torch.float32, device=phi.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=phi.device)
     if b == 0:
         return scores, ids
     _check(b <= 65535, f"B={b} rows exceed one launch's grid")
-    n_chunks = -(-n_rows // chunk)
-    cand, cand2 = _key_buffers(phi, b, n_chunks, chunk, k, k_pad, n_rows)
-    kernel.launch(phi, psi, psi_scale, exclude_ids, mask, mask_stride, k,
-                  k_pad, chunk, id_offset, n_valid, scores, ids, cand, cand2)
+    if form == vmem.TOPK_FUSED:
+        n_blocks = vmem.topk_fused_blocks(n_rows, _sm_count(phi.device))
+        n_clusters = n_blocks // vmem.TOPK_FUSED_CLUSTER
+        cand = None if n_clusters == 1 else torch.empty(
+            (n_clusters, b, k_pad), dtype=torch.int64, device=phi.device)
+        kernel.launch_fused(phi, psi, psi_scale, exclude_ids, mask,
+                            mask_stride, k, k_pad, n_blocks, id_offset,
+                            n_valid, scores, ids, cand,
+                            fused_counters(phi.device))
+    else:
+        n_chunks = -(-n_rows // chunk)
+        cand, cand2 = _key_buffers(phi, b, n_chunks, chunk, k, k_pad, n_rows)
+        kernel.launch(phi, psi, psi_scale, exclude_ids, mask, mask_stride, k,
+                      k_pad, chunk, id_offset, n_valid, scores, ids, cand,
+                      cand2)
+        topk_score.launches_chain += 1
     _count(psi)
     if mask is not None:
         topk_score.launches_mask += 1
     return scores, ids
 
 
+_SM_COUNT: dict = {}
+_COUNTERS: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def fused_counters(device) -> torch.Tensor:
+    """The fused form's completion counters on ``device``'s current
+    stream: one int32 a block of TOPK_ROW_BLOCK φ rows, zeroed once here;
+    the cluster that counts last sets its counter back to zero, so every
+    call finds them at zero. One array a (device, stream): two streams'
+    calls never share a counter, and calls on one stream run in order."""
+    dev = torch.device(device)
+    stream = torch.cuda.current_stream(dev)
+    key = (stream.device.index, stream.cuda_stream)
+    if key not in _COUNTERS:
+        with torch.cuda.device(stream.device):
+            _COUNTERS[key] = torch.zeros(-(-65535 // vmem.TOPK_ROW_BLOCK),
+                                         dtype=torch.int32,
+                                         device=stream.device)
+    return _COUNTERS[key]
+
+
 # CUDA kernel launches (chip_smoke.py reads them): all forms, then the
 # bf16-ψ, int8-ψ, dense-mask and IVF forms among them (an IVF launch is one
-# chain: plan, pass 1, merges)
+# chain: plan, pass 1, merges), and the exact form's three-launch chain
+# (K above 256, or named)
 topk_score.launches = 0
+topk_score.launches_chain = 0
 topk_score.launches_bf16 = 0
 topk_score.launches_int8 = 0
 topk_score.launches_mask = 0

@@ -141,6 +141,76 @@ def topk_block_items(k_pad: int) -> int:
     return TOPK_MAX_CHUNK
 
 
+# The exact form in one launch (csrc/topk_score.cu, topk_fused_kernel), for
+# k_pad ≤ TOPK_MAX_CHUNK: blocks of TOPK_FUSED_THREADS threads (TF_HALVES =
+# threads / TOPK_MAX_CHUNK share a ψ row of each chunk), at most
+# TOPK_FUSED_MIN_BLOCKS of them an SM (the register cap __launch_bounds__
+# sets), in clusters of TOPK_FUSED_CLUSTER blocks whose shared memory holds
+# the running lists the cluster merges; the exclusion ids of a block's φ
+# rows are staged in shared memory up to TOPK_FUSED_EXCL_STAGE a row. The
+# values are the fastest of ``chip_smoke.py --topk-tune``'s variants at the
+# serving shard (PERF.md).
+TOPK_FUSED_THREADS = 512
+TOPK_FUSED_MIN_BLOCKS = 2
+TOPK_FUSED_CLUSTER = 8
+TOPK_FUSED_EXCL_STAGE = 256
+TOPK_FUSED, TOPK_CHAIN = "fused", "chain"
+
+
+def topk_fused_list(k_pad: int) -> int:
+    """Keys a running list of the fused form holds: 128 (4 a lane) while
+    k_pad allows, else 256 (8 a lane); a merge of two lists costs one
+    bitonic merge level of that width."""
+    return 128 if k_pad <= 128 else 256
+
+
+def topk_fused_blocks(n_rows: int, n_sms: int, *,
+                      min_blocks: int = TOPK_FUSED_MIN_BLOCKS,
+                      cluster: int = TOPK_FUSED_CLUSTER) -> int:
+    """Blocks of one fused launch along the ψ rows: one a chunk of
+    TOPK_MAX_CHUNK rows up to ``min_blocks`` an SM of the card's ``n_sms``
+    (beyond, a block walks several chunks), a whole number of clusters,
+    at least one."""
+    chunks = -(-max(0, int(n_rows)) // TOPK_MAX_CHUNK)
+    cap = max(cluster, min_blocks * int(n_sms) // cluster * cluster)
+    return min(max(cluster, -(-chunks // cluster) * cluster), cap)
+
+
+def topk_fused_smem_bytes(n_excl: int, k_pad: int = TOPK_MAX_CHUNK, *,
+                          threads: int = TOPK_FUSED_THREADS,
+                          cluster: int = TOPK_FUSED_CLUSTER) -> int:
+    """Dynamic shared memory of one fused block: the running lists
+    (TOPK_ROW_BLOCK × :func:`topk_fused_list` keys), one pool that holds
+    the transposed ψ slab, then the chunk's keys, then the merges' partial
+    lists, the φ slab, a flag, each row's bound and 32 lane minima, and
+    the staged exclusion ids."""
+    lw = topk_fused_list(k_pad)
+    key_pitch = TOPK_MAX_CHUNK + TOPK_MAX_CHUNK // 8
+    rows_merged = TOPK_ROW_BLOCK // cluster
+    warps_a_row = threads // 32 // rows_merged
+    pool = max(4 * TOPK_D_SLAB * (TOPK_MAX_CHUNK + 1),
+               _KEY_BYTES * TOPK_ROW_BLOCK * key_pitch,
+               _KEY_BYTES * rows_merged * warps_a_row * lw)
+    misc = 16 + (_KEY_BYTES * (1 + 32) + 4) * TOPK_ROW_BLOCK  # flag, bounds, minima
+    staged = n_excl if n_excl <= TOPK_FUSED_EXCL_STAGE else 0
+    return (_KEY_BYTES * TOPK_ROW_BLOCK * lw + pool
+            + 4 * TOPK_D_SLAB * TOPK_ROW_BLOCK + misc + 4 * TOPK_ROW_BLOCK * staged)
+
+
+def topk_form(k: int, form=None) -> str:
+    """The exact form's launch form: :data:`TOPK_FUSED` (one launch) for
+    k_pad ≤ TOPK_MAX_CHUNK unless the caller names :data:`TOPK_CHAIN`, the
+    three-launch chain it replaced (pass 1, then merge levels); K above
+    TOPK_MAX_CHUNK takes the chain with its device-memory merges."""
+    if form not in (None, TOPK_FUSED, TOPK_CHAIN):
+        raise ValueError(f"form must be {TOPK_FUSED!r} or {TOPK_CHAIN!r}, got {form!r}")
+    if topk_k_pad(k) > TOPK_MAX_CHUNK:
+        if form == TOPK_FUSED:
+            raise ValueError(f"k={k}: the fused form holds k_pad ≤ {TOPK_MAX_CHUNK}")
+        return TOPK_CHAIN
+    return form or TOPK_FUSED
+
+
 def psi_row_bytes(d: int, *, psi_bytes: int = 4,
                   per_row_scale: bool = False) -> int:
     """Device-memory bytes one ψ catalogue row occupies in serving
@@ -196,6 +266,9 @@ def gram_smem_bytes(strips: int) -> int:
 assert gram_smem_bytes(2) <= SMEM_BLOCK_MAX
 assert GRAM_BLOCKS_PER_SM * (gram_smem_bytes(1) + SMEM_PER_BLOCK_RESERVED) \
     <= SM_SMEM_BYTES
+assert TOPK_FUSED_MIN_BLOCKS * (topk_fused_smem_bytes(TOPK_FUSED_EXCL_STAGE)
+                                + SMEM_PER_BLOCK_RESERVED) <= SM_SMEM_BYTES
+assert topk_fused_smem_bytes(TOPK_FUSED_EXCL_STAGE) <= SMEM_BLOCK_MAX
 assert 65_536 // (GRAM_BLOCKS_PER_SM * GRAM_DIAG_THREADS) >= 128  # registers
 
 
@@ -350,11 +423,12 @@ def cd_resid_patch_form(d_pad: int, m: int, *, gather: bool) -> str:
     return PATCH_REG_SLOTS if ok else PATCH_ONE_SLOT
 
 
-def cd_slab_reduce_form(m: int, *, gather: bool) -> str:
-    """:data:`SLAB_ONE_TILE` for the gather slab reduce at m ≤ CDG_KB (the
-    44 sums in registers), else :data:`SLAB_TILED` (``csrc/cd_slab.cu``'s
-    tile loop, any m, both routings)."""
-    return SLAB_ONE_TILE if gather and m <= CDG_KB else SLAB_TILED
+def cd_slab_reduce_form(m: int) -> str:
+    """:data:`SLAB_ONE_TILE` for the slab reduce at m ≤ CDG_KB in either ψ
+    routing (the 44 sums in registers; a slot's m values gathered through
+    the ids, or read from the pre-gathered tile), else :data:`SLAB_TILED`
+    (``csrc/cd_slab.cu``'s tile loop, any m, both routings)."""
+    return SLAB_ONE_TILE if m <= CDG_KB else SLAB_TILED
 
 
 def cd_slab_reduce_lanes(d_pad: int) -> int:
@@ -429,11 +503,12 @@ def cd_sweep_gather_block_ctx(d_pad: int, m: int, *,
 def resolve_cd_sweep_dispatch(d_pad: int, m: int, *,
                               prefer_gather: bool = True) -> bool:
     """``use_gather`` for one fused MF sweep. On CUDA the gather is
-    native, so the caller's preference decides. The chosen form is sized
-    once here, before the sweep starts, so a row that cannot stay resident
-    raises :class:`VmemBudgetError` rather than shrinking, as in the
-    reference (each launch sizes its own rows the same way). The tensor
-    models' context modes size theirs with :func:`cd_sweep_form`, which
-    takes the block-row form for such rows."""
-    _cd_sweep_rows(d_pad, m, None, gather=prefer_gather)
+    native, so the caller's preference decides. The launch form is sized
+    once here, before the sweep starts, with :func:`cd_sweep_form`: a row
+    too long for one block's shared memory takes the split-row form
+    (gather) or the block-row form (pre-gathered), and only a k_b that no
+    form can launch raises :class:`VmemBudgetError`, rather than
+    shrinking, as in the reference. Each launch sizes itself the same
+    way."""
+    cd_sweep_form(d_pad, m, gather=prefer_gather)
     return prefer_gather

@@ -148,7 +148,7 @@ def cd_slab_reduce_cost(c: int, d_pad: int, m: int, *, n_src: int = 0,
     out = 4.0 * c * (m + m * m)
     hbm = slot * c * d_pad + psi + out
     flops = float(c) * d_pad * (1 + 3 * m + m * (m + 1))
-    form = vmem.cd_slab_reduce_form(m, gather=gather)
+    form = vmem.cd_slab_reduce_form(m)
     own = hbm
     if form == vmem.SLAB_TILED:
         cols = [min(8, m - c0) for c0 in range(0, m, 8)]  # cd_slab.cu SLAB_TILE

@@ -251,8 +251,11 @@ def test_rowpatch_slab_and_patch_plain_versions_match_jax():
 
 
 def test_sweep_budget_raises_rather_than_shrinking():
-    """A row that cannot stay resident in one block's shared memory
-    raises; a fitting row gets whole rows per block."""
+    """The warp-row form's sizing raises for a row that cannot stay
+    resident in one block's shared memory; a fitting row gets whole rows
+    per block. MF's dispatch sizes the sweep by its launch form, so a long
+    row takes the split-row (gather) or block-row (pre-gathered) form, and
+    only a k_b that no form can launch raises."""
     assert vmem.resolve_cd_sweep_dispatch(128, 8) is True
     assert vmem.cd_sweep_gather_block_ctx(128, 8, n_rows=200_000) == 8
     assert vmem.resolve_cd_sweep_dispatch(1024, 8) is True
@@ -265,8 +268,15 @@ def test_sweep_budget_raises_rather_than_shrinking():
     assert vmem.cd_sweep_block_ctx(128, 8, n_rows=3) == 3
     with pytest.raises(vmem.VmemBudgetError):
         vmem.cd_sweep_gather_block_ctx(20_000, 8)
+    assert vmem.resolve_cd_sweep_dispatch(20_000, 8) is True
+    assert vmem.cd_sweep_form(20_000, 8, gather=True) == vmem.SPLIT_ROW
+    assert vmem.resolve_cd_sweep_dispatch(20_000, 8, prefer_gather=False) \
+        is False
+    assert vmem.cd_sweep_form(20_000, 8, gather=False) == vmem.BLOCK_ROW
     with pytest.raises(vmem.VmemBudgetError):
-        vmem.resolve_cd_sweep_dispatch(20_000, 8)
+        vmem.resolve_cd_sweep_dispatch(20_000, 240)
+    with pytest.raises(vmem.VmemBudgetError):
+        vmem.resolve_cd_sweep_dispatch(128, 240, prefer_gather=False)
     with pytest.raises(vmem.VmemBudgetError):
         vmem.cd_sweep_block_ctx(128, 240)
 

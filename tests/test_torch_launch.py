@@ -770,9 +770,12 @@ def test_sweep_launch_form_follows_the_row_length():
         == vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True) - 4 * 64 + 4 * 4 * 64
     assert vmem.cd_sweep_gather_block_ctx(128, 8, n_rows=200_000,
                                           rowpatch=True) >= 1
-    # MF's sweeps keep refusing rows that cannot stay resident
+    # MF's sweeps take the long rows in the same forms, and refuse only a
+    # k_b that no form can launch
+    assert vmem.resolve_cd_sweep_dispatch(142_464, 8) is True
+    assert vmem.resolve_cd_sweep_dispatch(142_464, 8, prefer_gather=False) is False
     with pytest.raises(vmem.VmemBudgetError):
-        vmem.resolve_cd_sweep_dispatch(142_464, 8)
+        vmem.resolve_cd_sweep_dispatch(142_464, 240)
     with pytest.raises(vmem.VmemBudgetError):
         vmem.cd_sweep_form(142_464, 240, gather=True)
     with pytest.raises(vmem.VmemBudgetError):
@@ -808,7 +811,8 @@ def test_register_row_sizing_holds_each_row_in_registers():
     at its slot count (one warp at 4 slots a thread, more warps at 8); the
     full-width rows (D_pad 128 and 1,024) with no idle slot. k_b > 8 and rows past CDG_THREADS ×
     CDG_SWEEP_MAX_SLOTS keep the shared-memory forms, and MF's dispatch
-    still refuses rows no form holds resident."""
+    takes long rows in their form, refusing only a k_b no form launches;
+    the slab reduce takes the one-tile form at m ≤ 8 in either routing."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import ops as cs
 
@@ -831,16 +835,16 @@ def test_register_row_sizing_holds_each_row_in_registers():
     assert vmem.cd_sweep_form(20_000, 8, gather=True) == vmem.SPLIT_ROW
     assert vmem.cd_sweep_form(128, 8, gather=False) == vmem.WARP_ROW
     assert vmem.cd_sweep_form(128, 8, gather=True, rowpatch=True) == vmem.REG_ROW
+    assert vmem.resolve_cd_sweep_dispatch(20_000, 8) is True
     with pytest.raises(vmem.VmemBudgetError):
-        vmem.resolve_cd_sweep_dispatch(20_000, 8)
+        vmem.resolve_cd_sweep_dispatch(20_000, 240, prefer_gather=False)
     assert vmem.resolve_cd_sweep_dispatch(1_024, 8) is True
     assert vmem.cd_sweep_reg_smem_bytes() == 4 * (64 + 4 * vmem.CDG_THREADS // 32)
     assert vmem.cd_sweep_reg_smem_bytes() <= vmem.SMEM_STATIC_BYTES
-    # the slab reduce: one tile for the gather form at m ≤ 8
+    # the slab reduce: one tile for either routing at m ≤ 8
     for m in range(1, 9):
-        assert vmem.cd_slab_reduce_form(m, gather=True) == vmem.SLAB_ONE_TILE
-        assert vmem.cd_slab_reduce_form(m, gather=False) == vmem.SLAB_TILED
-    assert vmem.cd_slab_reduce_form(9, gather=True) == vmem.SLAB_TILED
+        assert vmem.cd_slab_reduce_form(m) == vmem.SLAB_ONE_TILE
+    assert vmem.cd_slab_reduce_form(9) == vmem.SLAB_TILED
     for d in (1, 128, 1_024, 20_480):
         assert vmem.cd_slab_reduce_lanes(d) in vmem.CDG_SLAB_LANES
     # every wrapper counts its forms; the CPU's plain versions launch nothing
@@ -887,7 +891,7 @@ def test_cost_model_carries_the_register_forms_and_their_traffic():
     # passes (0, 0), (0, 1), (1, 1): ids and α each, e on the diagonal
     assert tiled["form_bytes"] == (12 + 8 + 12) * c * d + 4 * n_src * 9 + out(9)
     pre = cd_slab_reduce_cost(c, d, 8, gather=False)
-    assert pre["form"] == vmem.SLAB_TILED
+    assert pre["form"] == vmem.SLAB_ONE_TILE
     assert pre["form_bytes"] == pre["hbm_bytes"] == 4 * 10 * c * d + out(8)
     pre17 = cd_slab_reduce_cost(c, d, 17, gather=False)
     # tiles of 8, 8 and 1 columns: α (+ e on the diagonal) and the tiles' Ψ
@@ -1480,3 +1484,255 @@ def test_serve_retrieval_twin_on_cuda(cuda):
     assert out["recall_curve"][-1]["recall@100"] == 1.0
     assert out["int8_recall"] > 0.9 and out["degraded_coverage"] == 0.75
     assert ops.topk_score.launches_int8 > before
+
+
+def _fused_case(dev, b, rows, d, seed, *, ints=True):
+    """φ and ψ for the fused top-K form: small integers (many ties, within
+    and across chunks; every score exact) or 0.3·N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    if ints:
+        phi = rng.integers(-3, 4, (b, d)).astype(np.float32)
+        psi = rng.integers(-3, 4, (rows, d)).astype(np.float32)
+    else:
+        phi = (0.3 * rng.normal(size=(b, d))).astype(np.float32)
+        psi = (0.3 * rng.normal(size=(rows, d))).astype(np.float32)
+    return torch.tensor(phi, device=dev), torch.tensor(psi, device=dev)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _fused_vs_chain(phi, psi, k, **kw):
+    """One fused call (one launch) and one chain call on the same inputs:
+    both counted once, the chain also in ``launches_chain``; returns both
+    results."""
+    before = (ops.topk_score.launches, ops.topk_score.launches_chain)
+    got = ops.topk_score(phi, psi, k, **kw)
+    mid = (ops.topk_score.launches, ops.topk_score.launches_chain)
+    want = ops.topk_score(phi, psi, k, form="chain", **kw)
+    after = (ops.topk_score.launches, ops.topk_score.launches_chain)
+    torch.cuda.synchronize()
+    assert (mid[0] - before[0], mid[1] - before[1]) == (1, 0)
+    assert (after[0] - mid[0], after[1] - mid[1]) == (1, 1)
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8", "mask"])
+def test_fused_topk_equals_chain_on_cuda(cuda, storage):
+    """The exact form in one launch against the three-launch chain it
+    replaced, bit for bit, and against the plain version (small integers:
+    every score exact): K 1, 7, 100, 128 and 256; B 1, 5, 16 and 33; row
+    counts off the chunk with an id offset and n_valid short of the
+    table; exclusion (ids, or the mask as a middle column slice of a wider
+    mask), a fully excluded row, ties across blocks (rows repeated)."""
+    from repro_torch.serve.cluster import _shard_exclude_mask
+
+    for b, rows, d in ((1, 300, 16), (5, 1_001, 8), (16, 34_000, 128), (33, 9_000, 6)):
+        phi, psi = _fused_case(cuda, b, rows, d, b + rows)
+        psi = torch.cat([psi[: rows // 2]] * 2 + [psi[: rows % 2]])  # ties across chunks
+        rng = np.random.default_rng(rows)
+        scale, mask = None, None
+        if storage == "bf16":
+            psi = psi.bfloat16()
+        elif storage == "int8":
+            psi, scale = psi.to(torch.int8), torch.full((rows,), 0.5, device=cuda)
+        off, n_valid = 700, rows - 37
+        kw = dict(psi_scale=scale, id_offset=off, n_valid=n_valid)
+        if storage == "mask":
+            wide = torch.tensor(rng.random((b, 3 * rows)) < 0.1, device=cuda)
+            wide[0, rows:2 * rows] = True                   # a fully masked row
+            mask = _shard_exclude_mask(wide, rows, rows)
+            assert b == 1 or not mask.is_contiguous()
+        else:
+            e = rng.integers(off - 5, off + rows, (b, 20)).astype(np.int32)
+            e[0] = np.arange(off, off + 20)
+            e[-1, 10:] = -1
+            kw["exclude_ids"] = torch.tensor(e, device=cuda)
+        for k in (1, 7, 100, 128, 256):
+            (s, i), (cs_, ci) = _fused_vs_chain(phi, psi, k, exclude_mask=mask, **kw)
+            assert torch.equal(i, ci) and _same_bits(s, cs_), (storage, b, rows, k)
+            rs, ri = ref.topk_score_ref(phi, psi, k, None if mask is None
+                                        else mask.contiguous(), **kw)
+            assert torch.equal(i, ri) and torch.equal(s, rs), (storage, b, rows, k)
+            if storage == "mask":
+                assert bool((i[0] == -1).all()) and bool(torch.isneginf(s[0]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,rows,k,n_excl", [(16, 200_000, 100, 0),   # blocks walk chunks
+                                             (3, 68_000, 256, 300),   # ids read in place
+                                             (40, 2_000, 64, 0),      # three row blocks
+                                             (2, 5, 3, 0),            # fewer rows than K
+                                             (4, 0, 10, 0)])          # no row at all
+def test_fused_topk_running_lists_and_edges_on_cuda(cuda, b, rows, k, n_excl):
+    """Tables past two blocks an SM (each block walks several chunks,
+    keeping a running list a φ row), exclusion lists longer than the
+    staged ones, several row blocks, tables shorter than K and empty
+    ones: the fused form equals the chain bit for bit, in random fp32 and
+    in small integers (then also the plain version)."""
+    for ints in (True, False):
+        phi, psi = _fused_case(cuda, b, rows, 32, rows + k, ints=ints)
+        kw = dict(id_offset=11, n_valid=max(0, rows - 3))
+        if n_excl:
+            e = np.random.default_rng(k).integers(0, rows + 20, (b, n_excl))
+            kw["exclude_ids"] = torch.tensor(e.astype(np.int32), device=cuda)
+        (s, i), (cs_, ci) = _fused_vs_chain(phi, psi, k, **kw)
+        assert torch.equal(i, ci) and _same_bits(s, cs_), (b, rows, k, ints)
+        if ints:
+            rs, ri = ref.topk_score_ref(phi, psi, k, **kw)
+            assert torch.equal(i, ri) and torch.equal(s, rs)
+        if rows < k:
+            assert bool((i[:, max(0, rows - 3):] == -1).all())
+
+
+@pytest.mark.gpu
+def test_fused_topk_nan_and_signed_zero_on_cuda(cuda):
+    """A table with NaN rows and −0.0 scores: NaN keys come back as NaN
+    with their ids, −0.0 ties with +0.0 in ascending id, as the chain does,
+    bit for bit."""
+    phi, psi = _fused_case(cuda, 9, 3_000, 16, 5)
+    psi[::97] = float("nan")
+    psi[5::31] = 0.0
+    phi[1] = -0.0
+    (s, i), (cs_, ci) = _fused_vs_chain(phi, psi, 100, id_offset=4)
+    assert torch.equal(i, ci) and _same_bits(s, cs_)
+    assert bool(torch.isnan(s).any())
+
+
+@pytest.mark.gpu
+def test_fused_topk_two_streams_give_the_same_bits(cuda):
+    """Calls on two streams at once (each stream has its own completion
+    counters), repeated, against the same calls one at a time; tables of
+    one cluster and of several."""
+    cases = [_fused_case(cuda, 16, rows, 64, rows, ints=False)
+             for rows in (34_000, 50_000, 1_000)]
+    want = [ops.topk_score(phi, psi, 100) for phi, psi in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(10):
+        for j, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[j].append([ops.topk_score(phi, psi, 100) for phi, psi in cases])
+    torch.cuda.synchronize()
+    for runs in got:
+        for run in runs:
+            for (s, i), (ws, wi) in zip(run, want):
+                assert torch.equal(i, wi) and _same_bits(s, ws)
+
+
+def test_fused_topk_sizing():
+    """The fused form's grid (one block a chunk up to the blocks an SM the
+    card holds, whole clusters), its shared memory (two blocks an SM with
+    the longest staged exclusion lists), and which K takes which form."""
+    from repro_torch.kernels import vmem
+
+    cl = vmem.TOPK_FUSED_CLUSTER
+    assert vmem.topk_fused_blocks(34_000, 132) == 136        # 133 chunks
+    assert vmem.topk_fused_blocks(0, 132) == cl
+    assert vmem.topk_fused_blocks(9, 132) == cl
+    cap = vmem.TOPK_FUSED_MIN_BLOCKS * 132 // cl * cl
+    assert vmem.topk_fused_blocks(200_000, 132) == cap == 264
+    for rows in (1, 255, 256, 257, 34_000, 68_000, 10**7):
+        n = vmem.topk_fused_blocks(rows, 132)
+        assert n % cl == 0 and cl <= n <= max(cl, cap)
+    assert vmem.topk_fused_smem_bytes(0) == vmem.topk_fused_smem_bytes(10_000)
+    assert vmem.topk_fused_smem_bytes(vmem.TOPK_FUSED_EXCL_STAGE) == \
+        vmem.topk_fused_smem_bytes(0) + 4 * 16 * vmem.TOPK_FUSED_EXCL_STAGE
+    assert [vmem.topk_fused_list(kp) for kp in (1, 64, 128, 256)] == [128, 128, 128, 256]
+    assert vmem.topk_fused_smem_bytes(0, 128) == vmem.topk_fused_smem_bytes(0, 256) - 8 * 16 * 128
+    assert vmem.TOPK_FUSED_MIN_BLOCKS * (vmem.topk_fused_smem_bytes(
+        vmem.TOPK_FUSED_EXCL_STAGE) + vmem.SMEM_PER_BLOCK_RESERVED) <= vmem.SM_SMEM_BYTES
+    for k in (1, 100, 256):
+        assert vmem.topk_form(k) == vmem.TOPK_FUSED
+        assert vmem.topk_form(k, vmem.TOPK_CHAIN) == vmem.TOPK_CHAIN
+    assert vmem.topk_form(257) == vmem.TOPK_CHAIN
+    with pytest.raises(ValueError):
+        vmem.topk_form(257, vmem.TOPK_FUSED)
+    with pytest.raises(ValueError):
+        vmem.topk_form(10, "tree")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,m", [(2_000, 128, 8), (680, 1_024, 8), (301, 100, 1),
+                                   (97, 37, 2), (41, 300, 3), (50, 64, 4),
+                                   (33, 20, 5), (20, 200, 6), (17, 129, 7)])
+def test_pregathered_one_tile_slab_reduce_equals_tiled_on_cuda(cuda, c, d, m):
+    """The pre-gathered slab reduce's one-tile form (m ≤ 8) equals the
+    tiled form it replaced bit for bit (a lane sums its slots d ≡ lane mod
+    32 in order, the transpose-reduce's trees are the butterfly's), each
+    wrapper call counted in its form, two calls giving the same bits, and
+    holds the plain version as ``_hold_one_tile`` does."""
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    x = _reg_operands(cuda, c, d, m, m, 0, c + d + m, zero_rows=1, scale=0.1)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    fn = cs.cd_slab_reduce
+    before = (fn.launches, fn.launches_one_tile)
+    q, p = fn(psi, x["alpha"], x["e"])
+    q2, p2 = fn(psi, x["alpha"], x["e"])
+    tq, tp = torch.empty_like(q), torch.empty_like(p)
+    kernel.slab_reduce(psi, None, None, x["alpha"], x["e"], tq, tp)  # the tiled form
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (2, 2)
+    assert torch.equal(q, q2) and torch.equal(p, p2)
+    assert _same_bits(q, tq) and _same_bits(p, tp)
+    rq, rp = cr.cd_slab_reduce_ref(psi, x["alpha"], x["e"])
+    a = x["alpha"][:, None, :]
+    q_tol = _row_tol(a * x["e"][:, None, :] * psi, d >= 1_024)
+    p_tol = _row_tol(a[:, :, None, :] * psi[:, :, None, :] * psi[:, None, :, :], d >= 1_024)
+    assert bool(((q - rq).abs() <= 2e-5 * rq.abs() + q_tol).all())
+    assert bool(((p - rp).abs() <= 2e-5 * rp.abs() + p_tol).all())
+    assert not bool(q[:1].any()) and not bool(p[:1].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("psi_dispatch", ["gather", "pregather"])
+def test_mf_long_item_row_on_cuda_matches_cpu(cuda, psi_dispatch):
+    """MF with one item row of 20,001 slots (every user on item 0, D_pad
+    20,096): on the gather route the item side takes the split-row form
+    with the shared J (k_b 8), on the pre-gathered route the block-row
+    form; two epochs on
+    the card against the same epochs on the CPU to the fused-vs-flat
+    tolerance (rtol 3e-4, atol 3e-5)."""
+    from repro_torch.core.models import mf, mf_padded
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(3)
+    n_ctx, n_items, k = 20_001, 5, 8
+    ctx = np.concatenate([np.arange(n_ctx), rng.integers(0, n_ctx, 3_000)])
+    item = np.concatenate([np.zeros(n_ctx, np.int64), rng.integers(1, n_items, 3_000)])
+    cells = np.unique(ctx * n_items + item)
+    ctx, item = cells // n_items, cells % n_items
+    nnz = len(ctx)
+    y = rng.integers(1, 5, nnz).astype(np.float64)
+    alpha = 1.0 + rng.random(nnz)
+    w0 = (0.1 * rng.normal(size=(n_ctx, k))).astype(np.float32)
+    h0 = (0.1 * rng.normal(size=(n_items, k))).astype(np.float32)
+    hp = mf.MFHyperParams(k=k, alpha0=0.5, l2=0.1, block_k=8,
+                          psi_dispatch=psi_dispatch)
+    gather = psi_dispatch == "gather"
+    fn = cs.cd_block_sweep_gather if gather else cs.cd_block_sweep
+    out = {}
+    for where in ("cpu", cuda):
+        data = build_interactions(ctx, item, y, alpha, n_ctx, n_items,
+                                  alpha0=0.5, device=where)
+        pdata = mf_padded.pad_interactions(data)
+        d_item = pdata.ctx_ids.shape[1]
+        p = mf.params_from_numpy(w0, h0, device=where)
+        e = mf_padded.residuals(p, pdata)
+        before = (fn.launches_split_row, fn.launches_block_row)
+        for _ in range(2):
+            p, e = mf_padded.epoch(p, pdata, e, hp)
+        if where != "cpu":
+            long = (fn.launches_split_row - before[0], fn.launches_block_row - before[1])
+            assert long == ((2, 2) if gather else (0, 2)), long
+        out[str(where)] = [t.cpu() for t in (p.w, p.h, e)]
+    assert d_item == 20_096 and vmem.cd_sweep_form(d_item, 8, gather=gather) == (
+        vmem.SPLIT_ROW if gather else vmem.BLOCK_ROW)
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=3e-4, atol=3e-5)
