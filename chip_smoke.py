@@ -1100,22 +1100,25 @@ SWEEP_TUNE_CHUNKS = (1_024, 2_048, 3_072, 4_096, 8_192)
 
 def _ptxas_by_kernel(log_text: str) -> dict:
     """{kernel instance: "N registers, S B spill stores"} from nvcc's
-    ``-Xptxas -v`` report: sweep<lanes,slots> and, with the row patch,
-    sweep<lanes,slots,P> (the k_b = 8 instances), slab<lanes>, the
-    split-row pass 1 and the register-slot patch."""
+    ``-Xptxas -v`` report: sweep<lanes,slots>, with the row patch
+    sweep<lanes,slots,P> and from the tile sweep<lanes,slots,P,T> (the
+    k_b = 8 instances), slab<lanes> (T: from the tile), the split-row
+    pass 1 and the register-slot patch (16-byte loads), each gathered or
+    from the tile."""
     import re
 
     out, name = {}, None
     for ln in log_text.splitlines():
         if "Compiling entry" in ln:
-            m = re.search(r"reg_kernelILi(\d+)E(?:Li(\d+)ELi(\d+)ELb(\d)E)?", ln)
+            m = re.search(r"reg_kernelILi(\d+)E(?:Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E|Lb(\d)E)", ln)
             name = None if not m else (
-                f"sweep<{m.group(1)},{m.group(2)}{',P' * (m.group(4) == '1')}>"
-                if m.group(3) == "8" else None if m.group(2) else f"slab<{m.group(1)}>")
+                f"sweep<{m.group(1)},{m.group(2)}{',P' * (m.group(4) == '1')}"
+                f"{',T' * (m.group(5) == '1')}>" if m.group(3) == "8" else
+                None if m.group(2) else f"slab<{m.group(1)}{',T' * (m.group(6) == '1')}>")
             if "split_reduce" in ln:
-                name = "split pass 1"
-            elif "resid_patch_gather_reg_kernelILb1" in ln:
-                name = "patch"
+                name = "split pass 1" + " tile" * ("kernelILb1" in ln)
+            elif "resid_patch_reg_kernelILb1" in ln:
+                name = "patch" + " tile" * ("ILb1ELb1" in ln)
         elif name and "spill" in ln:
             out[name] = ln.split(",")[1].strip()
         elif name and "registers" in ln:
@@ -1220,10 +1223,15 @@ def sweep_tune() -> None:
 
 
 def sweep_tune_rowpatch(libs) -> None:
-    """--sweep-tune's row-patch part: the register-row row-patch sweep at
-    CtxMF's user side and the split-row form at its bucket side, in each
-    build of ``libs`` (SWEEP_TUNE_BUILDS), beside the warp-row and
-    block-row forms they replaced."""
+    """--sweep-tune's row-patch part, in both ψ routings: the register-row
+    form at CtxMF's user side at each (lanes, slots) of SWEEP_TUNE_GROUPS
+    and the split-row form at its bucket side at each of
+    SWEEP_TUNE_CHUNKS, in each build of ``libs`` (SWEEP_TUNE_BUILDS),
+    beside the warp-row and block-row forms they replaced; each first held
+    against its plain version (at 32 lanes × 4 slots bit for bit the
+    warp-row form). At the bucket side, pre-gathered, the split-row form's
+    pass 2 (the register-slot patch from the tile) beside row 8's one-slot
+    kernel on the same tile, which must give the same bits."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import kernel as ck, ref as cr
 
@@ -1234,53 +1242,83 @@ def sweep_tune_rowpatch(libs) -> None:
     for c, d, pad in ((FULL["n_ctx"], CTX["d_user"], 0.87),
                       (CTX["n_buckets"], CTX["d_bucket"], 0.01)):
         x = rowpatch_inputs(gen, dev, c, d, 8, n_src, pad)
-        args = (x["tab"], x["ids"], x["alpha"])
-        rw, re = cr.cd_block_sweep_rowpatch_gather_ref(*args, x["e"], x["w"], x["r1"],
-                                                       x["p"], **kw)
+        psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+        rest = (x["w"], x["r1"], x["p"])
         es = [x["e"].clone() for _ in range(2)]
         w_out = torch.empty((c, 8), device=dev)
         long_rows = d > 2_048
-        psi = cr.gather_psi_blk(x["tab"], x["ids"]) if long_rows else None
-        rows = 0 if long_rows else vmem.cd_sweep_gather_block_ctx(d, 8, n_rows=c,
-                                                                   rowpatch=True)
-        old = device_ms(lambda j: ck.launch(None, *args, es[j % 2], x["w"], x["r1"],
-                                            x["p"], w_out, rows_per_block=rows, **kw),
-                        n=10)
-        log(f"sweep-tune rowpatch C {c} D_pad {d}: "
-            f"{'block-row' if long_rows else 'warp-row'} form {old:.4f} ms")
-        for lib, v in zip(libs, SWEEP_TUNE_BUILDS):
-            parts = []
-            if long_rows:
-                for chunk in SWEEP_TUNE_CHUNKS:
-                    part = torch.empty((c, -(-d // chunk), vmem.CDG_NSUM), device=dev)
-                    delta = torch.empty((c, 8), device=dev)
+        for disp in ("gather", "pregather"):
+            gather = disp == "gather"
+            src = (x["tab"], x["ids"]) if gather else (None, None)
+            tile = None if gather else psi
+            plain = (cr.cd_block_sweep_rowpatch_gather_ref if gather else
+                     cr.cd_block_sweep_rowpatch_ref)
+            rw, re = plain(*(src if gather else (psi,)), x["alpha"], x["e"],
+                           *rest, **kw)
+            rows = 0 if long_rows else (
+                vmem.cd_sweep_gather_block_ctx if gather else
+                vmem.cd_sweep_block_ctx)(d, 8, n_rows=c, rowpatch=True)
+            e_old, w_old = x["e"].clone(), torch.empty_like(w_out)
+            ck.launch(tile, *src, x["alpha"], e_old, *rest, w_old,
+                      rows_per_block=rows, **kw)
+            old = device_ms(lambda j: ck.launch(tile, *src, x["alpha"], es[j % 2],
+                                                *rest, w_out, rows_per_block=rows,
+                                                **kw), n=10)
+            log(f"sweep-tune rowpatch {disp} C {c} D_pad {d}: "
+                f"{'block-row' if long_rows else 'warp-row'} form {old:.4f} ms")
+            for lib, v in zip(libs, SWEEP_TUNE_BUILDS):
+                parts = []
+                if long_rows:
+                    for chunk in SWEEP_TUNE_CHUNKS:
+                        part = torch.empty((c, -(-d // chunk), vmem.CDG_NSUM), device=dev)
+                        delta = torch.empty((c, 8), device=dev)
 
-                    def call(j, chunk=chunk, lib=lib, part=part, delta=delta, e=None):
-                        ck.launch_split(*args, es[j % 2] if e is None else e, x["w"],
-                                        x["r1"], x["p"], w_out, part, delta, chunk=chunk,
-                                        lib=lib, **kw)
-                    e = x["e"].clone()
-                    call(0, e=e)
-                    torch.cuda.synchronize()
-                    atol_w, atol_e = long_row_atol(x, psi, x["p"], 1.0, 0.1)
-                    assert bool(((w_out - rw).abs() <= SWEEP_RTOL * rw.abs() + atol_w).all())
-                    assert bool(((e - re).abs() <= SWEEP_RTOL * re.abs() + atol_e).all())
-                    parts.append(f"chunk {chunk} {device_ms(call, n=10):.4f}")
-            else:
-                for lanes, slots in SWEEP_TUNE_GROUPS[d]:
-                    def call(j, lanes=lanes, slots=slots, lib=lib, e=None):
-                        ck.launch_reg(*args, es[j % 2] if e is None else e, x["w"],
-                                      x["r1"], x["p"], w_out, lanes=lanes, slots=slots,
-                                      lib=lib, **kw)
-                    e = x["e"].clone()
-                    call(0, e=e)
-                    torch.cuda.synchronize()
-                    torch.testing.assert_close(w_out, rw, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
-                    torch.testing.assert_close(e, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
-                    parts.append(f"{lanes}x{slots} {device_ms(call, n=20):.4f}")
-            log(f"sweep-tune rowpatch C {c} D_pad {d} build {v}: "
-                + ", ".join(parts) + " ms")
-        del x, es, rw, re, psi
+                        def call(j, chunk=chunk, lib=lib, part=part, delta=delta, e=None):
+                            ck.launch_split(*src, x["alpha"], es[j % 2] if e is None else e,
+                                            *rest, w_out, part, delta, chunk=chunk,
+                                            psi_blk=tile, lib=lib, **kw)
+                        e = x["e"].clone()
+                        call(0, e=e)
+                        torch.cuda.synchronize()
+                        atol_w, atol_e = long_row_atol(x, psi, x["p"], 1.0, 0.1)
+                        assert bool(((w_out - rw).abs() <= SWEEP_RTOL * rw.abs() + atol_w).all())
+                        assert bool(((e - re).abs() <= SWEEP_RTOL * re.abs() + atol_e).all())
+                        parts.append(f"chunk {chunk} {device_ms(call, n=10):.4f}")
+                else:
+                    for lanes, slots in SWEEP_TUNE_GROUPS[d]:
+                        def call(j, lanes=lanes, slots=slots, lib=lib, e=None):
+                            ck.launch_reg(*src, x["alpha"], es[j % 2] if e is None else e,
+                                          *rest, w_out, lanes=lanes, slots=slots,
+                                          psi_blk=tile, lib=lib, **kw)
+                        e = x["e"].clone()
+                        call(0, e=e)
+                        torch.cuda.synchronize()
+                        torch.testing.assert_close(w_out, rw, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                        torch.testing.assert_close(e, re, rtol=SWEEP_RTOL, atol=SWEEP_ATOL)
+                        if lanes == 32:
+                            assert torch.equal(w_out, w_old) and torch.equal(e, e_old)
+                        parts.append(f"{lanes}x{slots} {device_ms(call, n=20):.4f}")
+                log(f"sweep-tune rowpatch {disp} C {c} D_pad {d} build {v}: "
+                    + ", ".join(parts) + " ms")
+            del rw, re, e_old
+        if long_rows:
+            # pass 2 pre-gathered: the register-slot patch from the tile
+            # against row 8's one-slot kernel on the same tile and Δ
+            delta = 0.1 * torch.randn((c, 8), generator=gen, device=dev)
+            e_reg, e_one = x["e"].clone(), x["e"].clone()
+            ck.resid_patch_reg(None, None, e_reg, delta, psi_blk=psi)
+            ck.resid_patch(psi, None, None, e_one, delta)
+            torch.cuda.synchronize()
+            assert torch.equal(e_reg, e_one), "the two pass-2 kernels differ"
+            one = device_ms(lambda j: ck.resid_patch(psi, None, None, es[j % 2], delta),
+                            n=20)
+            parts = [f"{v[4]} slots (build {v}) "
+                     f"{device_ms(lambda j, lib=lib: ck.resid_patch_reg(None, None, es[j % 2], delta, psi_blk=psi, lib=lib), n=20):.4f}"
+                     for lib, v in zip(libs, SWEEP_TUNE_BUILDS)]
+            log(f"sweep-tune rowpatch pregather pass 2 C {c} D_pad {d}: row 8's "
+                f"one-slot kernel {one:.4f} ms; register-slot from the tile "
+                + ", ".join(parts) + " ms (the same bits)")
+        del x, es, psi
 
 
 # --topk-tune: builds of csrc/topk_score.cu, each (threads a block, blocks
@@ -1556,10 +1594,11 @@ def long_row_atol(x, psi, cpl, alpha0, l2):
 
 def hold_rowpatch_kernels(dev, n_src) -> dict:
     """Phase 9: both row-patch kernels against their plain versions at the
-    full-width shapes and at edge cases; ``n_src`` = nnz + 1. The gather
-    sweep runs in the register-row form (user side) and the split-row form
-    (bucket side), the pre-gathered one in the warp-row and block-row
-    forms."""
+    full-width shapes and at edge cases; ``n_src`` = nnz + 1. Both
+    routings run in the register-row form (user side) and the split-row
+    form (bucket side); at the user side each equals the warp-row form it
+    replaced bit for bit. Fault 3.4: the split-row form on more than
+    65,535 rows."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
 
@@ -1580,12 +1619,15 @@ def hold_rowpatch_kernels(dev, n_src) -> dict:
                 f"form, max |err| {got:.3g}, two calls the same bits")
         if not long_rows:
             # the register-row row-patch form at 32 lanes against the
-            # warp-row form it replaced, bit for bit
-            same = rowpatch_reg_vs_warp_row(ck, cs, x)
-            assert same, "register-row and warp-row row-patch forms differ"
+            # warp-row form it replaced, bit for bit, in both routings
+            for gather in (True, False):
+                same = rowpatch_reg_vs_warp_row(ck, cs, cr, x, gather=gather)
+                assert same, ("register-row and warp-row row-patch forms "
+                              "differ", gather)
             log(f"phase 9 hold: the register-row row-patch form equals the "
                 f"warp-row form bit for bit at C {c} D_pad {d} "
-                f"({vmem.cd_sweep_reg_group(d, 8)[0]} lanes)")
+                f"({vmem.cd_sweep_reg_group(d, 8)[0]} lanes), gathered and "
+                f"pre-gathered")
         del x
     # edge cases: C off the row tile, a 4-column tail, k_b = 1, η ≠ 1,
     # long rows in both couplings at k_b 8, 4, 3 and 1, row lengths that no
@@ -1618,24 +1660,74 @@ def hold_rowpatch_kernels(dev, n_src) -> dict:
     for gather in (True, False):
         _, lr, _ = hold_rowpatch(cs, cr, x, gather=gather, cpl=x["p"][0])
         assert lr
+    del x
+    err["many_rows"] = hold_split_row_many_rows(dev, gen)
     return err
 
 
-def rowpatch_reg_vs_warp_row(ck, cs, x) -> bool:
-    """The gather row-patch sweep through its wrapper (the register-row
-    form) and through the warp-row form's binding, on the same inputs:
-    whether W and e agree bit for bit."""
+def hold_split_row_many_rows(dev, gen, c=70_000, d=512) -> float:
+    """Phase 9, fault 3.4: the split-row form on ``c`` rows of ``d`` slots
+    (70,000: more than a grid's 65,535 y-blocks), k_b 8, ψ gathered and
+    from the tile, through the binding, against the plain version at the
+    long-row tolerance, two calls the same bits; returns the max |error|."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel as ck, ref as cr
+
+    x = rowpatch_inputs(gen, dev, c, d, 8, 5_000, 0.3)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    kw = dict(alpha0=1.0, l2=0.1, eta=0.9)
+    chunk = vmem.cd_sweep_split_chunk(d, c)
+    part = torch.empty((c, -(-d // chunk), vmem.CDG_NSUM), device=dev)
+    delta = torch.empty((c, 8), device=dev)
+    worst = 0.0
+    for tile in (False, True):
+        src = (None, None) if tile else (x["tab"], x["ids"])
+        got = []
+        for _ in range(2):
+            e, w = x["e"].clone(), torch.empty_like(x["w"])
+            ck.launch_split(*src, x["alpha"], e, x["w"], x["r1"], x["p"], w,
+                            part, delta, chunk=chunk,
+                            psi_blk=psi if tile else None, **kw)
+            got.append((w, e))
+        plain = cr.cd_block_sweep_rowpatch_ref if tile else \
+            cr.cd_block_sweep_rowpatch_gather_ref
+        rw, re = plain(*((psi,) if tile else src), x["alpha"], x["e"], x["w"],
+                       x["r1"], x["p"], **kw)
+        torch.cuda.synchronize()
+        (w, e), (w2, e2) = got
+        assert torch.equal(w, w2) and torch.equal(e, e2), "two calls differ"
+        atol_w, atol_e = long_row_atol(x, psi, x["p"], kw["alpha0"], kw["l2"])
+        assert bool(((w - rw).abs() <= SWEEP_RTOL * rw.abs() + atol_w).all())
+        assert bool(((e - re).abs() <= SWEEP_RTOL * re.abs() + atol_e).all())
+        err = max(float((w - rw).abs().max()), float((e - re).abs().max()))
+        worst = max(worst, err)
+        log(f"phase 9 hold fault 3.4: split-row form on C {c} rows x D_pad "
+            f"{d} ({'tile' if tile else 'gathered'} psi, chunk {chunk}), max "
+            f"|err| {err:.3g} against the plain version, two calls the same "
+            f"bits")
+    return worst
+
+
+def rowpatch_reg_vs_warp_row(ck, cs, cr, x, *, gather=True) -> bool:
+    """The row-patch sweep, gathered or pre-gathered, through its wrapper
+    (the register-row form) and through the warp-row form's binding, on
+    the same inputs: whether W and e agree bit for bit."""
     from repro_torch.kernels import vmem
 
     c, d = x["alpha"].shape
     kw = dict(alpha0=1.0, l2=0.1, eta=1.0)
+    if gather:
+        first, old = (x["tab"], x["ids"]), (None, x["tab"], x["ids"])
+        fn, rows = cs.cd_block_sweep_rowpatch_gather, vmem.cd_sweep_gather_block_ctx
+    else:
+        psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+        first, old = (psi,), (psi, None, None)
+        fn, rows = cs.cd_block_sweep_rowpatch, vmem.cd_sweep_block_ctx
     e_new, e_old = x["e"].clone(), x["e"].clone()
-    w_new, _ = cs.cd_block_sweep_rowpatch_gather(
-        x["tab"], x["ids"], x["alpha"], e_new, x["w"], x["r1"], x["p"], **kw)
+    w_new, _ = fn(*first, x["alpha"], e_new, x["w"], x["r1"], x["p"], **kw)
     w_old = torch.empty_like(w_new)
-    ck.launch(None, x["tab"], x["ids"], x["alpha"], e_old, x["w"], x["r1"],
-              x["p"], w_old, rows_per_block=vmem.cd_sweep_gather_block_ctx(
-                  d, 8, n_rows=c, rowpatch=True), **kw)
+    ck.launch(*old, x["alpha"], e_old, x["w"], x["r1"], x["p"], w_old,
+              rows_per_block=rows(d, 8, n_rows=c, rowpatch=True), **kw)
     torch.cuda.synchronize()
     return torch.equal(w_new, w_old) and torch.equal(e_new, e_old)
 
@@ -1779,7 +1871,12 @@ def train_ctxmf_full_width(dev) -> dict:
                                  dataclasses.replace(hp, psi_dispatch="pregather"))
     torch.cuda.synchronize()
     pre_s, pre_launches = time.perf_counter() - t, read_counts()
+    # the row-patch sweep: nb register-row chains (user side) and nb
+    # split-row chains (bucket side; launches_block_row counts long-row
+    # chains, so none of them is in the block-row form)
     assert pre_launches["cd_block_sweep_rowpatch"] == 2 * nb and \
+        pre_launches["cd_block_sweep_rowpatch:reg_row"] == nb and \
+        pre_launches["cd_block_sweep_rowpatch:split_row"] == nb and \
         pre_launches["cd_block_sweep_rowpatch:block_row"] == nb and \
         pre_launches["cd_block_sweep"] == nb and \
         pre_launches["cd_block_sweep_rowpatch_gather"] == 0, pre_launches
@@ -1792,7 +1889,10 @@ def train_ctxmf_full_width(dev) -> dict:
     d_flat = _hold_params(pf, pg, ef, eg)
     del pf, ef
     log(f"phase 10 one epoch from one start: gather {epoch_s[0]:.3f}s, "
-        f"pregather {pre_s:.3f}s (max |d param| {d_pre:.3g}), flat "
+        f"pregather {pre_s:.3f}s (max |d param| {d_pre:.3g}; row-patch "
+        f"sweep {pre_launches['cd_block_sweep_rowpatch:reg_row']} register-row "
+        f"+ {pre_launches['cd_block_sweep_rowpatch:split_row']} split-row "
+        f"launch chains, no block-row one), flat "
         f"ctxmf.epoch {flat_s:.3f}s (max |d param| {d_flat:.3g}); rtol "
         f"{TENSOR_RTOL} atol {TENSOR_ATOL} (e atol {TENSOR_E_ATOL})")
     e0 = ctxmf.residuals(params0, tc, data)
@@ -1920,9 +2020,10 @@ def train_tucker_full_width(dev, tc, data, padded) -> None:
 def time_rowpatch_kernels(dev, padded, n_src) -> dict:
     """Phase 12: CUDA-event times of both row-patch routings at the
     full-width user and bucket shapes, on the real layouts' ids and α with
-    random values, one launch of k_b = 8; the gather routing's new forms
-    (register-row, split-row) beside the warp-row and block-row forms they
-    replaced, through their binding."""
+    random values, one launch of k_b = 8; each routing's forms (register-row
+    at the user side, split-row at the bucket side) beside the warp-row and
+    block-row forms they replaced, through their binding, in the same
+    call."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
     from repro_torch.obs.costs import cd_sweep_cost
@@ -1939,42 +2040,44 @@ def time_rowpatch_kernels(dev, padded, n_src) -> dict:
         psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
         rest = (x["alpha"], None, x["w"], x["r1"], x["p"])
         w_old = torch.empty((c, 8), device=dev)
-        long_rows = vmem.cd_sweep_form(d, 8, gather=False, rowpatch=True) == vmem.BLOCK_ROW
-        rows = 0 if long_rows else vmem.cd_sweep_gather_block_ctx(
-            d, 8, n_rows=c, rowpatch=True)
+        long_rows = side == "bucket"
 
         def args(first, i):
             return (*first, rest[0], es[i % 2], *rest[2:])
 
-        def old(i):  # the form the gather routing took before, its binding
-            ck.launch(None, x["tab"], x["ids"], x["alpha"], es[i % 2], x["w"],
-                      x["r1"], x["p"], w_old, eta=1.0, rows_per_block=rows, **kw)
-
         for disp in ("gather", "pregather"):
-            first = (x["tab"], x["ids"]) if disp == "gather" else (psi,)
-            name = "cd_block_sweep_rowpatch" + ("_gather" if disp == "gather" else "")
+            gather = disp == "gather"
+            first = (x["tab"], x["ids"]) if gather else (psi,)
+            old_first = (None, *first) if gather else (psi, None, None)
+            rows = 0 if long_rows else (
+                vmem.cd_sweep_gather_block_ctx if gather else
+                vmem.cd_sweep_block_ctx)(d, 8, n_rows=c, rowpatch=True)
+
+            def old(i, old_first=old_first, rows=rows):
+                # the form this routing took before, through its binding
+                ck.launch(*old_first, x["alpha"], es[i % 2], x["w"], x["r1"],
+                          x["p"], w_old, eta=1.0, rows_per_block=rows, **kw)
+
+            name = "cd_block_sweep_rowpatch" + ("_gather" if gather else "")
             fn, plain = getattr(cs, name), getattr(cr, name + "_ref")
             r = out[disp]
             n = 20 if side == "user" else 10
             r["ms"].append(device_ms(lambda i: fn(*args(first, i), **kw), n=n))
+            r["old"].append(device_ms(old, n=n))
             r["plain"].append(device_ms(lambda i: plain(*args(first, i), **kw),
                                         n=5))
-            cost = cd_sweep_cost(c, d, 8, 8, n_src=n_src,
-                                 gather=disp == "gather", rowpatch=True)
+            cost = cd_sweep_cost(c, d, 8, 8, n_src=n_src, gather=gather,
+                                 rowpatch=True)
             r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
             own = bound(cost["form_bytes"], cost["flops"])
-            old_txt = ""
-            if disp == "gather":
-                r["old"].append(device_ms(old, n=n))
-                old_txt = (f", the {'block-row' if long_rows else 'warp-row'} "
-                           f"form it replaced {r['old'][-1]:.4f} ms")
             log(f"phase 12 {name} {side} side (C {c}, D_pad {d}, k_b 8, "
-                f"{cost['form']}): kernel {r['ms'][-1]:.4f} ms{old_txt}, plain "
-                f"{r['plain'][-1]:.4f} ms, library —, bound "
-                f"{r['bound'][-1][0]:.4f} ms ({r['bound'][-1][1]}: "
-                f"{cost['hbm_bytes']:.0f} B, {cost['flops']:.0f} FLOP); the "
-                f"form's own traffic {cost['form_bytes']:.0f} B, "
-                f"{own[0]:.4f} ms")
+                f"{cost['form']}): kernel {r['ms'][-1]:.4f} ms, the "
+                f"{'block-row' if long_rows else 'warp-row'} form it replaced "
+                f"{r['old'][-1]:.4f} ms, plain {r['plain'][-1]:.4f} ms, "
+                f"library —, bound {r['bound'][-1][0]:.4f} ms "
+                f"({r['bound'][-1][1]}: {cost['hbm_bytes']:.0f} B, "
+                f"{cost['flops']:.0f} FLOP); the form's own traffic "
+                f"{cost['form_bytes']:.0f} B, {own[0]:.4f} ms")
         del x, es, psi
     return out
 
@@ -3058,7 +3161,8 @@ def main() -> None:
         f"{rp_errs['cd_block_sweep_rowpatch_gather']:.3g} (rtol {SWEEP_RTOL}, "
         f"atol {SWEEP_ATOL}; long rows + {LONG_ROW_REL} x the row's sum of "
         f"|a e psi| / den); edge cases pass, each form twice for the same "
-        f"bits; {time.perf_counter() - t0:.1f}s")
+        f"bits; split-row on 70,000 rows (fault 3.4) max |err| "
+        f"{rp_errs['many_rows']:.3g}; {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     ctx = train_ctxmf_full_width(dev)
     log(f"phase 10 done in {time.perf_counter() - t0:.1f}s")
@@ -3100,18 +3204,25 @@ def main() -> None:
                            for q in ("none", "bf16", "int8"))
     assert all(n > 0 for n in form_launches.values()), form_launches
 
-    def row(name, source, replaces, launches, err, t, library):
+    def row(name, source, replaces, launches, err, t, library, forms=None):
         """A kernel's JSON row; times are per launch, averaged over the
-        two sides' launches an epoch makes."""
+        two sides' launches an epoch makes; ``forms``: the main path's
+        launches by launch form."""
         mean = lambda xs: float(np.mean(xs))  # noqa: E731
         by = {b for _, b in t["bound"]}
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": mean(t["ms"]),
-                "plain_ms": mean(t["plain"]),
-                "bound_ms": mean([b for b, _ in t["bound"]]),
-                "bound_by": by.pop() if len(by) == 1 else "bytes",
-                "library_ms": None if library is None else mean(library)}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": mean(t["ms"]),
+               "plain_ms": mean(t["plain"]),
+               "bound_ms": mean([b for b, _ in t["bound"]]),
+               "bound_by": by.pop() if len(by) == 1 else "bytes",
+               "library_ms": None if library is None else mean(library)}
+        if forms is not None:
+            out["forms"] = forms
+        return out
+
+    def row_forms(counts, name):
+        return {f: counts[f"{name}:{f}"] for f in ("reg_row", "split_row")}
 
     cd_src = "src/repro_torch/kernels/cd_sweep/csrc/cd_sweep.cu"
     gather_src = "src/repro_torch/kernels/cd_sweep/csrc/cd_gather.cu"
@@ -3133,15 +3244,16 @@ def main() -> None:
            "src/repro/kernels/cd_sweep/kernel.py:429",
            tr["launches"]["cd_block_sweep_gather"],
            errs["cd_block_sweep_gather"], times["gather"], None),
-       row("cd_block_sweep_rowpatch", cd_src,
+       row("cd_block_sweep_rowpatch", gather_src,
            "src/repro/kernels/cd_sweep/kernel.py:207",
            ctx["pre_launches"]["cd_block_sweep_rowpatch"],
-           rp_errs["cd_block_sweep_rowpatch"], rp_times["pregather"], None),
+           rp_errs["cd_block_sweep_rowpatch"], rp_times["pregather"], None,
+           row_forms(ctx["pre_launches"], "cd_block_sweep_rowpatch")),
        row("cd_block_sweep_rowpatch_gather", gather_src,
            "src/repro/kernels/cd_sweep/kernel.py:519",
            ctx["launches"]["cd_block_sweep_rowpatch_gather"],
            rp_errs["cd_block_sweep_rowpatch_gather"], rp_times["gather"],
-           None)] + [
+           None, row_forms(ctx["launches"], "cd_block_sweep_rowpatch_gather"))] + [
         row(name, gather_src if name.endswith("gather") else
             "src/repro_torch/kernels/cd_sweep/csrc/cd_slab.cu",
             f"src/repro/kernels/cd_sweep/kernel.py:{line}",

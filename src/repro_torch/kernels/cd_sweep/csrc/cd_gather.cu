@@ -1,18 +1,23 @@
 // The gather forms of the block sweep, the slab reduce and the residual
 // patch, redesigned for Hopper (sm_90a): each slot's ψ gathered once a pass,
-// the row held in registers or split over the card.
+// the row held in registers or split over the card; and the same forms of
+// the pre-gathered row-patch sweep and slab reduce, reading ψ from the tile.
 //
 // Replaces: repro/kernels/cd_sweep/kernel.py, cd_block_sweep_gather_pallas
 // (body _sweep_gather_kernel), cd_block_sweep_rowpatch_gather_pallas (body
-// _sweep_rowpatch_gather_kernel), cd_slab_reduce_gather_pallas (body
-// _slab_reduce_gather_kernel) at m ≤ 8 and cd_resid_patch_gather_pallas
-// (body _resid_patch_gather_kernel) at m ≤ 8. The functions are those of
-// csrc/cd_sweep.cu's cd_sweep_kernel<true, ·> and cd_sweep_block_row_kernel
-// <true>, and csrc/cd_slab.cu's cd_slab_reduce_kernel<true> and
-// cd_resid_patch_kernel<true>, which keep the rows and widths these forms do
-// not take (kernels/vmem.py: cd_sweep_form, cd_slab_reduce_form,
-// cd_resid_patch_form). ψ_j[r, d] = tab[ids[r, d], j] of the (n_src, ld_tab)
-// ψ slab, the id clipped to [0, n_src) as jnp.take(mode="clip") does.
+// _sweep_rowpatch_gather_kernel), cd_block_sweep_rowpatch_pallas (body
+// _sweep_rowpatch_kernel) at k_b ≤ 8, cd_slab_reduce_gather_pallas (body
+// _slab_reduce_gather_kernel) and cd_slab_reduce_pallas (body
+// _slab_reduce_kernel) at m ≤ 8, and cd_resid_patch_gather_pallas (body
+// _resid_patch_gather_kernel) at m ≤ 8. The functions are those of
+// csrc/cd_sweep.cu's cd_sweep_kernel and cd_sweep_block_row_kernel, and
+// csrc/cd_slab.cu's cd_slab_reduce_kernel and cd_resid_patch_kernel, which
+// keep the rows and widths these forms do not take (kernels/vmem.py:
+// cd_sweep_form, cd_slab_reduce_form, cd_resid_patch_form). Gathered, ψ_j[r,
+// d] = tab[ids[r, d], j] of the (n_src, ld_tab) ψ slab, the id clipped to
+// [0, n_src) as jnp.take(mode="clip") does; pre-gathered (TILE), ψ_j[r, d] =
+// psi_blk[(r·k_b + j)·D + d] of the (C, k_b, D) tile, D contiguous, so a
+// column's loads are coalesced across the lanes that own consecutive slots.
 //
 // What bounds them on an H100: the bytes. The sweep must read ids, α and e
 // and write e (16 B a slot), read W, R' (and the row patch P) and write W,
@@ -35,6 +40,10 @@
 //     each of its 44 sums by a full butterfly (220 shuffles a row);
 //   * the residual patch gave a thread one slot: m guarded scalar loads of
 //     the row's Δφ and m scalar gathers, one slot in flight a thread.
+// The pre-gathered row-patch sweep had the first two faults with the tile in
+// place of the slab: a 4-byte tile load at the head of each step's chain in
+// the warp-row form, and 2·k_b passes of 24 B a slot over 24 rows on 24 SMs
+// in the block-row form (657 MB a launch, the 109 MB tile past the L2).
 //
 // Sweep, register-row form (rows of up to CDG_THREADS · 8 slots). A group of
 // LANES threads owns one row, a thread SLOTS fixed slots, d = (t mod W) +
@@ -46,7 +55,10 @@
 // scalar loads), and holds them in registers; with more slots (long rows),
 // where those registers would spill, it keeps each slot's row pointer and
 // reads ψ_j a step ahead, so the row's sector comes from L2 once and from L1
-// after (chip_smoke.py --sweep-tune measured both). The k_b steps then run
+// after (chip_smoke.py --sweep-tune measured both). From the tile (TILE, row
+// patch only) it reads a slot's k_b values the same two ways, column j of
+// its row block at a stride of D, each column coalesced across the group's
+// lanes; ids, the slab and the clip are not used. The k_b steps then run
 // on registers: two group sums a step (xor levels over the row's lanes in a
 // warp, shared by the two sums; for a row of several warps, the per-warp
 // partials summed in warp order by every thread, through a double-buffered
@@ -58,7 +70,7 @@
 // staged once a group (k_b² floats a row of shared memory). A k_b of 8 is a
 // compile-time constant. e and W are written once, at the end. At LANES = 32
 // a thread sums its slots in the order of the warp-row form, which it
-// therefore matches bit for bit, in both couplings.
+// therefore matches bit for bit, in both couplings and both ψ sources.
 //
 // Sweep, split-row form (rows too long for one block). For one row, with e
 // as it stands before the launch, let Q_j = Σ_d α·e·ψ_j and G_ij = Σ_d
@@ -67,18 +79,20 @@
 //   R'_j    = R'_j + Σ_{i<j} Δ_i·P(i, j)
 //   Δ_j     = −η·(L'_j/2 + α₀R'_j + λw_j) / max(L''_j/2 + α₀P(j, j) + λ, 1e-12)
 // and then, once, e += Σ_j Δ_j·ψ_j. Three launches on the caller's stream:
-// pass 1 cuts each row into chunks of `chunk` slots, one block a (chunk,
-// row), so a few long rows fill every SM; a thread gathers each slot's k_b ψ
-// values once and adds the 44 sums (Q and G's upper triangle) in registers,
-// as the one-tile slab reduce does, then the block reduces them in a fixed
-// order (a transpose-reduce in each warp, the warps' partials summed in warp
-// order) into a (C, n_chunks, 44) scratch; the solve sums a row's chunk
-// partials in chunk order and runs the k_b-step recurrence above on one
-// thread a row (P read with its strides; cs0 = 0 is one J for every row),
-// writing W and Δ; pass 2 is the residual patch below with Δφ = Δ. Each pass
-// moves 12 B and one slab row a slot: two passes in all, not 2·k_b. The sums
-// are taken in another order than the block-row form's, so the bits differ
-// from it; every run gives the same bits.
+// pass 1 cuts each row into chunks of `chunk` slots, one block a (row,
+// chunk), numbered row-major in one grid dimension (any number of rows), so
+// a few long rows fill every SM; a thread gathers each slot's k_b ψ values
+// once (or reads them from the tile) and adds the 44 sums (Q and G's upper
+// triangle) in registers, as the one-tile slab reduce does, then the block
+// reduces them in a fixed order (a transpose-reduce in each warp, the warps'
+// partials summed in warp order) into a (C, n_chunks, 44) scratch; the solve
+// sums a row's chunk partials in chunk order and runs the k_b-step
+// recurrence above on one thread a row (P read with its strides; cs0 = 0 is
+// one J for every row), writing W and Δ; pass 2 is the residual patch below
+// with Δφ = Δ. Each pass moves 12 B and one slab row a slot (pre-gathered,
+// 8 + 4·k_b B): two passes in all, not 2·k_b. The sums are taken in another
+// order than the block-row form's, so the bits differ from it; every run
+// gives the same bits.
 //
 // Slab reduce, one-tile form (m ≤ 8). A group of LANES ≤ 32 threads owns
 // one row and streams its slots (d ≡ t mod LANES), CDG_SLAB_INFLIGHT at a
@@ -100,6 +114,9 @@
 // holds the row's Δφ in registers, issues every slot's ψ gather (two
 // 16-byte loads where the slab allows) before its first FMA, and sums e +
 // Σ_j Δφ_j·ψ_j in ascending j, as cd_resid_patch_kernel does: the same bits.
+// From the tile (TILE: the split-row form's pass 2 pre-gathered) a thread
+// reads its slots of each of the m tile rows, 16 bytes at a time where e and
+// the tile allow.
 //
 // Interface: plain C functions bound with ctypes. They launch on the
 // caller's stream, allocate nothing and return cudaGetLastError().
@@ -170,10 +187,12 @@ __device__ __forceinline__ void row_sums(float& lp, float& lpp, int lane) {
 
 // KB: k_b fixed at compile time (8, the fused epochs' block), or 0 for any
 // k_b ≤ CDG_KB given at run time. ROWPATCH: each row's own coupling block P
-// (element (r, i, f) at r·cs0 + i·cs1 + f·cs2), else one J (cs0 = 0).
-template <int LANES, int SLOTS, int KB, bool ROWPATCH>
+// (element (r, i, f) at r·cs0 + i·cs1 + f·cs2), else one J (cs0 = 0). TILE:
+// ψ from the pre-gathered tile (tab, ids unused), else gathered.
+template <int LANES, int SLOTS, int KB, bool ROWPATCH, bool TILE>
 __global__ void __launch_bounds__(CDG_THREADS, CDG_SWEEP_MIN_BLOCKS)
-cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
+cd_sweep_gather_reg_kernel(const float* __restrict__ psi_blk,  // (C, kb, D)
+                           const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
                            const int* __restrict__ ids,      // (C, D)
                            const float* __restrict__ alpha,  // (C, D)
                            float* __restrict__ e,            // (C, D), in place
@@ -220,20 +239,35 @@ cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int 
     }
     float ev[SLOTS], av[SLOTS];
     float pv[PSI_REG ? SLOTS : 1][CDG_KB];      // ψ held in registers, or
-    const float* pr[PSI_REG ? 1 : SLOTS];       // each slot's slab row, and
-    float pn[PSI_REG ? 1 : SLOTS];              // the next step's ψ, a step ahead
+    const float* pr[PSI_REG ? 1 : SLOTS];       // each slot's slab row (tile: its
+    float pn[PSI_REG ? 1 : SLOTS];              // ψ_0), and the next step's ψ
+    const float* tr = TILE ? psi_blk + g * kb : nullptr;  // the row's (kb, D) block
+    const size_t col = TILE ? (size_t)D : 1;    // from ψ_j to ψ_{j+1}
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
         const int d = d0 + W * s;
         const bool in = d < D;
         av[s] = in ? alpha[g + d] : 0.f;
         ev[s] = in ? e[g + d] : 0.f;
-        const int id = in ? clip_id(ids[g + d], n_src) : 0;
-        if constexpr (PSI_REG) {
-            gather_cols(pv[s], tab, ld_tab, id, kb, vec);
+        if constexpr (TILE) {
+            // a slot past the row reads zeros, as the gather form reads the
+            // slab's row 0 with α = e = 0
+            if constexpr (PSI_REG) {
+#pragma unroll
+                for (int c = 0; c < CDG_KB; ++c)
+                    pv[s][c] = in && c < kb ? __ldg(tr + c * col + d) : 0.f;
+            } else {
+                pr[s] = tr + (in ? d : 0);
+                pn[s] = in ? __ldg(pr[s]) : 0.f;
+            }
         } else {
-            pr[s] = tab + (long long)id * ld_tab;
-            pn[s] = __ldg(pr[s]);
+            const int id = in ? clip_id(ids[g + d], n_src) : 0;
+            if constexpr (PSI_REG) {
+                gather_cols(pv[s], tab, ld_tab, id, kb, vec);
+            } else {
+                pr[s] = tab + (long long)id * ld_tab;
+                pn[s] = __ldg(pr[s]);
+            }
         }
     }
 
@@ -247,7 +281,8 @@ cd_sweep_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int 
                 pj[s] = pv[s][j];
             } else {
                 pj[s] = pn[s];
-                if (j + 1 < kb) pn[s] = __ldg(pr[s] + j + 1);
+                if (j + 1 < kb)
+                    pn[s] = !TILE || d0 + W * s < D ? __ldg(pr[s] + (j + 1) * col) : 0.f;
             }
         }
         float lp = 0.f, lpp = 0.f;
@@ -477,26 +512,29 @@ cd_slab_reduce_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n
     }
 }
 
-// Split-row sweep, pass 1: block (chunk, row) adds the 44 moments of the
-// chunk's slots, reduces them in a fixed order and writes them to
-// part[row][chunk] (44 floats).
+// Split-row sweep, pass 1: block b = row·n_chunks + chunk adds the 44
+// moments of the chunk's slots, reduces them in a fixed order and writes
+// them to part[b] (44 floats). TILE: ψ from the (C, kb, D) tile.
+template <bool TILE>
 __global__ void __launch_bounds__(CDG_THREADS, CDG_SLAB_MIN_BLOCKS)
-cd_split_reduce_kernel(const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
+cd_split_reduce_kernel(const float* __restrict__ psi_blk,  // (C, kb, D)
+                       const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
                        const int* __restrict__ ids,      // (C, D)
                        const float* __restrict__ alpha,  // (C, D)
                        const float* __restrict__ e,      // (C, D)
                        float* __restrict__ part,         // (C, n_chunks, CDG_NSUM)
-                       int D, int kb, int chunk) {
+                       int D, int kb, int chunk, int n_chunks) {
     constexpr int WARPS = CDG_THREADS / 32;
     __shared__ float red[WARPS][CDG_NSUM];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const long long row = blockIdx.y;
-    const int c0 = blockIdx.x * chunk;
+    const long long row = blockIdx.x / n_chunks;
+    const int c0 = (int)(blockIdx.x - row * n_chunks) * chunk;
     float acc[CDG_NSUM];
 #pragma unroll
     for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
-    add_moments<CDG_THREADS>(acc, tab, ld_tab, n_src, vec, ids, alpha, e, (size_t)row * D,
-                             c0 + threadIdx.x, min(D, c0 + chunk), kb);
+    add_moments<CDG_THREADS, TILE>(acc, tab, ld_tab, n_src, vec, ids, alpha, e,
+                                   (size_t)row * D, c0 + threadIdx.x, min(D, c0 + chunk), kb,
+                                   psi_blk, D);
     transpose_reduce<CDG_NSUM, 16>(acc, lane);
 #pragma unroll
     for (int k = 0; k < Reduced<CDG_NSUM, 16>::n; ++k) {
@@ -508,7 +546,7 @@ cd_split_reduce_kernel(const float* __restrict__ tab, long long ld_tab, int n_sr
         float s = 0.f;
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) s += red[w][threadIdx.x];  // warp order
-        part[((size_t)row * gridDim.x + blockIdx.x) * CDG_NSUM + threadIdx.x] = s;
+        part[(size_t)blockIdx.x * CDG_NSUM + threadIdx.x] = s;
     }
 }
 
@@ -554,15 +592,18 @@ cd_split_solve_kernel(const float* __restrict__ part, int n_chunks,
 }
 
 // Residual patch, register-slot form: thread t takes slots d0 … d0 +
-// CDG_PATCH_SLOTS − 1 of one row. VEC: D a multiple of 4 and ids, e 16-byte
-// aligned, so a slot quad is one int4 and one float4 (whole or past D).
-template <bool VEC>
+// CDG_PATCH_SLOTS − 1 of one row. VEC: D a multiple of 4 and ids (or the
+// tile), e 16-byte aligned, so a slot quad is one int4 (or one float4 of
+// each tile row) and one float4 of e (whole or past D). TILE: ψ from the
+// (C, m, D) tile (tab, ids unused), else gathered.
+template <bool VEC, bool TILE>
 __global__ void __launch_bounds__(CDG_THREADS)
-cd_resid_patch_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
-                                 int vec, const int* __restrict__ ids,  // (C, D)
-                                 float* __restrict__ e,                  // (C, D), in place
-                                 const float* __restrict__ dphi, long long ld_dphi,  // (C, m)
-                                 long long n_threads, int per_row, int D, int m) {
+cd_resid_patch_reg_kernel(const float* __restrict__ psi_blk,  // (C, m, D)
+                          const float* __restrict__ tab, long long ld_tab, int n_src, int vec,
+                          const int* __restrict__ ids,  // (C, D)
+                          float* __restrict__ e,        // (C, D), in place
+                          const float* __restrict__ dphi, long long ld_dphi,  // (C, m)
+                          long long n_threads, int per_row, int D, int m) {
     constexpr int S = CDG_PATCH_SLOTS;
     const long long t = (long long)blockIdx.x * CDG_THREADS + threadIdx.x;
     if (t >= n_threads) return;
@@ -578,8 +619,8 @@ cd_resid_patch_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab
     for (int q = 0; q < S / 4; ++q) {
         if (VEC) {
             const bool in = d0 + 4 * q < D;
-            const int4 iv = in ? __ldg(reinterpret_cast<const int4*>(ids + g) + q)
-                               : make_int4(0, 0, 0, 0);
+            const int4 iv = in && !TILE ? __ldg(reinterpret_cast<const int4*>(ids + g) + q)
+                                        : make_int4(0, 0, 0, 0);
             const float4 fv = in ? reinterpret_cast<const float4*>(e + g)[q]
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
             id[4 * q] = iv.x; id[4 * q + 1] = iv.y; id[4 * q + 2] = iv.z; id[4 * q + 3] = iv.w;
@@ -588,14 +629,37 @@ cd_resid_patch_gather_reg_kernel(const float* __restrict__ tab, long long ld_tab
 #pragma unroll
             for (int s = 4 * q; s < 4 * q + 4; ++s) {
                 const bool in = d0 + s < D;
-                id[s] = in ? ids[g + s] : 0;
+                id[s] = in && !TILE ? ids[g + s] : 0;
                 ev[s] = in ? e[g + s] : 0.f;
             }
         }
     }
     float x[S][CDG_KB];
+    if constexpr (TILE) {
+        // tile row j of this row's (m, D) block at g·m + j·D; slots past D
+        // read zeros
+        const float* tr = psi_blk + (size_t)row * m * D + d0;
 #pragma unroll
-    for (int s = 0; s < S; ++s) gather_cols(x[s], tab, ld_tab, clip_id(id[s], n_src), m, vec);
+        for (int j = 0; j < CDG_KB; ++j) {
+#pragma unroll
+            for (int q = 0; q < S / 4; ++q) {
+                if (VEC) {
+                    const float4 v = j < m && d0 + 4 * q < D
+                                         ? __ldg(reinterpret_cast<const float4*>(tr + (size_t)j * D) + q)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+                    x[4 * q][j] = v.x; x[4 * q + 1][j] = v.y;
+                    x[4 * q + 2][j] = v.z; x[4 * q + 3][j] = v.w;
+                } else {
+#pragma unroll
+                    for (int s = 4 * q; s < 4 * q + 4; ++s)
+                        x[s][j] = j < m && d0 + s < D ? __ldg(tr + (size_t)j * D + s) : 0.f;
+                }
+            }
+        }
+    } else {
+#pragma unroll
+        for (int s = 0; s < S; ++s) gather_cols(x[s], tab, ld_tab, clip_id(id[s], n_src), m, vec);
+    }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
         float v = ev[s];
@@ -622,67 +686,97 @@ static bool vec_loads(const float* tab, long long ld_tab, int cols) {
     return ((uintptr_t)tab & 15) == 0 && ld_tab % 4 == 0 && (cols == 4 || cols == 8);
 }
 
-static cudaError_t launch_patch(const float* tab, long long ld_tab, int n_src, const int* ids,
-                                float* e, const float* dphi, long long ld_dphi, int C, int D,
-                                int m, cudaStream_t st) {
-    const int vec = vec_loads(tab, ld_tab, m);
-    const bool quads = D % 4 == 0 && ((uintptr_t)ids & 15) == 0 && ((uintptr_t)e & 15) == 0;
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// psi_blk non-null: the tile source (tab, ids unused), else the gather.
+static cudaError_t launch_patch(const float* psi_blk, const float* tab, long long ld_tab,
+                                int n_src, const int* ids, float* e, const float* dphi,
+                                long long ld_dphi, int C, int D, int m, cudaStream_t st) {
+    const bool tile = psi_blk != nullptr;
+    const int vec = tile ? 0 : vec_loads(tab, ld_tab, m);
+    const bool quads = D % 4 == 0 && aligned16(tile ? (const void*)psi_blk : ids) && aligned16(e);
     const int per_row = (D + CDG_PATCH_SLOTS - 1) / CDG_PATCH_SLOTS;
     const long long n_threads = (long long)C * per_row;
     const long long blocks = (n_threads + CDG_THREADS - 1) / CDG_THREADS;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    if (quads)
-        cd_resid_patch_gather_reg_kernel<true><<<(unsigned)blocks, CDG_THREADS, 0, st>>>(
-            tab, ld_tab, n_src, vec, ids, e, dphi, ld_dphi, n_threads, per_row, D, m);
+#define CDG_PATCH_LAUNCH(V, T)                                                                 \
+    cd_resid_patch_reg_kernel<V, T><<<(unsigned)blocks, CDG_THREADS, 0, st>>>(                 \
+        psi_blk, tab, ld_tab, n_src, vec, ids, e, dphi, ld_dphi, n_threads, per_row, D, m)
+    if (tile && quads)
+        CDG_PATCH_LAUNCH(true, true);
+    else if (tile)
+        CDG_PATCH_LAUNCH(false, true);
+    else if (quads)
+        CDG_PATCH_LAUNCH(true, false);
     else
-        cd_resid_patch_gather_reg_kernel<false><<<(unsigned)blocks, CDG_THREADS, 0, st>>>(
-            tab, ld_tab, n_src, vec, ids, e, dphi, ld_dphi, n_threads, per_row, D, m);
+        CDG_PATCH_LAUNCH(false, false);
+#undef CDG_PATCH_LAUNCH
     return cudaGetLastError();
 }
 
+// The tile source is compiled for the row patch only: the pre-gathered
+// shared-J sweep keeps csrc/cd_sweep.cu's forms.
 template <int LANES, int SLOTS, typename... Args>
-static cudaError_t launch_sweep(int C, int kb, bool rowpatch, cudaStream_t st, Args... args) {
+static cudaError_t launch_sweep(int C, int kb, bool rowpatch, bool tile, cudaStream_t st,
+                                Args... args) {
     constexpr int rows = CDG_THREADS / LANES;
     const int blocks = (C + rows - 1) / rows;
-    if (kb == CDG_KB && rowpatch)
-        cd_sweep_gather_reg_kernel<LANES, SLOTS, CDG_KB, true><<<blocks, CDG_THREADS, 0, st>>>(
-            args...);
+#define CDG_SWEEP_LAUNCH(K, P, T)                                                              \
+    cd_sweep_gather_reg_kernel<LANES, SLOTS, K, P, T><<<blocks, CDG_THREADS, 0, st>>>(args...)
+    if (tile && kb == CDG_KB)
+        CDG_SWEEP_LAUNCH(CDG_KB, true, true);
+    else if (tile)
+        CDG_SWEEP_LAUNCH(0, true, true);
+    else if (kb == CDG_KB && rowpatch)
+        CDG_SWEEP_LAUNCH(CDG_KB, true, false);
     else if (kb == CDG_KB)
-        cd_sweep_gather_reg_kernel<LANES, SLOTS, CDG_KB, false><<<blocks, CDG_THREADS, 0, st>>>(
-            args...);
+        CDG_SWEEP_LAUNCH(CDG_KB, false, false);
     else if (rowpatch)
-        cd_sweep_gather_reg_kernel<LANES, SLOTS, 0, true><<<blocks, CDG_THREADS, 0, st>>>(args...);
+        CDG_SWEEP_LAUNCH(0, true, false);
     else
-        cd_sweep_gather_reg_kernel<LANES, SLOTS, 0, false><<<blocks, CDG_THREADS, 0, st>>>(args...);
+        CDG_SWEEP_LAUNCH(0, false, false);
+#undef CDG_SWEEP_LAUNCH
     return cudaGetLastError();
 }
 
-// tab: the ψ slab, row stride ld_tab, columns contiguous; ids, alpha, e:
-// (C, D) contiguous; w_in, r1_in: (C, kb) with row strides; cpl: the
-// coupling block, element (r, i, f) at r·cs0 + i·cs1 + f·cs2 — cs0 = 0 for
-// one (kb, kb) block J shared by every row, else the per-row patch P;
+// The ψ source of an entry point: the (C, cols, D) tile psi_blk
+// (contiguous; tab and ids null), or the slab tab of at least cols columns
+// with the id grid (psi_blk null).
+static bool source_ok(const float* psi_blk, const float* tab, long long ld_tab, int n_src,
+                      const int* ids, int cols) {
+    if (psi_blk != nullptr) return tab == nullptr && ids == nullptr;
+    return tab != nullptr && ids != nullptr && n_src >= 1 && ld_tab >= cols;
+}
+
+// psi_blk or tab (source_ok): the ψ source, the tile with the per-row
+// patch only; tab: the ψ slab, row stride ld_tab, columns contiguous; ids,
+// alpha, e: (C, D) contiguous; w_in, r1_in: (C, kb) with row strides; cpl:
+// the coupling block, element (r, i, f) at r·cs0 + i·cs1 + f·cs2 — cs0 = 0
+// for one (kb, kb) block J shared by every row, else the per-row patch P;
 // w_out: (C, kb) contiguous. lanes (8 … CDG_THREADS, a power of two)
 // threads own a row, slots (4, 8 or 16) slots each; lanes · slots ≥ D.
-extern "C" int cd_sweep_gather_reg_f32(const float* tab, long long ld_tab, int n_src,
-                                       const int* ids, const float* alpha, float* e,
-                                       const float* w_in, long long ld_w, const float* r1_in,
-                                       long long ld_r1, const float* cpl, long long cs0,
-                                       long long cs1, long long cs2, float* w_out, int C, int D,
-                                       int kb, float alpha0, float l2, float eta, int lanes,
-                                       int slots, void* stream) {
-    if (C < 0 || D < 1 || kb < 1 || kb > CDG_KB || n_src < 1 || ld_tab < kb || tab == nullptr ||
-        ids == nullptr || alpha == nullptr || e == nullptr || w_in == nullptr ||
-        r1_in == nullptr || cpl == nullptr || w_out == nullptr || (long long)lanes * slots < D)
+extern "C" int cd_sweep_reg_f32(const float* psi_blk, const float* tab, long long ld_tab,
+                                int n_src, const int* ids, const float* alpha, float* e,
+                                const float* w_in, long long ld_w, const float* r1_in,
+                                long long ld_r1, const float* cpl, long long cs0, long long cs1,
+                                long long cs2, float* w_out, int C, int D, int kb, float alpha0,
+                                float l2, float eta, int lanes, int slots, void* stream) {
+    if (C < 0 || D < 1 || kb < 1 || kb > CDG_KB ||
+        !source_ok(psi_blk, tab, ld_tab, n_src, ids, kb) ||
+        (psi_blk != nullptr && cs0 == 0) || alpha == nullptr || e == nullptr ||
+        w_in == nullptr || r1_in == nullptr || cpl == nullptr || w_out == nullptr ||
+        (long long)lanes * slots < D)
         return (int)cudaErrorInvalidValue;
     if (C == 0) return (int)cudaSuccess;
-    const int vec = vec_loads(tab, ld_tab, kb);
+    const bool tile = psi_blk != nullptr;
+    const int vec = tile ? 0 : vec_loads(tab, ld_tab, kb);
     const bool rowpatch = cs0 != 0;
     cudaStream_t st = (cudaStream_t)stream;
 #define CDG_SWEEP_CASE(L, S)                                                                  \
     if (lanes == L && slots == S)                                                             \
-        return (int)launch_sweep<L, S>(C, kb, rowpatch, st, tab, ld_tab, n_src, vec, ids,     \
-                                       alpha, e, w_in, ld_w, r1_in, ld_r1, cpl, cs0, cs1,     \
-                                       cs2, w_out, C, D, kb, alpha0, l2, eta);
+        return (int)launch_sweep<L, S>(C, kb, rowpatch, tile, st, psi_blk, tab, ld_tab,       \
+                                       n_src, vec, ids, alpha, e, w_in, ld_w, r1_in, ld_r1,   \
+                                       cpl, cs0, cs1, cs2, w_out, C, D, kb, alpha0, l2, eta);
 #define CDG_SWEEP_LANES(S)                                                                    \
     CDG_SWEEP_CASE(8, S) CDG_SWEEP_CASE(16, S) CDG_SWEEP_CASE(32, S) CDG_SWEEP_CASE(64, S)   \
     CDG_SWEEP_CASE(128, S) CDG_SWEEP_CASE(256, S)
@@ -703,8 +797,7 @@ extern "C" int cd_slab_reduce_reg_f32(const float* psi_blk, const float* tab, lo
                                       int m, int lanes, void* stream) {
     const bool tile = psi_blk != nullptr;
     if (C < 0 || D < 1 || m < 1 || m > CDG_KB || alpha == nullptr || e == nullptr ||
-        q_out == nullptr || p_out == nullptr ||
-        (!tile && (n_src < 1 || ld_tab < m || tab == nullptr || ids == nullptr)))
+        q_out == nullptr || p_out == nullptr || !source_ok(psi_blk, tab, ld_tab, n_src, ids, m))
         return (int)cudaErrorInvalidValue;
     if (C == 0) return (int)cudaSuccess;
     const int vec = tile ? 0 : vec_loads(tab, ld_tab, m);
@@ -727,45 +820,55 @@ extern "C" int cd_slab_reduce_reg_f32(const float* psi_blk, const float* tab, lo
     return (int)cudaErrorInvalidValue;
 }
 
-// The split-row sweep: the arguments of cd_sweep_gather_reg_f32, and part
-// (C, ⌈D/chunk⌉, CDG_NSUM) and delta (C, kb), contiguous scratch the caller
-// allocates; chunk ≥ 1 slots a pass-1 block. C ≤ 65,535 rows.
-extern "C" int cd_sweep_split_row_f32(const float* tab, long long ld_tab, int n_src,
-                                      const int* ids, const float* alpha, float* e,
+// The split-row sweep: the arguments of cd_sweep_reg_f32 (the tile with
+// either coupling), and part (C, ⌈D/chunk⌉, CDG_NSUM) and delta (C, kb),
+// contiguous scratch the caller allocates; chunk ≥ 1 slots a pass-1 block.
+// Any number of rows whose chunks number at most 2^31 − 1.
+extern "C" int cd_sweep_split_row_f32(const float* psi_blk, const float* tab, long long ld_tab,
+                                      int n_src, const int* ids, const float* alpha, float* e,
                                       const float* w_in, long long ld_w, const float* r1_in,
                                       long long ld_r1, const float* cpl, long long cs0,
                                       long long cs1, long long cs2, float* w_out, float* part,
                                       float* delta, int C, int D, int kb, float alpha0,
                                       float l2, float eta, int chunk, void* stream) {
-    if (C < 0 || C > 65535 || D < 1 || kb < 1 || kb > CDG_KB || n_src < 1 || ld_tab < kb ||
-        chunk < 1 || tab == nullptr || ids == nullptr || alpha == nullptr || e == nullptr ||
-        w_in == nullptr || r1_in == nullptr || cpl == nullptr || w_out == nullptr ||
-        part == nullptr || delta == nullptr)
+    if (C < 0 || D < 1 || kb < 1 || kb > CDG_KB || chunk < 1 ||
+        !source_ok(psi_blk, tab, ld_tab, n_src, ids, kb) || alpha == nullptr ||
+        e == nullptr || w_in == nullptr || r1_in == nullptr || cpl == nullptr ||
+        w_out == nullptr || part == nullptr || delta == nullptr)
         return (int)cudaErrorInvalidValue;
     if (C == 0) return (int)cudaSuccess;
     const int n_chunks = (D + chunk - 1) / chunk;
+    const long long blocks = (long long)C * n_chunks;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const bool tile = psi_blk != nullptr;
+    const int vec = tile ? 0 : vec_loads(tab, ld_tab, kb);
     cudaStream_t st = (cudaStream_t)stream;
-    cd_split_reduce_kernel<<<dim3(n_chunks, C), CDG_THREADS, 0, st>>>(
-        tab, ld_tab, n_src, vec_loads(tab, ld_tab, kb), ids, alpha, e, part, D, kb, chunk);
+    if (tile)
+        cd_split_reduce_kernel<true><<<(unsigned)blocks, CDG_THREADS, 0, st>>>(
+            psi_blk, tab, ld_tab, n_src, vec, ids, alpha, e, part, D, kb, chunk, n_chunks);
+    else
+        cd_split_reduce_kernel<false><<<(unsigned)blocks, CDG_THREADS, 0, st>>>(
+            psi_blk, tab, ld_tab, n_src, vec, ids, alpha, e, part, D, kb, chunk, n_chunks);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     cd_split_solve_kernel<<<C, 32, 0, st>>>(part, n_chunks, w_in, ld_w, r1_in, ld_r1, cpl, cs0,
                                             cs1, cs2, w_out, delta, kb, alpha0, l2, eta);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_patch(tab, ld_tab, n_src, ids, e, delta, kb, C, D, kb, st);
+    return (int)launch_patch(psi_blk, tab, ld_tab, n_src, ids, e, delta, kb, C, D, kb, st);
 }
 
-// As csrc/cd_slab.cu's cd_resid_patch_f32 in the gather form, for m ≤ 8.
-extern "C" int cd_resid_patch_gather_reg_f32(const float* tab, long long ld_tab, int n_src,
-                                             const int* ids, float* e, const float* dphi,
-                                             long long ld_dphi, int C, int D, int m,
-                                             void* stream) {
-    if (C < 0 || D < 1 || m < 1 || m > CDG_KB || n_src < 1 || ld_tab < m || ld_dphi < 0 ||
-        tab == nullptr || ids == nullptr || e == nullptr || dphi == nullptr)
+// As csrc/cd_slab.cu's cd_resid_patch_f32 for m ≤ 8: the gather form (tab,
+// ids; psi_blk null) or the pre-gathered form (psi_blk (C, m, D)
+// contiguous; tab, ids null).
+extern "C" int cd_resid_patch_reg_f32(const float* psi_blk, const float* tab, long long ld_tab,
+                                      int n_src, const int* ids, float* e, const float* dphi,
+                                      long long ld_dphi, int C, int D, int m, void* stream) {
+    if (C < 0 || D < 1 || m < 1 || m > CDG_KB || ld_dphi < 0 || e == nullptr ||
+        dphi == nullptr || !source_ok(psi_blk, tab, ld_tab, n_src, ids, m))
         return (int)cudaErrorInvalidValue;
     if (C == 0) return (int)cudaSuccess;
-    return (int)launch_patch(tab, ld_tab, n_src, ids, e, dphi, ld_dphi, C, D, m,
+    return (int)launch_patch(psi_blk, tab, ld_tab, n_src, ids, e, dphi, ld_dphi, C, D, m,
                              (cudaStream_t)stream);
 }
 

@@ -10,10 +10,11 @@ source (so ``build_all`` compiles them at once):
   * ``csrc/cd_slab.cu`` (:data:`SLAB_LIB`) — the feature models' slab
     reduce and rank-m residual patch, each in both ψ routings.
   * ``csrc/cd_gather.cu`` (:data:`GATHER_LIB`) — the redesigned forms: the
-    gather sweep's register-row form (shared J or per-row patch) and
-    split-row form (long rows, three launches), the slab reduce's one-tile
-    form in both ψ routings and the gather residual patch's register-slot
-    form (m ≤ 8); their sizes come from ``kernels/vmem`` as ``-D`` flags."""
+    block sweep's register-row form and split-row form (long rows, three
+    launches), gathered (shared J or per-row patch) or, for the row patch,
+    from the pre-gathered tile; the slab reduce's one-tile form and the
+    residual patch's register-slot form (m ≤ 8), each in both ψ routings;
+    their sizes come from ``kernels/vmem`` as ``-D`` flags."""
 from __future__ import annotations
 
 import ctypes
@@ -55,20 +56,19 @@ SLAB_LIB = CudaLibrary(
 
 def _bind_gather(lib) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.cd_sweep_gather_reg_f32.argtypes = [p, ll, i, p, p, p, p, ll, p, ll, p,
-                                            ll, ll, ll, p, i, i, i, f, f, f, i,
-                                            i, p]
-    lib.cd_sweep_gather_reg_f32.restype = i
-    lib.cd_sweep_split_row_f32.argtypes = [p, ll, i, p, p, p, p, ll, p, ll, p,
-                                           ll, ll, ll, p, p, p, i, i, i, f, f,
-                                           f, i, p]
+    lib.cd_sweep_reg_f32.argtypes = [p, p, ll, i, p, p, p, p, ll, p, ll, p,
+                                     ll, ll, ll, p, i, i, i, f, f, f, i, i, p]
+    lib.cd_sweep_reg_f32.restype = i
+    lib.cd_sweep_split_row_f32.argtypes = [p, p, ll, i, p, p, p, p, ll, p, ll,
+                                           p, ll, ll, ll, p, p, p, i, i, i, f,
+                                           f, f, i, p]
     lib.cd_sweep_split_row_f32.restype = i
     lib.cd_slab_reduce_reg_f32.argtypes = [p, p, ll, i, p, p, p, p, p, i, i,
                                            i, i, p]
     lib.cd_slab_reduce_reg_f32.restype = i
-    lib.cd_resid_patch_gather_reg_f32.argtypes = [p, ll, i, p, p, p, ll, i, i,
-                                                  i, p]
-    lib.cd_resid_patch_gather_reg_f32.restype = i
+    lib.cd_resid_patch_reg_f32.argtypes = [p, p, ll, i, p, p, p, ll, i, i, i,
+                                           p]
+    lib.cd_resid_patch_reg_f32.restype = i
 
 
 GATHER_DEFINES = {
@@ -132,47 +132,59 @@ def launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, *,
     LIB.check(rc, "cd_sweep")
 
 
+def _source(psi_tab, ids, psi_blk):
+    """(psi_blk, slab, slab row stride, slab rows, ids) pointers and sizes
+    of a ψ source: the pre-gathered tile or the gathered slab."""
+    if psi_blk is not None:
+        return _ptr(psi_blk), None, 0, 0, None
+    return None, _ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids)
+
+
 def launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, *,
                alpha0: float, l2: float, eta: float, lanes: int, slots: int,
-               lib=None) -> None:
-    """Enqueue one gather sweep in the register-row form: ``lanes``
-    threads a row, ``slots`` slots a thread (``vmem.cd_sweep_reg_group``);
-    ``e`` in place, W into ``w_out``. ``cpl`` is the shared (k_b, k_b) J
-    or the (C, k_b, k_b) per-row patch, read with its strides. ``lib`` is
-    :data:`GATHER_LIB` or a variant build of its source. The caller has
-    checked shapes, dtypes, device and strides (``ops``)."""
+               psi_blk=None, lib=None) -> None:
+    """Enqueue one sweep in the register-row form: ``lanes`` threads a
+    row, ``slots`` slots a thread (``vmem.cd_sweep_reg_group``); ``e`` in
+    place, W into ``w_out``. ψ is gathered from ``psi_tab`` through
+    ``ids``, or, with ``psi_blk`` (C, k_b, D_pad) given (``psi_tab`` and
+    ``ids`` None; the per-row patch only), read from the pre-gathered
+    tile. ``cpl`` is the shared (k_b, k_b) J or the (C, k_b, k_b) per-row
+    patch, read with its strides. ``lib`` is :data:`GATHER_LIB` or a
+    variant build of its source. The caller has checked shapes, dtypes,
+    device and strides (``ops``)."""
     lib = lib or GATHER_LIB
-    fn = lib.load().cd_sweep_gather_reg_f32
+    fn = lib.load().cd_sweep_reg_f32
     c, d = alpha.shape
     kb = w_out.shape[1]
     with torch.cuda.device(alpha.device):
-        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
-                _ptr(alpha), _ptr(e), _ptr(w_blk), _ld(w_blk), _ptr(r1_blk),
-                _ld(r1_blk), cpl.data_ptr(), *_cpl_strides(cpl), _ptr(w_out),
-                c, d, kb, float(alpha0), float(l2), float(eta), lanes, slots,
+        rc = fn(*_source(psi_tab, ids, psi_blk), _ptr(alpha), _ptr(e),
+                _ptr(w_blk), _ld(w_blk), _ptr(r1_blk), _ld(r1_blk),
+                cpl.data_ptr(), *_cpl_strides(cpl), _ptr(w_out), c, d, kb,
+                float(alpha0), float(l2), float(eta), lanes, slots,
                 _stream(alpha))
-    lib.check(rc, "cd_sweep_gather_reg")
+    lib.check(rc, "cd_sweep_reg")
 
 
 def launch_split(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, part,
                  delta, *, alpha0: float, l2: float, eta: float, chunk: int,
-                 lib=None) -> None:
-    """Enqueue one gather sweep in the split-row form, three launches:
-    pass 1 (one block a ``chunk``-slot chunk of a row) writes each chunk's
-    44 moments to ``part`` (C, ⌈D_pad/chunk⌉, 44), the solve writes W to
+                 psi_blk=None, lib=None) -> None:
+    """Enqueue one sweep in the split-row form, three launches: pass 1
+    (one block a ``chunk``-slot chunk of a row) writes each chunk's 44
+    moments to ``part`` (C, ⌈D_pad/chunk⌉, 44), the solve writes W to
     ``w_out`` and Δ to ``delta`` (C, k_b), pass 2 patches ``e`` in place.
-    ``cpl`` as in :func:`launch_reg`; the caller has checked the rest and
-    allocated the scratch (``ops``)."""
+    ``cpl`` and the ψ source (``psi_tab`` and ``ids``, or ``psi_blk``) as
+    in :func:`launch_reg`, the tile here with either coupling; the caller
+    has checked the rest and allocated the scratch (``ops``)."""
     lib = lib or GATHER_LIB
     fn = lib.load().cd_sweep_split_row_f32
     c, d = alpha.shape
     kb = w_out.shape[1]
     with torch.cuda.device(alpha.device):
-        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
-                _ptr(alpha), _ptr(e), _ptr(w_blk), _ld(w_blk), _ptr(r1_blk),
-                _ld(r1_blk), cpl.data_ptr(), *_cpl_strides(cpl), _ptr(w_out),
-                _ptr(part), _ptr(delta), c, d, kb, float(alpha0), float(l2),
-                float(eta), chunk, _stream(alpha))
+        rc = fn(*_source(psi_tab, ids, psi_blk), _ptr(alpha), _ptr(e),
+                _ptr(w_blk), _ld(w_blk), _ptr(r1_blk), _ld(r1_blk),
+                cpl.data_ptr(), *_cpl_strides(cpl), _ptr(w_out), _ptr(part),
+                _ptr(delta), c, d, kb, float(alpha0), float(l2), float(eta),
+                chunk, _stream(alpha))
     lib.check(rc, "cd_sweep_split_row")
 
 
@@ -186,11 +198,9 @@ def slab_reduce_reg(psi_tab, ids, alpha, e, q_out, p_out, *, lanes: int,
     lib = lib or GATHER_LIB
     fn = lib.load().cd_slab_reduce_reg_f32
     c, d = alpha.shape
-    gather = psi_tab is not None
     with torch.cuda.device(alpha.device):
-        rc = fn(_ptr(psi_blk), _ptr(psi_tab), _ld(psi_tab) if gather else 0,
-                psi_tab.shape[0] if gather else 0, _ptr(ids), _ptr(alpha),
-                _ptr(e), _ptr(q_out), _ptr(p_out), c, d, q_out.shape[1], lanes,
+        rc = fn(*_source(psi_tab, ids, psi_blk), _ptr(alpha), _ptr(e),
+                _ptr(q_out), _ptr(p_out), c, d, q_out.shape[1], lanes,
                 _stream(alpha))
     lib.check(rc, "cd_slab_reduce_reg")
 
@@ -211,18 +221,19 @@ def slab_reduce(psi_blk, psi_tab, ids, alpha, e, q_out, p_out) -> None:
     SLAB_LIB.check(rc, "cd_slab_reduce")
 
 
-def resid_patch_reg(psi_tab, ids, e, dphi, lib=None) -> None:
-    """Enqueue one gather residual patch in the register-slot form (m ≤ 8,
-    ``vmem.CDG_PATCH_SLOTS`` slots a thread); as :func:`resid_patch`
-    otherwise."""
+def resid_patch_reg(psi_tab, ids, e, dphi, *, psi_blk=None, lib=None) -> None:
+    """Enqueue one residual patch in the register-slot form (m ≤ 8,
+    ``vmem.CDG_PATCH_SLOTS`` slots a thread): ψ gathered from ``psi_tab``
+    through ``ids``, or, with ``psi_blk`` (C, m, D_pad) given (``psi_tab``
+    and ``ids`` None), read from the pre-gathered tile; as
+    :func:`resid_patch` otherwise."""
     lib = lib or GATHER_LIB
-    fn = lib.load().cd_resid_patch_gather_reg_f32
+    fn = lib.load().cd_resid_patch_reg_f32
     c, d = e.shape
     with torch.cuda.device(e.device):
-        rc = fn(_ptr(psi_tab), _ld(psi_tab), psi_tab.shape[0], _ptr(ids),
-                _ptr(e), _ptr(dphi), _ld(dphi), c, d, dphi.shape[1],
-                _stream(e))
-    lib.check(rc, "cd_resid_patch_gather_reg")
+        rc = fn(*_source(psi_tab, ids, psi_blk), _ptr(e), _ptr(dphi),
+                _ld(dphi), c, d, dphi.shape[1], _stream(e))
+    lib.check(rc, "cd_resid_patch_reg")
 
 
 def resid_patch(psi_blk, psi_tab, ids, e, dphi) -> None:

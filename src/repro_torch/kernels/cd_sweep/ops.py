@@ -7,16 +7,18 @@ A CUDA tensor launches a hand-written kernel: ``csrc/cd_sweep.cu`` for
 ``csrc/cd_slab.cu`` for the feature models' :func:`cd_slab_reduce`,
 :func:`cd_slab_reduce_gather`, :func:`cd_resid_patch` and
 :func:`cd_resid_patch_gather`, and ``csrc/cd_gather.cu`` for the
-redesigned forms of the gather entry points. A CPU tensor takes the plain
+redesigned forms of the gather entry points, of the pre-gathered row-patch
+sweep and of the pre-gathered slab reduce. A CPU tensor takes the plain
 version (``ref.py``) in every entry point.
 
 Each block-sweep launch takes the form :func:`~repro_torch.kernels.vmem.cd_sweep_form`
-picks: for the gather sweep (shared J or per-row patch), the register-row
-form where :func:`~repro_torch.kernels.vmem.cd_sweep_reg_group` takes the
-row; else the warp-row form when one row fits a block's shared memory;
-beyond that the split-row form for the gather sweep (each row cut into
-chunks over the whole card, three launches) and the block-row form (one
-thread block a row) for the pre-gathered one. A wrapper's ``launches``
+picks: for the gather sweep (shared J or per-row patch) and the
+pre-gathered row-patch sweep, the register-row form where
+:func:`~repro_torch.kernels.vmem.cd_sweep_reg_group` takes the row; else
+the warp-row form when one row fits a block's shared memory; beyond that
+the split-row form for those sweeps (each row cut into chunks over the
+whole card, three launches) and the block-row form (one thread block a
+row) for the pre-gathered shared-J sweep and k_b > 8. A wrapper's ``launches``
 counts its calls that launch (one launch chain each),
 ``launches_reg_row`` those in the register-row form,
 ``launches_block_row`` those on long rows (the block-row or split-row
@@ -119,7 +121,7 @@ def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, *,
     if form == vmem.REG_ROW:
         lanes, slots = vmem.cd_sweep_reg_group(d, kb)
         kernel.launch_reg(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out,
-                          lanes=lanes, slots=slots, **kw)
+                          lanes=lanes, slots=slots, psi_blk=psi_blk, **kw)
         return w_out, e, form
     if form == vmem.SPLIT_ROW:
         chunk = vmem.cd_sweep_split_chunk(d, c)
@@ -127,7 +129,7 @@ def _launch(psi_blk, psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, *,
                            dtype=torch.float32, device=e.device)
         delta = torch.empty((c, kb), dtype=torch.float32, device=e.device)
         kernel.launch_split(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out,
-                            part, delta, chunk=chunk, **kw)
+                            part, delta, chunk=chunk, psi_blk=psi_blk, **kw)
         return w_out, e, form
     rows = 0
     if form == vmem.WARP_ROW:

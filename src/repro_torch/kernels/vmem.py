@@ -304,10 +304,12 @@ def gram_row_splits(rows: int, k: int) -> tuple:
 # per-warp partial sums.
 #
 # cd_sweep_form picks the form: the register-row form below for the gather
-# sweep where it takes the row, else warp-row when one row fits a block's
-# shared memory; beyond that the split-row form below for the gather sweep
-# at k_b ≤ CDG_KB, block-row otherwise. VmemBudgetError is left for what no
-# form can launch (a k_b whose k_b × k_b block alone overflows a block).
+# sweep and the pre-gathered row-patch sweep where it takes the row, else
+# warp-row when one row fits a block's shared memory; beyond that the
+# split-row form below for those sweeps at k_b ≤ CDG_KB, block-row
+# otherwise (the pre-gathered shared-J sweep keeps warp-row and block-row).
+# VmemBudgetError is left for what no form can launch (a k_b whose k_b × k_b
+# block alone overflows a block).
 # ---------------------------------------------------------------------------
 CD_SWEEP_SMEM_TARGET = 96 * 1024  # two blocks per SM's 228 KB
 CD_SWEEP_MAX_ROWS = 8             # warps (rows) per block
@@ -333,21 +335,22 @@ def cd_sweep_block_row_smem_bytes(k_b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The redesigned gather forms (csrc/cd_gather.cu). Register-row sweep and
-# one-tile slab reduce: a group of `lanes` threads owns a row and every
-# thread holds `slots` slots' e, α and k_b ≤ CDG_KB ψ values in registers
-# for the whole launch (the slab reduce: Q and P's upper triangle, 44
-# sums); shared memory holds only the coupling block (the shared J, or each
-# row's patch P) and per-warp partial sums. Blocks have CDG_THREADS threads;
-# __launch_bounds__ asks for CDG_*_MIN_BLOCKS of them an SM. A sweep thread
-# of more than CDG_SWEEP_REG_SLOTS slots re-reads ψ_j from L1 a step ahead
-# instead of holding it. Split-row sweep (rows longer than a block's shared
-# memory): pass 1 gives each chunk of a row one block, which writes the
-# chunk's 44 moments to a scratch; a solve runs the k_b steps on them; pass
-# 2 is the residual patch. The residual patch's register-slot form gives a
-# thread CDG_PATCH_SLOTS consecutive slots. The values are the fastest of
-# ``chip_smoke.py --sweep-tune``'s variants at the full-width shapes
-# (PERF.md).
+# The redesigned forms (csrc/cd_gather.cu), gathered and, for the row-patch
+# sweep, the slab reduce and the residual patch, also from the pre-gathered
+# tile. Register-row sweep and one-tile slab reduce: a group of `lanes`
+# threads owns a row and every thread holds `slots` slots' e, α and k_b ≤
+# CDG_KB ψ values in registers for the whole launch (the slab reduce: Q and
+# P's upper triangle, 44 sums); shared memory holds only the coupling block
+# (the shared J, or each row's patch P) and per-warp partial sums. Blocks
+# have CDG_THREADS threads; __launch_bounds__ asks for CDG_*_MIN_BLOCKS of
+# them an SM. A sweep thread of more than CDG_SWEEP_REG_SLOTS slots re-reads
+# ψ_j from L1 a step ahead instead of holding it. Split-row sweep (rows
+# longer than a block's shared memory): pass 1 gives each chunk of a row one
+# block, which writes the chunk's 44 moments to a scratch; a solve runs the
+# k_b steps on them; pass 2 is the residual patch. The residual patch's
+# register-slot form gives a thread CDG_PATCH_SLOTS consecutive slots. The
+# values are the fastest of ``chip_smoke.py --sweep-tune``'s variants at the
+# full-width shapes (PERF.md).
 # ---------------------------------------------------------------------------
 CDG_THREADS = 256
 CDG_KB = 8                          # block columns held in registers
@@ -443,18 +446,20 @@ def cd_slab_reduce_lanes(d_pad: int) -> int:
 
 def cd_sweep_form(d_pad: int, k_b: int, *, gather: bool,
                   rowpatch: bool = False) -> str:
-    """The launch form of one sweep: :data:`REG_ROW` for the gather sweep
-    (either coupling) where :func:`cd_sweep_reg_group` takes the row, else
-    :data:`WARP_ROW` when one row fits a block's shared memory; beyond
-    that :data:`SPLIT_ROW` for the gather sweep at k_b ≤ CDG_KB, else
-    :data:`BLOCK_ROW`. Raises :class:`VmemBudgetError` when no form can
-    launch."""
-    if gather and cd_sweep_reg_group(d_pad, k_b) is not None:
+    """The launch form of one sweep. The gather sweep (either coupling)
+    and the pre-gathered row-patch sweep take :data:`REG_ROW` where
+    :func:`cd_sweep_reg_group` takes the row, else :data:`WARP_ROW` when
+    one row fits a block's shared memory, else :data:`SPLIT_ROW` at k_b ≤
+    CDG_KB. The pre-gathered shared-J sweep takes :data:`WARP_ROW` while a
+    row fits. What is left takes :data:`BLOCK_ROW`. Raises
+    :class:`VmemBudgetError` when no form can launch."""
+    redesigned = gather or rowpatch
+    if redesigned and cd_sweep_reg_group(d_pad, k_b) is not None:
         return REG_ROW
     if cd_sweep_smem_bytes(d_pad, k_b, 1, gather=gather,
                            rowpatch=rowpatch) <= SMEM_BLOCK_MAX:
         return WARP_ROW
-    if gather and k_b <= CDG_KB:
+    if redesigned and k_b <= CDG_KB:
         return SPLIT_ROW
     need = cd_sweep_block_row_smem_bytes(k_b)
     if need > SMEM_BLOCK_MAX:

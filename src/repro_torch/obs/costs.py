@@ -82,18 +82,18 @@ def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
     two).
 
     ``form`` is the launch form (``vmem.cd_sweep_form``) and ``form_bytes``
-    what that form itself moves: the register-row and warp-row forms move
-    ``hbm_bytes`` (the register-row form's shared memory is its coupling
-    blocks and partial sums, ``vmem.cd_sweep_reg_smem_bytes``); the
-    block-row form keeps e, α and ids in device memory and makes two
+    what that form itself moves: the register-row and warp-row forms, in
+    either ψ routing, move ``hbm_bytes`` (the register-row form's shared
+    memory is its coupling blocks and partial sums,
+    ``vmem.cd_sweep_reg_smem_bytes``); the block-row form keeps e, α and ids in device memory and makes two
     passes over the row on each of its k_b steps, one reading α, e, ids and
     ψ_j, one reading ids, ψ_j and e and writing e (32 B a slot and step;
     24 B pre-gathered), in place of the one pass over the slots and the
     one read of the ψ slab; the split-row form makes two passes a launch,
     pass 1 reading ids, α, e and the slot's k_b ψ values, pass 2 ids, ψ
-    and e and writing e ((12 + 4·k_b) B a slot each), and writes and reads
-    back its scratch: 44 partial sums a chunk of a row
-    (``vmem.cd_sweep_split_chunk``) and Δ (k_b a row)."""
+    and e and writing e ((12 + 4·k_b) B a slot each; pre-gathered, no ids:
+    (8 + 4·k_b) B), and writes and reads back its scratch: 44 partial sums
+    a chunk of a row (``vmem.cd_sweep_split_chunk``) and Δ (k_b a row)."""
     n_blocks = -(-k // k_b)
     slot = (16.0 if gather else 12.0) * c * d_pad
     psi = 4.0 * n_src * k if gather else 4.0 * c * d_pad * k
@@ -110,7 +110,7 @@ def cd_sweep_cost(c: int, d_pad: int, k: int, k_b: int, *, n_src: int = 0,
         smem = vmem.cd_sweep_split_smem_bytes()
         n_chunks = -(-d_pad // vmem.cd_sweep_split_chunk(d_pad, c))
         own = rest + sum(
-            2.0 * (12 + 4 * kb) * c * d_pad
+            2.0 * ((12 if gather else 8) + 4 * kb) * c * d_pad
             + 4.0 * c * (2 * vmem.CDG_NSUM * n_chunks + 2 * kb)
             for kb in (min(k_b, k - f0) for f0 in range(0, k, k_b)))
     elif form == vmem.WARP_ROW:

@@ -746,25 +746,26 @@ def test_large_k_matches_plain_on_cuda(cuda, k, rows, excl):
 
 
 def test_sweep_launch_form_follows_the_row_length():
-    """Warp-row while one row fits a block's shared memory (the user side
-    of the tensor models at D_pad 128, MF's item side at 1,024), block-row
-    beyond (CtxMF's hour-of-day buckets at 142,464); only a k_b whose
-    block alone overflows a block fits neither. The gather sweep, with
-    either coupling, takes the register-row form where its rows fit
-    registers (D_pad 128 and 1,024 here) and the split-row form where the
-    pre-gathered one takes the block-row form. The cost model carries the
-    form and its own traffic."""
+    """The pre-gathered shared-J sweep: warp-row while one row fits a
+    block's shared memory (the user side of the tensor models at D_pad
+    128, MF's item side at 1,024), block-row beyond (CtxMF's hour-of-day
+    buckets at 142,464); only a k_b whose block alone overflows a block
+    fits neither. The gather sweep, with either coupling, and the
+    pre-gathered row-patch sweep take the register-row form where their
+    rows fit registers (D_pad 128 and 1,024 here) and the split-row form
+    where the pre-gathered shared-J sweep takes the block-row form. The
+    cost model carries the form and its own traffic."""
     from repro_torch.kernels import vmem
     from repro_torch.obs.costs import cd_sweep_cost
 
-    for d, want, want_gather in ((128, vmem.WARP_ROW, vmem.REG_ROW),
-                                 (1_024, vmem.WARP_ROW, vmem.REG_ROW),
-                                 (142_464, vmem.BLOCK_ROW, vmem.SPLIT_ROW)):
+    for d, want, want_new in ((128, vmem.WARP_ROW, vmem.REG_ROW),
+                              (1_024, vmem.WARP_ROW, vmem.REG_ROW),
+                              (142_464, vmem.BLOCK_ROW, vmem.SPLIT_ROW)):
         for gather in (True, False):
             for rowpatch in (True, False):
                 assert vmem.cd_sweep_form(d, 8, gather=gather,
                                           rowpatch=rowpatch) == (
-                    want_gather if gather else want)
+                    want_new if gather or rowpatch else want)
     # the row patch costs k_b² floats a row in place of the shared block
     assert vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True, rowpatch=True) \
         == vmem.cd_sweep_smem_bytes(128, 8, 4, gather=True) - 4 * 64 + 4 * 4 * 64
@@ -798,10 +799,28 @@ def test_sweep_launch_form_follows_the_row_length():
                                     + 4 * 24 * (2 * 44 * 35 + 2 * 8)
                                     + 24 * 8 * 12 + 24 * 64 * 4)
     assert bucket["smem_bytes"] == vmem.cd_sweep_split_smem_bytes()
-    # the pre-gathered bucket side keeps the block-row form
+    # the pre-gathered bucket side takes the split-row form: two passes of
+    # (8 + 4·k_b) = 40 B a slot (no ids), the same scratch; the tile is
+    # read twice where the function reads it once
     pre = cd_sweep_cost(24, 142_464, 8, 8, gather=False, rowpatch=True)
+    assert pre["form"] == vmem.SPLIT_ROW
+    assert pre["hbm_bytes"] == (24 * 142_464 * 12 + 24 * 142_464 * 8 * 4
+                                + 24 * 8 * 12 + 24 * 64 * 4)
+    assert pre["form_bytes"] == (2 * 40 * 24 * 142_464
+                                 + 4 * 24 * (2 * 44 * 35 + 2 * 8)
+                                 + 24 * 8 * 12 + 24 * 64 * 4)
+    assert pre["smem_bytes"] == vmem.cd_sweep_split_smem_bytes()
+    # the pre-gathered user side takes the register-row form, which moves
+    # what the function must
+    pre = cd_sweep_cost(200_000, 128, 8, 8, gather=False, rowpatch=True)
+    assert pre["form"] == vmem.REG_ROW
+    assert pre["form_bytes"] == pre["hbm_bytes"] == (
+        200_000 * 128 * (12 + 8 * 4) + 200_000 * 8 * 12 + 200_000 * 64 * 4)
+    assert pre["smem_bytes"] == vmem.cd_sweep_reg_smem_bytes(32, rowpatch=True)
+    # the pre-gathered shared-J sweep keeps the block-row form on long rows
+    pre = cd_sweep_cost(24, 142_464, 8, 8, gather=False)
     assert pre["form"] == vmem.BLOCK_ROW
-    assert pre["form_bytes"] == 24 * 24 * 142_464 * 8 + 24 * 8 * 12 + 24 * 64 * 4
+    assert pre["form_bytes"] == 24 * 24 * 142_464 * 8 + 24 * 8 * 12
     assert pre["smem_bytes"] == vmem.cd_sweep_block_row_smem_bytes(8)
 
 
@@ -809,7 +828,9 @@ def test_register_row_sizing_holds_each_row_in_registers():
     """``vmem.cd_sweep_reg_group``: a compiled (lanes, slots) pair whose
     lanes hold the row, a whole number of groups a block, the fewest lanes
     at its slot count (one warp at 4 slots a thread, more warps at 8); the
-    full-width rows (D_pad 128 and 1,024) with no idle slot. k_b > 8 and rows past CDG_THREADS ×
+    full-width rows (D_pad 128 and 1,024) with no idle slot; the gather
+    sweep and the pre-gathered row-patch sweep take it, the pre-gathered
+    shared-J sweep does not. k_b > 8 and rows past CDG_THREADS ×
     CDG_SWEEP_MAX_SLOTS keep the shared-memory forms, and MF's dispatch
     takes long rows in their form, refusing only a k_b no form launches;
     the slab reduce takes the one-tile form at m ≤ 8 in either routing."""
@@ -825,6 +846,8 @@ def test_register_row_sizing_holds_each_row_in_registers():
             assert slots <= vmem.CDG_SWEEP_MAX_SLOTS
             assert lanes == vmem.CDG_SWEEP_MIN_LANES or (lanes // 2) * slots < d
             assert vmem.cd_sweep_form(d, kb, gather=True) == vmem.REG_ROW
+            assert vmem.cd_sweep_form(d, kb, gather=False,
+                                      rowpatch=True) == vmem.REG_ROW
     for d in (128, 1_024):
         lanes, slots = vmem.cd_sweep_reg_group(d, 8)
         assert lanes * slots == d
@@ -835,6 +858,10 @@ def test_register_row_sizing_holds_each_row_in_registers():
     assert vmem.cd_sweep_form(20_000, 8, gather=True) == vmem.SPLIT_ROW
     assert vmem.cd_sweep_form(128, 8, gather=False) == vmem.WARP_ROW
     assert vmem.cd_sweep_form(128, 8, gather=True, rowpatch=True) == vmem.REG_ROW
+    assert vmem.cd_sweep_form(128, 9, gather=False, rowpatch=True) == vmem.WARP_ROW
+    assert vmem.cd_sweep_form(20_000, 8, gather=False,
+                              rowpatch=True) == vmem.SPLIT_ROW
+    assert vmem.cd_sweep_form(20_000, 8, gather=False) == vmem.BLOCK_ROW
     assert vmem.resolve_cd_sweep_dispatch(20_000, 8) is True
     with pytest.raises(vmem.VmemBudgetError):
         vmem.resolve_cd_sweep_dispatch(20_000, 240, prefer_gather=False)
@@ -1137,8 +1164,6 @@ def _hold_sweep(fn, plain, x, first, cpl, long_rows=False, long_form=None,
     absolute tolerance per row of 1e-5 of the row's Σ|α·e·ψ_j|/den_j summed
     over j (in W; times max|ψ| in e). The launch counts as a long-row one
     (``launches_block_row``) when ``long_form`` (default ``long_rows``)."""
-    from repro_torch.kernels.cd_sweep import ref as cr
-
     before = (fn.launches, fn.launches_block_row)
     e = x["e"].clone()
     w, e2 = fn(*first, x["alpha"], e, x["w"], x["r1"], cpl, **kw)
@@ -1147,6 +1172,15 @@ def _hold_sweep(fn, plain, x, first, cpl, long_rows=False, long_form=None,
     assert e2 is e and fn.launches == before[0] + 1
     long_form = long_rows if long_form is None else long_form
     assert fn.launches_block_row == before[1] + int(long_form)
+    _assert_sweep_close(x, first, cpl, w, e, rw, re, long_rows, **kw)
+    return w, rw
+
+
+def _assert_sweep_close(x, first, cpl, w, e, rw, re, long_rows, **kw):
+    """W and e of a sweep against the plain version's ``rw``, ``re`` at
+    :func:`_hold_sweep`'s tolerance; ``first`` is the ψ source."""
+    from repro_torch.kernels.cd_sweep import ref as cr
+
     assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(e).all())
     atol_w = torch.full((w.shape[0], 1), 2e-6, device=w.device)
     atol_e = atol_w
@@ -1162,14 +1196,14 @@ def _hold_sweep(fn, plain, x, first, cpl, long_rows=False, long_form=None,
         atol_e = atol_w * psi.abs().amax(1)
     assert bool(((w - rw).abs() <= 2e-5 * rw.abs() + atol_w).all())
     assert bool(((e - re).abs() <= 2e-5 * re.abs() + atol_e).all())
-    return w, rw
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("c,d,kb,eta", [(1001, 40, 8, 1.0), (300, 128, 4, 0.8),
                                         (13, 200, 1, 0.5), (9, 33, 3, 1.3)])
 def test_rowpatch_kernels_match_plain_on_cuda(cuda, c, d, kb, eta):
-    """Both row-patch routings in the warp-row form, C off the row tile."""
+    """Both row-patch routings through their wrappers (the register-row
+    form), C off the row tile."""
     from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
 
     x = _rowpatch_operands(cuda, c, d, kb, 60, c + d)
@@ -1187,8 +1221,13 @@ def test_rowpatch_kernels_match_plain_on_cuda(cuda, c, d, kb, eta):
 @pytest.mark.parametrize("gather", [True, False])
 def test_block_row_form_matches_plain_on_cuda(cuda, rowpatch, gather):
     """Rows of 20,000 slots do not fit a block's shared memory: the sweep
-    runs one block a row, with the per-row patch and with one shared J."""
-    from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
+    runs one block a row, with the per-row patch and with one shared J
+    (through the wrappers a long-row launch: the gather sweep's is
+    split-row). The pre-gathered row-patch sweep, which its wrapper now
+    sends to the split-row form, holds the block-row form through its
+    binding (``rows_per_block=0``)."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
 
     x = _rowpatch_operands(cuda, 5, 20_000, 8, 3_000, 9)
     cpl = x["p"] if rowpatch else x["p"][0]
@@ -1196,8 +1235,19 @@ def test_block_row_form_matches_plain_on_cuda(cuda, rowpatch, gather):
         "_gather" if gather else "")
     first = ((x["tab"], x["ids"]) if gather else
              (cr.gather_psi_blk(x["tab"], x["ids"]).contiguous(),))
-    _hold_sweep(getattr(cs, name), getattr(cr, name + "_ref"), x, first, cpl,
-                long_rows=True, alpha0=0.7, l2=0.05, eta=0.9)
+    kw = dict(alpha0=0.7, l2=0.05, eta=0.9)
+    plain = getattr(cr, name + "_ref")
+    if gather or not rowpatch:
+        _hold_sweep(getattr(cs, name), plain, x, first, cpl, long_rows=True,
+                    **kw)
+        return
+    assert vmem.cd_sweep_form(20_000, 8, gather=False, rowpatch=True) == vmem.SPLIT_ROW
+    e, w = x["e"].clone(), torch.empty_like(x["w"])
+    kernel.launch(first[0], None, None, x["alpha"], e, x["w"], x["r1"], cpl, w,
+                  rows_per_block=0, **kw)
+    rw, re = plain(*first, x["alpha"], x["e"], x["w"], x["r1"], cpl, **kw)
+    torch.cuda.synchronize()
+    _assert_sweep_close(x, first, cpl, w, e, rw, re, True, **kw)
 
 
 @pytest.mark.gpu
@@ -1249,7 +1299,29 @@ def test_split_row_and_patch_sizing():
     assert vmem.cd_sweep_form(142_464, 9, gather=True, rowpatch=True) == vmem.BLOCK_ROW
 
 
+def _split_row_call(source, x, psi, cpl, e, kw):
+    """One split-row sweep on ``e`` in place through the binding,
+    ``kernel.launch_split``, with the scratch ``ops`` allocates: ψ gathered
+    (``source`` "gather") or from the tile ``psi``; ``kw`` as the wrappers
+    take it (η 1 unless given); returns W."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel
+
+    (c, d), kb = x["alpha"].shape, x["w"].shape[1]
+    chunk = vmem.cd_sweep_split_chunk(d, c)
+    w = torch.empty_like(x["w"])
+    part = torch.empty((c, -(-d // chunk), vmem.CDG_NSUM), device=e.device)
+    delta = torch.empty((c, kb), device=e.device)
+    gathered = (x["tab"], x["ids"]) if source == "gather" else (None, None)
+    kernel.launch_split(*gathered, x["alpha"], e, x["w"], x["r1"], cpl, w,
+                        part, delta, chunk=chunk,
+                        psi_blk=psi if source == "tile" else None,
+                        **{"eta": 1.0, **kw})
+    return w
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("source", ["gather", "tile"])
 @pytest.mark.parametrize("c,d,kb,shared", [
     (5, 20_000, 8, False),      # no chunk divides the row
     (4, 15_001, 3, False),      # off a multiple of 4: scalar loads in pass 2
@@ -1257,40 +1329,147 @@ def test_split_row_and_patch_sizing():
     (3, 16_000, 8, True),       # one J for every row (cs0 = 0)
     (24, 142_464, 8, False),    # the bucket shape
 ])
-def test_split_row_form_matches_plain_on_cuda(cuda, c, d, kb, shared):
-    """The gather sweep on long rows in the split-row form against the
-    plain version at ``_hold_sweep``'s long-row tolerance: ids past both
-    ends of the slab, then (at l2 = α₀ = 0, as
-    ``test_rowpatch_kernel_clamps_empty_rows_and_clips_ids``) a row with
-    α = 0 and P = 0 keeping W; each call one launch chain counted as a
-    long-row and a split-row launch, two calls giving the same bits."""
+def test_split_row_form_matches_plain_on_cuda(cuda, source, c, d, kb, shared):
+    """The sweep on long rows in the split-row form against the plain
+    version at ``_hold_sweep``'s long-row tolerance, ψ gathered (``source``
+    "gather", through the gather wrappers) or read from the pre-gathered
+    tile ("tile": through the pre-gathered row-patch wrapper where it takes
+    the split-row form, else — rows it sends to the warp-row form, and one
+    J for every row, whose pre-gathered sweep keeps the block-row form —
+    through the binding): ids past both ends of the slab, then (at l2 = α₀
+    = 0, as ``test_rowpatch_kernel_clamps_empty_rows_and_clips_ids``) a row
+    with α = 0 and P = 0 keeping W; each wrapper call one launch chain
+    counted as a long-row and a split-row launch, two calls giving the same
+    bits."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
 
-    assert vmem.cd_sweep_form(d, kb, gather=True, rowpatch=not shared) == vmem.SPLIT_ROW
     x = _rowpatch_operands(cuda, c, d, kb, 3_000, c + d + kb)
     x["ids"][:, :4] = torch.tensor([-7, 3_000, 10**6, -1], dtype=torch.int32,
                                    device=cuda)
-    name = "cd_block_sweep" + ("" if shared else "_rowpatch") + "_gather"
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    name = "cd_block_sweep" + ("" if shared else "_rowpatch")
+    if source == "gather":
+        name, first = name + "_gather", (x["tab"], x["ids"])
+    else:
+        first = (psi,)
     fn, plain = getattr(cs, name), getattr(cr, name + "_ref")
-    first = (x["tab"], x["ids"])
+    wrapper = vmem.cd_sweep_form(d, kb, gather=source == "gather",
+                                 rowpatch=not shared) == vmem.SPLIT_ROW
+    assert wrapper == (source == "gather" or (not shared and d > 19_000))
+
+    def call(e, cpl, kw):
+        if wrapper:
+            w, e2 = fn(*first, x["alpha"], e, x["w"], x["r1"], cpl, **kw)
+            assert e2 is e
+            return w
+        return _split_row_call(source, x, psi, cpl, e, kw)
+
     for kw in (dict(alpha0=0.7, l2=0.05, eta=0.9), dict(alpha0=0.0, l2=0.0)):
         if kw["l2"] == 0:
             x["alpha"][:1] = 0
             x["p"][:1] = 0
         cpl = x["p"][1] if shared else x["p"]
-        before = (fn.launches_split_row, fn.launches_reg_row)
-        w, _ = _hold_sweep(fn, plain, x, first, cpl, long_rows=True, **kw)
+        before = (fn.launches, fn.launches_block_row, fn.launches_split_row,
+                  fn.launches_reg_row)
+        e = x["e"].clone()
+        w = call(e, cpl, kw)
+        rw, re = plain(*first, x["alpha"], x["e"], x["w"], x["r1"], cpl, **kw)
+        torch.cuda.synchronize()
+        _assert_sweep_close(x, first, cpl, w, e, rw, re, True, **kw)
         e2 = x["e"].clone()
-        w2, _ = fn(*first, x["alpha"], e2, x["w"], x["r1"], cpl, **kw)
+        w2 = call(e2, cpl, kw)
         e1 = x["e"].clone()
-        w1, _ = fn(*first, x["alpha"], e1, x["w"], x["r1"], cpl, **kw)
+        w1 = call(e1, cpl, kw)
         torch.cuda.synchronize()
         assert torch.equal(w, w2) and torch.equal(w1, w2) and torch.equal(e1, e2)
-        assert (fn.launches_split_row - before[0],
-                fn.launches_reg_row - before[1]) == (3, 0)
+        assert torch.equal(e, e1)
+        n = 3 * int(wrapper)
+        assert (fn.launches - before[0], fn.launches_block_row - before[1],
+                fn.launches_split_row - before[2],
+                fn.launches_reg_row - before[3]) == (n, n, n, 0)
         if kw["l2"] == 0 and not shared:
             assert torch.equal(w[:1], x["w"][:1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["gather", "tile"])
+def test_split_row_form_takes_more_rows_than_a_grid_column_on_cuda(cuda, source):
+    """More than 65,535 rows in the split-row form (pass 1 numbers its
+    blocks row-major in one grid dimension): 70,000 rows of 512 slots at
+    k_b 8, both ψ sources, through the binding, against the plain version
+    at the long-row tolerance; two calls give the same bits."""
+    from repro_torch.kernels.cd_sweep import ref as cr
+
+    x = _rowpatch_operands(cuda, 70_000, 512, 8, 5_000, 22)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    kw = dict(alpha0=0.7, l2=0.05, eta=0.9)
+    e, e2 = x["e"].clone(), x["e"].clone()
+    w = _split_row_call(source, x, psi, x["p"], e, kw)
+    w2 = _split_row_call(source, x, psi, x["p"], e2, kw)
+    first = (x["tab"], x["ids"]) if source == "gather" else (psi,)
+    plain = (cr.cd_block_sweep_rowpatch_gather_ref if source == "gather" else
+             cr.cd_block_sweep_rowpatch_ref)
+    rw, re = plain(*first, x["alpha"], x["e"], x["w"], x["r1"], x["p"], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(w, w2) and torch.equal(e, e2)
+    _assert_sweep_close(x, first, x["p"], w, e, rw, re, True, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,d,kb,eta,zero_rows", [
+    (2_000, 128, 8, 1.0, 0),    # the user side's row length
+    (301, 128, 8, 0.7, 3),      # C off the row tile, α = 0 rows
+    (97, 128, 3, 1.3, 2),       # k_b = 3
+    (50, 100, 1, 0.5, 0),       # k_b = 1, slots past the row
+    (203, 1_024, 8, 0.9, 2),    # 128 lanes × 8 slots: ψ read a step ahead
+])
+def test_pregathered_register_row_rowpatch_equals_warp_row_on_cuda(
+        cuda, c, d, kb, eta, zero_rows):
+    """The pre-gathered row-patch sweep in the register-row form through
+    its wrapper, against the plain version (``_hold_sweep``; row-scaled
+    atol from 1,024 slots), each launch counted in its form; at 32 lanes a
+    row equal bit for bit to the warp-row form it replaced, through that
+    form's binding; at any group size bit for bit the gather register-row
+    form on the same ψ (the same sums in the same order). Rows with α = 0
+    and P = 0 at l2 = α₀ = 0 keep W. The binding refuses the tile with one
+    J for every row (that sweep keeps ``csrc/cd_sweep.cu``'s forms)."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    assert vmem.cd_sweep_form(d, kb, gather=False, rowpatch=True) == vmem.REG_ROW
+    x = _rowpatch_operands(cuda, c, d, kb, 500, c + d + kb)
+    kw = dict(alpha0=0.7, l2=0.05, eta=eta)
+    if zero_rows:
+        x["alpha"][:zero_rows] = 0
+        x["p"][:zero_rows] = 0
+        kw.update(alpha0=0.0, l2=0.0)
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    fn = cs.cd_block_sweep_rowpatch
+    before = fn.launches_reg_row
+    w, _ = _hold_sweep(fn, cr.cd_block_sweep_rowpatch_ref, x, (psi,), x["p"],
+                       long_rows=d >= 1_024, long_form=False, **kw)
+    assert fn.launches_reg_row == before + 1
+    assert torch.equal(w[:zero_rows], x["w"][:zero_rows])
+    e_new, e_gat = x["e"].clone(), x["e"].clone()
+    w_new, _ = fn(psi, x["alpha"], e_new, x["w"], x["r1"], x["p"], **kw)
+    w_gat, _ = cs.cd_block_sweep_rowpatch_gather(
+        x["tab"], x["ids"], x["alpha"], e_gat, x["w"], x["r1"], x["p"], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(w_new, w) and torch.equal(w_new, w_gat)
+    assert torch.equal(e_new, e_gat)
+    if vmem.cd_sweep_reg_group(d, kb)[0] == 32:
+        e_old, w_old = x["e"].clone(), torch.empty_like(w_new)
+        kernel.launch(psi, None, None, x["alpha"], e_old, x["w"], x["r1"],
+                      x["p"], w_old, rows_per_block=vmem.cd_sweep_block_ctx(
+                          d, kb, n_rows=c, rowpatch=True), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(w_new, w_old) and torch.equal(e_new, e_old)
+    lanes, slots = vmem.cd_sweep_reg_group(d, kb)
+    with pytest.raises(RuntimeError, match="cd_sweep_reg"):
+        kernel.launch_reg(None, None, x["alpha"], x["e"].clone(), x["w"],
+                          x["r1"], x["p"][0], torch.empty_like(w_new),
+                          lanes=lanes, slots=slots, psi_blk=psi, **kw)
 
 
 @pytest.mark.gpu
@@ -1333,7 +1512,10 @@ def test_resid_patch_register_slots_equal_one_slot_on_cuda(cuda, m):
     """The gather residual patch at m ≤ 8 in the register-slot form equal
     bit for bit to the one-slot kernel it replaced (m = 9 keeps that
     kernel): a slab of 16-byte rows (ld 8 or 12), a slab of odd ld, ids
-    past the slab; a D_pad off a multiple of 4 keeps the one-slot kernel."""
+    past the slab; a D_pad off a multiple of 4 keeps the one-slot kernel.
+    The register-slot form's tile source (the split-row form's pass 2
+    pre-gathered), through its binding, equals the pre-gathered one-slot
+    kernel bit for bit, 16-byte loads and, at D_pad 37, scalar loads."""
     from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
 
     fn = cs.cd_resid_patch_gather
@@ -1353,6 +1535,13 @@ def test_resid_patch_register_slots_equal_one_slot_on_cuda(cuda, m):
         torch.testing.assert_close(
             e, cr.cd_resid_patch_gather_ref(tab, x["ids"], x["e"], dphi),
             rtol=2e-5, atol=2e-6)
+        if m <= 8:
+            psi = cr.gather_psi_blk(tab, x["ids"]).contiguous()
+            e_tile, e_one = x["e"].clone(), x["e"].clone()
+            kernel.resid_patch_reg(None, None, e_tile, dphi, psi_blk=psi)
+            kernel.resid_patch(psi, None, None, e_one, dphi)
+            torch.cuda.synchronize()
+            assert torch.equal(e_tile, e_one)
 
 
 def _tensor_problem(dev, seed=7, n_c1=40, n_c2=6, n_items=30, nnz=600):

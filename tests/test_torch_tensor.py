@@ -184,15 +184,25 @@ def test_build_context_matches_reference():
 
 
 # ------------------------------------------------------------ PARAFAC ---
+# each Ψ routing at the defaults, at η 0.7, and at l2 0 with η 0.5
+ROUTES = [pytest.param(route, extra, id=route + tag)
+          for tag, extra in (("", {}), ("-eta0.7", dict(eta=0.7)),
+                             ("-l2_0", dict(eta=0.5, l2=0.0)))
+          for route in ("gather", "pregather")]
+
+
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("block_k", [0, 1, 2])
-@pytest.mark.parametrize("psi_dispatch", ["gather", "pregather"])
-def test_parafac_epoch_padded_matches_reference(dense, block_k, psi_dispatch):
-    """Two fused epochs at a non-divisible k = 3."""
+@pytest.mark.parametrize("psi_dispatch,extra", ROUTES)
+def test_parafac_epoch_padded_matches_reference(dense, block_k, psi_dispatch,
+                                                extra):
+    """Two fused epochs at a non-divisible k = 3, in each Ψ routing, at
+    η 1 and 0.7 and at l2 0."""
     jtc, jd, ttc, td = _problem(seed=6)
     k = 3
     kw = dict(k=k, alpha0=0.3, l2=0.05, dense_context=dense, block_k=block_k,
               psi_dispatch=psi_dispatch)
+    kw.update(extra)
     jhp, thp = jpf.PARAFACHyperParams(**kw), parafac.PARAFACHyperParams(**kw)
     jp, tp = _parafac_params(7, jtc, jd.n_items, k)
     jpad, tpad = jpf.pad_tensor_groups(jtc, jd), parafac.pad_tensor_groups(ttc, td)
@@ -373,14 +383,23 @@ def test_parafac_fit_with_schedule_and_weights_matches_reference():
 
 
 # ------------------------------------------------------------- Tucker ---
-@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("fused,extra", [
+    pytest.param(False, {}, id="False"),
+    pytest.param(True, {}, id="True"),
+    *(pytest.param(True, dict(extra, psi_dispatch=route),
+                   id=f"True-{route}-{tag}")
+      for tag, extra in (("eta0.7", dict(eta=0.7)),
+                         ("l2_core0", dict(l2_core=0.0)))
+      for route in ("gather", "pregather"))])
 @pytest.mark.parametrize("block_k", [0, 2])
-def test_tucker_epochs_match_reference(fused, block_k):
-    """Two epochs at non-divisible mode ranks (k1, k2, k3) = (3, 2, 4)."""
+def test_tucker_epochs_match_reference(fused, extra, block_k):
+    """Two epochs at non-divisible mode ranks (k1, k2, k3) = (3, 2, 4); the
+    fused ones also in each Ψ routing at η 0.7 and at l2_core 0."""
     jtc, jd, ttc, td = _problem(seed=16)
     k1, k2, k3 = 3, 2, 4
     kw = dict(k1=k1, k2=k2, k3=k3, alpha0=0.3, l2=0.05, l2_core=0.02,
               block_k=block_k)
+    kw.update(extra)
     jhp, thp = jtk.TuckerHyperParams(**kw), tucker.TuckerHyperParams(**kw)
     f = _factors(17, [(5, k1), (4, k2), (6, k3), (k1, k2, k3)])
     jp = jtk.TuckerParams(*map(jnp.asarray, f))
@@ -605,8 +624,11 @@ def test_split_row_algebra_matches_the_sweep(kb, d, chunk, shared):
 
 def test_split_row_form_takes_the_long_gather_rows():
     """The tensor models' long context rows (CtxMF's hour-of-day buckets)
-    take the split-row form in the gather routing, the block-row form
-    pre-gathered; short rows take the register-row form."""
+    take the split-row form in both routings, the gather one and the
+    pre-gathered one; short rows take the register-row form; the shared-J
+    pre-gathered sweep (one J for every row) keeps the block-row form."""
     assert vmem.cd_sweep_form(142_464, 8, gather=True, rowpatch=True) == vmem.SPLIT_ROW
-    assert vmem.cd_sweep_form(142_464, 8, gather=False, rowpatch=True) == vmem.BLOCK_ROW
+    assert vmem.cd_sweep_form(142_464, 8, gather=False, rowpatch=True) == vmem.SPLIT_ROW
+    assert vmem.cd_sweep_form(142_464, 8, gather=False) == vmem.BLOCK_ROW
     assert vmem.cd_sweep_form(128, 8, gather=True, rowpatch=True) == vmem.REG_ROW
+    assert vmem.cd_sweep_form(128, 8, gather=False, rowpatch=True) == vmem.REG_ROW
