@@ -139,7 +139,31 @@ Phases, one line each or more:
      one; and the large-K merge
      at K = 257, 512, 1,000 and 8,192 likewise;
  18. run the serve_retrieval twin on the card (train → publish, cluster,
-     batcher, sharded eval, failover, canary rollout, IVF with int8 ψ).
+     batcher, sharded eval, failover, canary rollout, IVF with int8 ψ);
+ 19. train FM at icd-fm width (``configs/icd_fm``: p_ctx 336,091, 68,000
+     items, k = 128, D = k + 2 = 130) on phase 14's log and designs: 3
+     ``epoch_padded`` epochs with the defaults (block_k 0 → k_b 8, m = 9:
+     96 launches each of the tiled gather slab reduce and the one-slot
+     gather residual patch, 6 Gram launches; the objective falling), then
+     from one start a pregather (tiled), a flat and a block_k 7 (m = 8:
+     the one-tile and register-slot forms) epoch held against the gather
+     one, their wall times in turns, and one profiled epoch at m = 9 and
+     at m = 8;
+ 20. time the Gram of Φe (200,000 × 130) and Ψe (68,000 × 130) beside
+     ``torch.mm`` and kernels 6–9 at m = 9 at both sides' shapes beside
+     their plain versions, bounds and ``torch.bmm``/``baddbmm``;
+ 21. serve FM from the Model API (``RetrievalEngine.from_model`` over Ψe):
+     16 users' top-100 in one top-K launch at D = 130, bit for bit the
+     chain, against a plain recompute, and its time; fold in a user and an
+     item for MF and for FM on the card (one Gram launch each), each row
+     against the same fold-in on the CPU, with its wall time, and against
+     the float64 oracle on the CPU: the Gram kernel's G against TᵀT,
+     ``fold_in_exact``'s row a fixed point of one card sweep, and a row
+     that converged (MF's) equal to it (FM's distance printed); a
+     cold-start ranking eval of 64 MF users through fold-in;
+ 22. run the serve driver with ``--continual`` at full icd-mf width: the
+     fold-in user's and item's rows against the CPU's, their answers
+     against a plain recompute, the delta publish's version.
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -2266,13 +2290,42 @@ def hold_slab_kernels(dev) -> dict:
     return worst
 
 
+def _slab_counters():
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.kernels.gram import ops as gops
+
+    return (gops.gram, cs.cd_slab_reduce, cs.cd_slab_reduce_gather,
+            cs.cd_resid_patch, cs.cd_resid_patch_gather)
+
+
+def reset_slab_counts() -> None:
+    """The feature models' launch counts (the Gram, kernels 6–9 and their
+    register forms) to 0."""
+    for c in _slab_counters():
+        c.launches = 0
+    _, slab, slab_g, _, patch_g = _slab_counters()
+    slab.launches_one_tile = slab_g.launches_one_tile = 0
+    patch_g.launches_reg_slots = 0
+
+
+def read_slab_counts() -> dict:
+    """The feature models' launch counts, and the one-tile slab reduces and
+    register-slot patches among them (the pregather route's one-tile count
+    where that route launched)."""
+    _, slab, slab_g, _, patch_g = _slab_counters()
+    out = {c.__name__: c.launches for c in _slab_counters()}
+    out["cd_slab_reduce_gather:one_tile"] = slab_g.launches_one_tile
+    out["cd_resid_patch_gather:reg_slots"] = patch_g.launches_reg_slots
+    if slab.launches:
+        out["cd_slab_reduce:one_tile"] = slab.launches_one_tile
+    return out
+
+
 def train_mfsi_full_width(dev) -> dict:
     """Phase 14: MFSI at icd-fm width on the card."""
     import dataclasses
 
     from repro_torch.core.models import mfsi
-    from repro_torch.kernels.cd_sweep import ops as cs
-    from repro_torch.kernels.gram import ops as gops
     from repro_torch.kernels.topk_score import ops as tops, ref as tref
     from repro_torch.sparse.interactions import build_interactions
 
@@ -2297,29 +2350,11 @@ def train_mfsi_full_width(dev) -> dict:
                               implementation="pallas")
     gen = torch.Generator(device=dev).manual_seed(14)
     params0 = mfsi.init(x.p, z.p, k, generator=gen)
-    counters = (gops.gram, cs.cd_slab_reduce, cs.cd_slab_reduce_gather,
-                cs.cd_resid_patch, cs.cd_resid_patch_gather)
-
-    def reset():
-        for c in counters:
-            c.launches = 0
-        cs.cd_slab_reduce.launches_one_tile = 0
-        cs.cd_slab_reduce_gather.launches_one_tile = 0
-        cs.cd_resid_patch_gather.launches_reg_slots = 0
-
-    def counts():
-        out = {c.__name__: c.launches for c in counters}
-        out["cd_slab_reduce_gather:one_tile"] = cs.cd_slab_reduce_gather.launches_one_tile
-        out["cd_resid_patch_gather:reg_slots"] = cs.cd_resid_patch_gather.launches_reg_slots
-        if cs.cd_slab_reduce.launches:  # the pregather route: its one-tile form
-            out["cd_slab_reduce:one_tile"] = cs.cd_slab_reduce.launches_one_tile
-        return out
-
     objs = [float(mfsi.objective(params0, x, z, data, hp))]
     p, e = params0, mfsi.residuals_padded(params0, x, z, data, pdata)
     epoch_s, first = [], None
     torch.cuda.synchronize()
-    reset()
+    reset_slab_counts()
     for _ in range(3):
         t = time.perf_counter()
         p, e = mfsi.epoch_padded(p, x, z, pdata, e, hp)
@@ -2327,7 +2362,7 @@ def train_mfsi_full_width(dev) -> dict:
         epoch_s.append(time.perf_counter() - t)
         first = first or (p, e.clone())
         objs.append(float(mfsi.objective(p, x, z, data, hp)))
-    launches = counts()
+    launches = read_slab_counts()
     nb = -(-k // 8)  # k_b = 8: 16 blocks a side
     log(f"phase 14 train: mfsi.epoch_padded x3 (k {k}, block_k 0 -> k_b 8, "
         f"gather, jacobi, Gram kernel): objective "
@@ -2344,13 +2379,13 @@ def train_mfsi_full_width(dev) -> dict:
 
     # one epoch from one start through the pregather route and the flat path
     pg, eg = first
-    reset()
+    reset_slab_counts()
     t = time.perf_counter()
     pp, ep_ = mfsi.epoch_padded(params0, x, z, pdata,
                                 mfsi.residuals_padded(params0, x, z, data, pdata),
                                 dataclasses.replace(hp, psi_dispatch="pregather"))
     torch.cuda.synchronize()
-    pre_s, pre_launches = time.perf_counter() - t, counts()
+    pre_s, pre_launches = time.perf_counter() - t, read_slab_counts()
     assert pre_launches["cd_slab_reduce"] == 2 * nb and \
         pre_launches["cd_slab_reduce:one_tile"] == 2 * nb and \
         pre_launches["cd_resid_patch"] == 2 * nb and \
@@ -2405,22 +2440,27 @@ def train_mfsi_full_width(dev) -> dict:
     log(f"phase 14 queries: 16 users' build_phi(rows) against export_psi, "
         f"top-100 through 1 top-K launch; ids equal to the plain recompute "
         f"in {exact}/16 rows outright, and at every slot outside a near-tie")
-    return {"launches": launches, "pre_launches": pre_launches, "pdata": pdata}
+    return {"launches": launches, "pre_launches": pre_launches, "pdata": pdata,
+            "x": x, "z": z, "data": data}
 
 
-def time_slab_kernels(dev, pdata) -> dict:
-    """Phase 15: CUDA-event times of kernels 6–9 at both sides' full-width
-    shapes, on the MFSI log's ids and α with random values (m = 8, the ψ
-    slab a column slice of a k = 128 table), beside their plain versions,
+def time_slab_kernels(dev, pdata, m: int = 8, phase: int = 15,
+                      ld: int = FULL["k"]) -> dict:
+    """Phase 15 (m = 8, MFSI's blocks) and phase 20 (m = 9, FM's
+    [Ψ[:, blk] | ψ_spec]): CUDA-event times of kernels 6–9 at both sides'
+    full-width shapes, on the log's ids and α with random values (the ψ
+    slab a column slice of a table of ``ld`` columns: k = 128 for MFSI's
+    slice, m for FM's concatenated slab), beside their plain versions,
     their bounds and, for the pre-gathered forms, the one ``torch.bmm``
-    (``baddbmm``) that computes the same function on the same tile."""
+    (``baddbmm``) that computes the same function on the same tile. Where
+    m takes the register forms (m ≤ 8), also the tiled and one-slot
+    kernels they replaced, in the same call."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
     from repro_torch.obs.costs import cd_resid_patch_cost, cd_slab_reduce_cost
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=dev).manual_seed(15)
-    m = 8
+    gen = torch.Generator(device=dev).manual_seed(phase)
     names = ("cd_slab_reduce", "cd_slab_reduce_gather", "cd_resid_patch",
              "cd_resid_patch_gather")
     out = {n: {"ms": [], "plain": [], "bound": [], "lib": [], "tiled": [],
@@ -2429,8 +2469,8 @@ def time_slab_kernels(dev, pdata) -> dict:
              ("item", pdata.ctx_ids, pdata.alpha_i, FULL["n_ctx"]))
     for side, ids, alpha, n_src in sides:
         c, d = alpha.shape
-        x = slab_inputs(gen, dev, c, d, m, n_src, pad_frac=0, k=FULL["k"],
-                        ids=ids, alpha=alpha)
+        x = slab_inputs(gen, dev, c, d, m, n_src, pad_frac=0, k=ld, ids=ids,
+                        alpha=alpha)
         tab, e, dphi = x["tab"], x["e"], x["dphi"]
         psi = cr.gather_psi_blk(tab, ids).contiguous()
         es = [e.clone() for _ in range(2)]
@@ -2474,8 +2514,9 @@ def time_slab_kernels(dev, pdata) -> dict:
             r["lib"].append(device_ms(lib, n=10) if lib else None)
             r["bound"].append(bound(cost["hbm_bytes"], cost["flops"]))
             lib_txt = f"{r['lib'][-1]:.4f} ms" if lib else "— (none: a gather comes first)"
-            form = ""
-            if name in ("cd_slab_reduce", "cd_slab_reduce_gather"):
+            form = f", form {cost['form']}"
+            if name in ("cd_slab_reduce", "cd_slab_reduce_gather") and \
+                    cost["form"] == vmem.SLAB_ONE_TILE:
                 q_n, p_n = fn(0)
                 q_o, p_o = tiled(0, gather)
                 torch.cuda.synchronize()
@@ -2488,7 +2529,7 @@ def time_slab_kernels(dev, pdata) -> dict:
                         f"equal bit for bit: {same}); the tiled form it replaced "
                         f"{r['tiled'][-1]:.4f} ms")
                 del q_n, p_n
-            if name == "cd_resid_patch_gather":
+            if name == "cd_resid_patch_gather" and cost["form"] == vmem.PATCH_REG_SLOTS:
                 e_new, e_old = e.clone(), e.clone()
                 cs.cd_resid_patch_gather(tab, ids, e_new, dphi)
                 ck.resid_patch(None, tab, ids, e_old, dphi)
@@ -2501,7 +2542,7 @@ def time_slab_kernels(dev, pdata) -> dict:
                         f"{same}); the one-slot kernel it replaced "
                         f"{r['one_slot'][-1]:.4f} ms")
                 del e_new, e_old
-            log(f"phase 15 {name} {side} side (C {c}, D_pad {d}, m {m}, n_src "
+            log(f"phase {phase} {name} {side} side (C {c}, D_pad {d}, m {m}, n_src "
                 f"{n_src}){form}: kernel {r['ms'][-1]:.4f} ms, plain "
                 f"{r['plain'][-1]:.4f} ms, library {lib_txt}, bound "
                 f"{r['bound'][-1][0]:.4f} ms ({r['bound'][-1][1]}: "
@@ -3001,6 +3042,367 @@ def time_large_k(dev, ks=(257, 512, 1_000, 8_192)) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 4b and fold-in: FM at icd-fm width on the slab kernels at m = 9
+# (phase 19), rows 1 and 6–9 at FM's shapes (phase 20), FM served from the
+# Model API and fold-in against the float64 oracle (phase 21), the serve
+# driver's --continual at full icd-mf width (phase 22).
+# ---------------------------------------------------------------------------
+# fold-in rows against the float64 oracle (tests/test_foldin.py)
+FOLD_RTOL, FOLD_ATOL = 2e-4, 2e-5
+# FM's fused block at block_k 0: k_b 8 columns and ψ_spec
+FM_M = 8 + 1
+
+
+def fm_epochs(fm, p, x, z, pdata, e, hp, n):
+    """``n`` fused FM epochs from (p, e): the params after each, the
+    first epoch's (params, residual grid copy), and the wall s of each."""
+    secs, first = [], None
+    for _ in range(n):
+        t = time.perf_counter()
+        p, e = fm.epoch_padded(p, x, z, pdata, e, hp)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        first = first or (p, e.clone())
+    return p, e, first, secs
+
+
+def fold_in_oracle(table, ids, free, init, hp) -> dict:
+    """One fold-in's float64 oracle on the CPU: ``fold_in_exact``'s row,
+    the table's TᵀT, and, as a note, the condition number of the row's
+    normal matrix M = A + α₀G + λI over the free coordinates (the larger,
+    the more sweeps a row takes to converge)."""
+    from repro_torch.core import foldin
+
+    t64 = table.cpu().double()
+    want = foldin.fold_in_exact(table.cpu(), ids, free=free, init=init,
+                                alpha0=hp.alpha0, l2=hp.l2).double()
+    g64 = t64.T @ t64
+    sel = t64[torch.as_tensor(np.asarray(ids, np.int64))]
+    m = sel.T @ sel + hp.alpha0 * g64 + hp.l2 * torch.eye(
+        t64.shape[1], dtype=torch.float64)
+    fr = torch.as_tensor(np.flatnonzero(np.ones(t64.shape[1], bool) if free is None
+                                        else free))
+    ev = torch.linalg.eigvalsh(m[fr][:, fr])
+    return {"want": want, "g": g64, "t": t64, "cond": float(ev[-1] / ev[0]),
+            "score_max": float((t64 @ want).abs().max())}
+
+
+def train_fm_full_width(dev, x, z, data, pdata) -> dict:
+    """Phase 19: FM at icd-fm width (``configs/icd_fm``) on phase 14's log
+    and designs: 3 ``epoch_padded`` epochs with the defaults (block_k 0 →
+    k_b 8, m = 9: the tiled slab reduce and the one-slot residual patch,
+    gather routing, jacobi), the objective falling every epoch; from one
+    start a pregather, a flat and a block_k 7 (m = 8: the one-tile and
+    register-slot forms) epoch held against the gather one; profiles of
+    one epoch at m = 9 and at m = 8."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.models import fm
+
+    cfg = get_config("icd-fm")
+    assert (x.p, z.p, x.n_rows, z.n_rows, cfg.k) == (
+        cfg.p_ctx, cfg.p_item, cfg.n_ctx, cfg.n_items, FULL["k"]), (x.p, z.p)
+    k = cfg.k
+    hp = fm.FMHyperParams(k=k, alpha0=cfg.alpha0, l2=cfg.l2,
+                          implementation="pallas")
+    params0 = fm.init(x.p, z.p, k, generator=torch.Generator(device=dev).manual_seed(19))
+    objs = [float(fm.objective(params0, x, z, data, hp))]
+    e0 = fm.residuals_padded(params0, x, z, data, pdata, hp)
+    torch.cuda.synchronize()
+    reset_slab_counts()
+    p, e, first = params0, e0.clone(), None
+    epoch_s = []
+    for _ in range(3):
+        p, e, f1, secs = fm_epochs(fm, p, x, z, pdata, e, hp, 1)
+        first = first or f1
+        epoch_s += secs
+        objs.append(float(fm.objective(p, x, z, data, hp)))
+    launches = read_slab_counts()
+    nb = -(-k // 8)
+    log(f"phase 19 train: fm.epoch_padded x3 (icd-fm: p_ctx {x.p}, p_item "
+        f"{z.p}, k {k}, D = k + 2 = {k + 2}; block_k 0 -> k_b 8, m 9, gather, "
+        f"jacobi, Gram kernel): objective {' -> '.join(f'{o:.6g}' for o in objs)}; "
+        f"epoch s {', '.join(f'{s:.3f}' for s in epoch_s)} (objective "
+        f"excluded); launches {launches}")
+    assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
+    assert launches == {"gram": 6, "cd_slab_reduce": 0,
+                        "cd_slab_reduce_gather": 3 * 2 * nb,
+                        "cd_slab_reduce_gather:one_tile": 0,
+                        "cd_resid_patch": 0,
+                        "cd_resid_patch_gather": 3 * 2 * nb,
+                        "cd_resid_patch_gather:reg_slots": 0}, launches
+
+    # one epoch from one start: pregather, flat and block_k 7 (m = 8)
+    pg, eg = first
+    reset_slab_counts()
+    pp, ep_, _, pre_s = fm_epochs(fm, params0, x, z, pdata, e0.clone(),
+                                  dataclasses.replace(hp, psi_dispatch="pregather"), 1)
+    pre_launches = read_slab_counts()
+    assert pre_launches["cd_slab_reduce"] == pre_launches["cd_resid_patch"] == 2 * nb \
+        and pre_launches["cd_slab_reduce:one_tile"] == 0 \
+        and pre_launches["cd_slab_reduce_gather"] == 0, pre_launches
+    d_pre = _hold_params(pp, pg, ep_, eg)
+    del pp, ep_
+    t = time.perf_counter()
+    pf, ef = fm.epoch(params0, x, z, data, fm.residuals(params0, x, z, data, hp), hp)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t
+    d_flat = _hold_params(pf, pg, ef, eg[pdata.c_rows, pdata.c_cols])
+    del pf, ef
+    # m = 9 against m = 8 from one start, in turns (m 8, m 9, m 9, m 8)
+    hp7 = dataclasses.replace(hp, block_k=7)
+    nb7 = -(-k // 7)
+    reset_slab_counts()
+    p7, _, f7, m8_s = fm_epochs(fm, params0, x, z, pdata, e0.clone(), hp7, 1)
+    m8_launches = read_slab_counts()
+    assert m8_launches["cd_slab_reduce_gather"] == \
+        m8_launches["cd_slab_reduce_gather:one_tile"] == 2 * nb7 and \
+        m8_launches["cd_resid_patch_gather"] == \
+        m8_launches["cd_resid_patch_gather:reg_slots"] == 2 * nb7, m8_launches
+    m9_s = [fm_epochs(fm, params0, x, z, pdata, e0.clone(), hp, 1)[3][0]
+            for _ in range(2)]
+    m8_s += fm_epochs(fm, params0, x, z, pdata, e0.clone(), hp7, 1)[3]
+    d_m8 = _hold_params(f7[0], pg, f7[1], eg)
+    del p7, f7
+    log(f"phase 19 one epoch from one start: gather {epoch_s[0]:.3f}s; "
+        f"pregather {pre_s[0]:.3f}s (slab reduce tiled in all "
+        f"{pre_launches['cd_slab_reduce']} launches, max |d param| {d_pre:.3g}); "
+        f"flat fm.epoch {flat_s:.3f}s (max |d param| {d_flat:.3g}); rtol "
+        f"{TENSOR_RTOL} atol {TENSOR_ATOL} (e atol {TENSOR_E_ATOL})")
+    log(f"phase 19 m = 9 against m = 8, one epoch from one start each, in "
+        f"turns (m 8, m 9, m 9, m 8): block_k 7 (m 8: {nb7} blocks a side, "
+        f"one-tile and register-slot in all "
+        f"{m8_launches['cd_slab_reduce_gather']} launches) epoch s "
+        f"{', '.join(f'{s:.3f}' for s in m8_s)}; block_k 8 (m 9: {nb} blocks "
+        f"a side, tiled and one-slot) epoch s {', '.join(f'{s:.3f}' for s in m9_s)}; "
+        f"block_k 7 params against block_k 8's max |d| {d_m8:.3g}")
+    prof = {}
+    for name, h in (("m9", hp), ("m8", hp7)):
+        prof[name] = epoch_breakdown(
+            lambda: fm.epoch_padded(params0, x, z, pdata, e0.clone(), h), top=12)
+        log(f"phase 19 epoch breakdown at {name[0]} = {name[1]} (torch.profiler, "
+            f"one gather epoch and a copy of its start grid): {prof[name]}")
+    return {"params": p, "hp": hp, "launches": launches,
+            "pre_launches": pre_launches, "m9_s": m9_s, "m8_s": m8_s}
+
+
+def time_gram_fm(dev, p, x, z, hp) -> dict:
+    """Phase 20, row 1 at FM's shapes: the Gram of Φe (200,000 × 130) and
+    Ψe (68,000 × 130) of the trained FM, 520-byte rows (the kernel's
+    4-byte copies), beside the plain version, ``torch.mm(x.T, x)`` (TF32
+    off) and the bound."""
+    from repro_torch.core.models import fm
+    from repro_torch.kernels.gram import ops as gops, ref as gref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = {"ms": [], "plain": [], "lib": [], "bound": []}
+    for what, t in (("phi_ext", fm.phi_ext(p, x, hp)), ("psi_ext", fm.psi_ext(p, z, hp))):
+        xs = [t.clone() for _ in range(2)]
+        rows, k = t.shape
+        got, want = gops.gram(xs[0]), gref.gram_ref(xs[0])
+        torch.testing.assert_close(got, want, rtol=GRAM_RTOL,
+                                   atol=GRAM_ATOL_REL * float(want.abs().max()))
+        g["ms"].append(device_ms(lambda j: gops.gram(xs[j % 2])))
+        g["plain"].append(device_ms(lambda j: gref.gram_ref(xs[j % 2])))
+        g["lib"].append(device_ms(lambda j: torch.mm(xs[j % 2].T, xs[j % 2])))
+        g["bound"].append(bound(4 * rows * k + 4 * k * k, rows * k * (k + 1)))
+        log(f"phase 20 gram {what} {rows}x{k}: kernel {g['ms'][-1]:.4f} ms, "
+            f"plain {g['plain'][-1]:.4f} ms, torch.mm(x.T, x) "
+            f"{g['lib'][-1]:.4f} ms, bound {g['bound'][-1][0]:.4f} ms "
+            f"({g['bound'][-1][1]}); max |err| {float((got - want).abs().max()):.3g}")
+        del xs
+    return g
+
+
+def serve_and_fold_in(dev, fm_out, x, z, data, mf_params) -> dict:
+    """Phase 21: FM served from the Model API (``RetrievalEngine.from_model``
+    over Ψe, 68,000 × 130): 16 users' top-100 in one top-K launch, equal
+    bit for bit to the chain and held against a plain recompute; the
+    kernel's time at D = 130. Then users and items folded in for MF and FM
+    on the card against ``fold_in_exact`` in float64 on the CPU, and a
+    cold-start ranking eval of 64 MF users through fold-in."""
+    from repro_torch.core import foldin
+    from repro_torch.core.models import fm, mf
+    from repro_torch.core.models.api import Dataset, build_model
+    from repro_torch.eval.ranking import foldin_ranking_eval
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.topk_score import ops as tops, ref as tref
+    from repro_torch.obs.costs import topk_score_cost
+    from repro_torch.serve.engine import RetrievalEngine
+
+    p, hp = fm_out["params"], fm_out["hp"]
+    model = build_model("fm", hp=hp, dataset=Dataset(data=data, x=x, z=z))
+    eng = RetrievalEngine.from_model(model, p, k=100)
+    assert tuple(eng.psi.shape) == (FULL["n_items"], FULL["k"] + 2)
+    users = torch.arange(16, device=dev) * (FULL["n_ctx"] // 16) + 5
+    torch.cuda.synchronize()
+    tops.topk_score.launches = tops.topk_score.launches_chain = 0
+    res = eng.topk(users)
+    torch.cuda.synchronize()
+    launches = tops.topk_score.launches
+    assert launches == 1 and tops.topk_score.launches_chain == 0, launches
+    phi = model.build_phi(p, users)
+    torch.testing.assert_close(phi, fm.phi_ext(p, x, hp)[users], rtol=1e-5, atol=1e-6)
+    hold_chain(tops, (res.scores, res.ids), phi, eng.psi, 100)
+    rs, ri = tref.topk_score_ref(phi, eng.psi, 101)
+    torch.testing.assert_close(res.scores, rs[:, :100], rtol=RTOL, atol=ATOL)
+    ids_agree(rs[:, :100], ri[:, :100], res.ids, rs[:, 100])
+    s64 = phi.double() @ eng.psi.double().T
+    i64 = torch.sort(-s64, dim=1, stable=True).indices[:, :100]
+    exact = int((res.ids.long() == i64).all(1).sum())
+    log(f"phase 21 FM engine: RetrievalEngine.from_model over Psi_e "
+        f"{tuple(eng.psi.shape)}, 16 users' top-100 in {launches} one-launch "
+        f"top-K call; equal bit for bit to the chain; scores within rtol "
+        f"{RTOL} atol {ATOL} of the plain version; ids equal to a float64 "
+        f"recompute in {exact}/16 rows outright, and to the plain version at "
+        f"every slot outside a near-tie")
+    t = {}
+    t["ms"] = device_ms(lambda j: tops.topk_score(phi, eng.psi, 100))
+    t["chain"] = device_ms(lambda j: tops.topk_score(phi, eng.psi, 100, form="chain"))
+    t["plain"] = device_ms(lambda j: tref.topk_score_ref(phi, eng.psi, 100), n=10)
+    t["lib"] = device_ms(lambda j: torch.topk(phi @ eng.psi.T, 100), n=20)
+    cost = topk_score_cost(16, FULL["n_items"], FULL["k"] + 2, 100)
+    t["bound"], t["bound_by"] = bound(cost["hbm_bytes"], cost["flops"])
+    t["launches"] = launches
+    log(f"phase 21 top-K at D = {FULL['k'] + 2} (B 16, {FULL['n_items']:,} rows, K 100): "
+        f"one launch {t['ms']:.4f} ms, the chain {t['chain']:.4f} ms, plain "
+        f"{t['plain']:.4f} ms, torch.topk(phi @ psi.T) {t['lib']:.4f} ms, "
+        f"bound {t['bound']:.4f} ms ({t['bound_by']})")
+
+    # fold-in on the card against the float64 oracle on the CPU
+    log_ctx, log_item = data.ctx.cpu().numpy(), data.item.cpu().numpy()
+    users_items = log_item[log_ctx == 7]
+    items_users = log_ctx[log_item == 11][:40]
+    mf_model = build_model("mf", hp=mf.MFHyperParams(
+        k=FULL["k"], alpha0=FULL["alpha0"], l2=FULL["l2"]), dataset=Dataset())
+    folds = {}
+    for name, m, params in (("mf", mf_model, mf_params), ("fm", model, p)):
+        for side, ids in (("user", users_items), ("item", items_users)):
+            fold = m.fold_in_user if side == "user" else m.fold_in_item
+            table = m.export_psi(params) if side == "user" else m.phi_table(params)
+            free, init = (m._user_free_init() if side == "user"
+                          else m._item_free_init())
+            torch.cuda.synchronize()
+            gops.gram.launches = 0
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                row = fold(params, ids)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            assert gops.gram.launches == 3 and row.device.type == "cuda"
+            res_d = foldin.fold_in_row(table, ids, free=free, init=init,
+                                       **m._foldin_hp())
+            torch.testing.assert_close(row, res_d.row, rtol=1e-6, atol=1e-7)
+            # the same fold-in through the plain versions on the CPU
+            host = foldin.fold_in_row(table.cpu(), ids, free=free, init=init,
+                                      **m._foldin_hp())
+            torch.testing.assert_close(row.cpu(), host.row, rtol=FOLD_RTOL,
+                                       atol=FOLD_ATOL)
+            # against the float64 oracle on the CPU: the Gram kernel's G,
+            # which the row's normal matrix is built from, against TᵀT
+            orc = fold_in_oracle(table, ids, free, init, m.hp)
+            want = orc["want"]
+            g = gops.gram(table.contiguous()).cpu().double()
+            torch.testing.assert_close(g, orc["g"], rtol=GRAM_RTOL,
+                                       atol=GRAM_ATOL_REL * float(orc["g"].abs().max()))
+            # the oracle's row is a fixed point of the card's sweep: one
+            # sweep started there stays within the reference's tolerance
+            still = foldin.fold_in_row(table, ids, free=free,
+                                       init=want.float().numpy(), n_sweeps=1,
+                                       **m._foldin_hp()).row.cpu().double()
+            torch.testing.assert_close(still, want, rtol=FOLD_RTOL, atol=FOLD_ATOL)
+            # a row that converged to tol 1e-6 is the oracle's row within
+            # the reference's tolerance; MF's M is well conditioned and
+            # converges, FM's (a spec coordinate against a constant-1
+            # column) is not and stops at the sweep cap, its distance shown
+            d = row.cpu().double() - want
+            gap = (float(d.abs().max()), float((orc["t"] @ d).abs().max()))
+            converged = res_d.delta_max < 1e-6 * (1.0 + float(row.abs().max()))
+            assert converged or name == "fm", (name, side, res_d)
+            if converged:
+                torch.testing.assert_close(row.cpu().double(), want,
+                                           rtol=FOLD_RTOL, atol=FOLD_ATOL)
+            folds[f"{name}_{side}"] = {
+                "ms": walls[-1], "sweeps": res_d.n_sweeps, "cond": orc["cond"],
+                "default": gap, "fixed_point": float((still - want).abs().max()),
+                "gram": float((g - orc["g"]).abs().max())}
+            log(f"phase 21 fold-in {name} {side} ({len(ids)} interactions, "
+                f"table {tuple(table.shape)}): wall {walls[-1]:.3f} ms a call "
+                f"(first {walls[0]:.3f} ms; 1 Gram launch a call), "
+                f"{res_d.n_sweeps} sweeps to tol 1e-6 (delta {res_d.delta_max:.3g}; "
+                f"the CPU's row within rtol {FOLD_RTOL} atol {FOLD_ATOL}); against "
+                f"the float64 oracle on the CPU: the Gram kernel's G max |d| "
+                f"{folds[f'{name}_{side}']['gram']:.3g} of max |TᵀT| "
+                f"{float(orc['g'].abs().max()):.6g}; one card sweep from "
+                f"fold_in_exact's row moves it max |d| "
+                f"{folds[f'{name}_{side}']['fixed_point']:.3g} (held to rtol "
+                f"{FOLD_RTOL} atol {FOLD_ATOL}); this row max |d row| {gap[0]:.3g}"
+                f"{' (held, converged)' if converged else ' (not converged)'}, "
+                f"max |d score| {gap[1]:.3g} of max |score| {orc['score_max']:.3g}; "
+                f"cond(M) {orc['cond']:.3g}")
+            if name == "fm":
+                fixed = FULL["k"] + (1 if side == "user" else 0)
+                assert float(row[fixed]) == 1.0
+    # cold start: 64 MF users ranked from their folded-in φ rows
+    pick = np.arange(64) * (FULL["n_ctx"] // 64) + 3
+    starts = np.searchsorted(log_ctx, pick)
+    ends = np.searchsorted(log_ctx, pick, side="right")
+    hist = [log_item[a:b - 1] for a, b in zip(starts, ends)]
+    held = log_item[ends - 1]
+    tops.topk_score.launches = 0
+    t0 = time.perf_counter()
+    ev = foldin_ranking_eval(mf_model, mf_params, hist, held, k=100)
+    torch.cuda.synchronize()
+    assert tops.topk_score.launches >= 1
+    log(f"phase 21 foldin_ranking_eval: 64 MF users folded in from their "
+        f"history, held-out last item: recall@100 {ev['recall@100']:.4f}, "
+        f"ndcg@100 {ev['ndcg@100']:.4f}, {tops.topk_score.launches} top-K "
+        f"launch(es), {time.perf_counter() - t0:.3f}s")
+    return {"topk": t, "folds": folds}
+
+
+def serve_continual(ref, serve, dev) -> dict:
+    """Phase 22: the serve driver with ``--continual`` at full icd-mf width
+    (after phase 3's runs): a 64-request trace, then an unseen user folded
+    in and queried through the mesh, a new item folded in, delta-published
+    and self-queried; the rows against the same fold-in through the plain
+    versions on the CPU, the answers against a plain recompute."""
+    from repro_torch.core import foldin
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.topk_score import ops as tops
+
+    torch.cuda.synchronize()
+    tops.topk_score.launches = gops.gram.launches = 0
+    t0 = time.perf_counter()
+    report = check_serve(ref, serve, SERVE_ARGV + ["--requests", "64", "--continual"], dev)
+    wall = time.perf_counter() - t0
+    launches = {"topk_score": tops.topk_score.launches, "gram": gops.gram.launches}
+    assert launches["gram"] == 2 and launches["topk_score"] >= 3, launches
+    c, w, h = report["continual"], report["params"].w, report["params"].h
+    kw = dict(alpha0=FULL["alpha0"], l2=FULL["l2"])
+    want_u = foldin.fold_in_row(h.cpu(), c["history"], **kw).row
+    want_i = foldin.fold_in_row(w.cpu(), c["item_ctx"], **kw).row
+    torch.testing.assert_close(c["phi"][0].cpu(), want_u, rtol=FOLD_RTOL, atol=FOLD_ATOL)
+    torch.testing.assert_close(c["psi_row"].cpu(), want_i, rtol=FOLD_RTOL, atol=FOLD_ATOL)
+    k = report["k"]
+    rs, ri = ref.topk_score_ref(c["phi"], h, k + 1)
+    ids_agree(rs[:, :k], ri[:, :k], c["user_result"].ids, rs[:, k])
+    table = torch.cat([h, c["psi_row"][None, :]])
+    rs, ri = ref.topk_score_ref(c["psi_row"][None, :], table, k + 1)
+    ids_agree(rs[:, :k], ri[:, :k], c["item_result"].ids, rs[:, k])
+    assert c["new_id"] == FULL["n_items"] and c["version"] == 2
+    log(f"phase 22 serve --continual (icd-mf full width, 64 requests, replica "
+        f"(0, 0) killed): fold-in user top id {int(c['user_result'].ids[0, 0])}, "
+        f"item {c['new_id']} delta-published as v{c['version']}, self-query "
+        f"top id {int(c['item_result'].ids[0, 0])}; both rows within rtol "
+        f"{FOLD_RTOL} of the CPU's fold-in, both answers equal to a plain "
+        f"recompute outside near-ties; launches {launches}; {wall * 1e3:.3f} ms")
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3184,7 +3586,6 @@ def main() -> None:
     t0 = time.perf_counter()
     slab_times = time_slab_kernels(dev, fm["pdata"])
     log(f"phase 15 done in {time.perf_counter() - t0:.1f}s")
-    del fm["pdata"]
 
     # 16.-17. the quantized IVF serving tier, delta publish, rollout
     t0 = time.perf_counter()
@@ -3194,6 +3595,24 @@ def main() -> None:
     form_times = time_topk_forms(dev, ivf)
     log(f"phase 17 done in {time.perf_counter() - t0:.1f}s")
     run_serve_retrieval(dev)
+
+    # 19.-22. FM at icd-fm width, rows 1 and 6-9 at its shapes, FM served
+    # from the Model API, fold-in, the serve driver's --continual
+    t0 = time.perf_counter()
+    fmx = train_fm_full_width(dev, fm["x"], fm["z"], fm["data"], fm["pdata"])
+    log(f"phase 19 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fm_gram = time_gram_fm(dev, fmx["params"], fm["x"], fm["z"], fmx["hp"])
+    fm_slab = time_slab_kernels(dev, fm["pdata"], m=FM_M, phase=20, ld=FM_M)
+    log(f"phase 20 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fm_serve = serve_and_fold_in(dev, fmx, fm["x"], fm["z"], fm["data"], tr["params"])
+    log(f"phase 21 done in {time.perf_counter() - t0:.1f}s")
+    del fm["pdata"], fm["data"], fm["x"], fm["z"]
+    t0 = time.perf_counter()
+    serve_continual(ref, serve, dev)
+    log(f"phase 22 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -3221,12 +3640,19 @@ def main() -> None:
             out["forms"] = forms
         return out
 
+    def fm_of(launches, t, library):
+        """FM's own launches (phase 19's main path) and times at its shapes
+        (phase 20), as ``row`` gives them."""
+        r = row("", "", "", launches, None, t, library)
+        return {key: r[key] for key in ("launches", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+
     def row_forms(counts, name):
         return {f: counts[f"{name}:{f}"] for f in ("reg_row", "split_row")}
 
     cd_src = "src/repro_torch/kernels/cd_sweep/csrc/cd_sweep.cu"
     gather_src = "src/repro_torch/kernels/cd_sweep/csrc/cd_gather.cu"
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "topk_score", "route": "cuda",
         "source": "src/repro_torch/kernels/topk_score/csrc/topk_score.cu",
         "replaces": "src/repro/kernels/topk_score/kernel.py:159",
@@ -3270,7 +3696,23 @@ def main() -> None:
         "bound_ms": form_times[form]["bound"],
         "bound_by": form_times[form]["bound_by"],
         "library_ms": form_times[form]["lib"]}
-        for form in ("bf16", "int8", "mask", "ivf")]}))
+        for form in ("bf16", "int8", "mask", "ivf")]
+    # FM's path (phases 19-21): its launches and its shapes' times
+    fm_rows = {"gram": fm_of(fmx["launches"]["gram"], fm_gram, fm_gram["lib"])}
+    for name in ("cd_slab_reduce", "cd_slab_reduce_gather", "cd_resid_patch",
+                 "cd_resid_patch_gather"):
+        gather = name.endswith("gather")
+        fm_rows[name] = fm_of(
+            (fmx["launches"] if gather else fmx["pre_launches"])[name],
+            fm_slab[name], None if gather else fm_slab[name]["lib"])
+    t = fm_serve["topk"]
+    fm_rows["topk_score"] = {"launches": t["launches"], "ms": t["ms"],
+                             "plain_ms": t["plain"], "bound_ms": t["bound"],
+                             "bound_by": t["bound_by"], "library_ms": t["lib"]}
+    for r in kernels:
+        if r["name"] in fm_rows:
+            r["fm"] = fm_rows[r["name"]]
+    print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

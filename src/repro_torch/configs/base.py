@@ -1,5 +1,5 @@
 """Config dataclass for the paper's own iCD models (port of
-``repro.configs.base``; only what the serving path reads)."""
+``repro.configs.base``; ``ShapeSpec`` and ``ICD_SHAPES`` come later)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,3 +16,6 @@ class ICDConfig:
     k: int
     alpha0: float = 1.0
     l2: float = 0.1
+    # fm extras
+    p_ctx: int = 0
+    p_item: int = 0

@@ -78,6 +78,14 @@ def params_from_numpy(w, h, *, device="cuda") -> MFParams:
     )
 
 
+def phi(params: MFParams) -> torch.Tensor:
+    return params.w
+
+
+def psi(params: MFParams) -> torch.Tensor:
+    return params.h
+
+
 def export_psi(params: MFParams) -> torch.Tensor:
     """ψ table for the serve tier: (n_items, k)."""
     return params.h

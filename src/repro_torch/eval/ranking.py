@@ -12,8 +12,10 @@ id-list form. The per-row metric math is shared with the dense path
 ``cluster=`` runs the same loop against a sharded table or the
 fault-tolerant mesh (``serve/mesh.py``); the metrics then carry its
 ``coverage`` and ``dead_ranges``. :func:`ann_recall_curve` holds an IVF
-index (``serve/ann.py``) against the exact kernel. ``foldin_ranking_eval``
-and ``model_eval_callback`` are not ported yet.
+index (``serve/ann.py``) against the exact kernel.
+:func:`model_eval_callback` evaluates through the unified ``Model``
+protocol, and :func:`foldin_ranking_eval` ranks users whose φ rows come
+from fold-in (the cold-start path the serving tier takes).
 """
 from __future__ import annotations
 
@@ -133,3 +135,37 @@ def fit_eval_callback(export: Callable, true_items, *, k: int = 100,
 
     callback.history = history
     return callback
+
+
+def model_eval_callback(model, query, true_items, **kw):
+    """:func:`fit_eval_callback` through the unified
+    :class:`repro_torch.core.models.api.Model` protocol::
+
+        cb = model_eval_callback(model, eval_query, true_items, k=100)
+        model.fit(params, n_epochs=5, callback=cb)
+    """
+    return fit_eval_callback(
+        lambda p: (model.build_phi(p, query), model.export_psi(p)),
+        true_items, **kw)
+
+
+def foldin_ranking_eval(model, params, histories: Sequence, true_items, *,
+                        k: int = 100, alpha=None, exclude_history: bool = True,
+                        batch_rows: int = 256, cluster=None,
+                        **foldin_kw) -> Dict[str, float]:
+    """Cold-start ranking eval: every user is UNSEEN. Their φ row comes
+    from the fold-in (``model.fold_in_user`` against the frozen ψ table,
+    on its device) of ``histories[u]``, then ranks the full catalogue as
+    the warm path does. ``alpha`` is one confidence for every event. With
+    ``exclude_history`` the folded-in items are excluded at ranking time
+    (leave-one-out: the true item must not be in the history)."""
+    phi_rows = torch.stack([
+        model.fold_in_user(
+            params, np.asarray(h, np.int64),
+            None if alpha is None else np.full(len(h), alpha, np.float32),
+            **foldin_kw)
+        for h in histories])
+    psi = None if cluster is not None else model.export_psi(params)
+    return ranking_eval(phi_rows, psi, true_items, k=k,
+                        exclude=histories if exclude_history else None,
+                        batch_rows=batch_rows, cluster=cluster)

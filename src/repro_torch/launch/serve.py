@@ -21,12 +21,15 @@ With no GPU the default raises rather than falling back.
 the trace (repeatable). ``--metrics-out FILE`` exports the metrics registry
 on exit (``.prom`` → Prometheus text, else JSONL), ``--trace-out FILE`` the
 request trace as Chrome-trace JSON, and ``--stats-every N`` prints a live
-stats line every N requests. ``--continual`` (fold-in under traffic) waits
-for fold-in, the former slice 2.6, now after slice 4.
+stats line every N requests. ``--continual``, after the trace, folds in an
+unseen user at request time (closed-form fold-in against the frozen ψ, on
+``--device``) and queries the mesh with the new φ row, then folds in a new
+item, delta-publishes its ψ row and queries with it.
 
 :func:`main` takes an argv list and returns a report (params, users,
-per-request results, coverage, counters), so callers can drive the whole
-path in-process.
+per-request results, coverage, counters and, with ``--continual``, the
+fold-in rows and their results), so callers can drive the whole path
+in-process.
 """
 from __future__ import annotations
 
@@ -63,7 +66,9 @@ def _parse(argv):
                     help="inject a sticky fault on replica R of shard S "
                          "(repeatable), e.g. --kill 0:0 --kill 0:1")
     ap.add_argument("--continual", action="store_true",
-                    help="fold-in under traffic (not ported yet: fold-in follows slice 4)")
+                    help="after the trace: fold in an unseen user at "
+                         "request time and delta-publish a fold-in item "
+                         "(the continual-learning serving path)")
     ap.add_argument("--metrics-out", default=None, metavar="FILE",
                     help="export the metrics registry on exit (.prom -> "
                          "Prometheus text exposition, else JSONL)")
@@ -77,10 +82,6 @@ def _parse(argv):
 
 def main(argv=None) -> dict:
     args = _parse(argv)
-    if args.continual:
-        raise NotImplementedError(
-            "--continual is not ported yet: fold-in (former slice 2.6) "
-            "follows slice 4")
     if not args.arch.startswith("icd"):
         raise SystemExit(
             f"unknown serving arch {args.arch!r}: the serve driver hosts the "
@@ -193,6 +194,33 @@ def main(argv=None) -> dict:
           f"p99={_percentile(lat, 99):.4f}s after start; "
           f"top id for user {int(users[0])}: {top_id}")
 
+    continual = None
+    if args.continual:
+        from repro_torch.core.models.api import Dataset, build_model
+
+        hp = mf.MFHyperParams(k=cfg.k, alpha0=cfg.alpha0, l2=cfg.l2)
+        model = build_model("mf", hp=hp, dataset=Dataset())
+        # unseen user: solve their φ row against the frozen ψ snapshot at
+        # request time (closed-form fold-in); no training state touched
+        history = rng.integers(0, cfg.n_items, size=8)
+        phi_new = model.fold_in_user(params, history)[None, :]
+        res_user = mesh.topk_phi(phi_new)
+        print(f"[serve] fold-in user (|history|={history.size}): "
+              f"top id {int(res_user.ids[0, 0])} at v{mesh.version}")
+        # new item: fold its ψ row from early interactions, then go live
+        # through an incremental delta publish, no full-table republish
+        item_ctx = rng.integers(0, cfg.n_ctx, size=6)
+        psi_row = model.fold_in_item(params, item_ctx)
+        new_id = mesh.n_items
+        v = mesh.publish_delta(psi_row, new_id)
+        res_item = mesh.topk_phi(psi_row[None, :])
+        print(f"[serve] fold-in item {new_id} delta-published as v{v}; "
+              f"self-query top id {int(res_item.ids[0, 0])} "
+              f"({mesh.n_items} items live)")
+        continual = {"history": history, "phi": phi_new, "user_result": res_user,
+                     "item_ctx": item_ctx, "psi_row": psi_row,
+                     "new_id": new_id, "version": v, "item_result": res_item}
+
     if args.metrics_out:
         write_metrics(args.metrics_out, registry)
         print(f"[serve] metrics -> {args.metrics_out}")
@@ -205,6 +233,7 @@ def main(argv=None) -> dict:
         "coverage": coverage,
         "seconds": dt, "completion_s": lat,
         "batcher_stats": dict(batcher.stats), "mesh_stats": dict(mesh.stats),
+        "continual": continual,
     }
 
 

@@ -20,8 +20,9 @@ Exclusion forms:
 (``serve/ann.py``) and serves through centroid pruning and the exact
 kernel over the probed blocks; it takes the ``exclude_ids`` form only.
 
-Not ported yet: ``RetrievalEngine.from_model`` and ``fold_in_phi``
-(fold-in, with the Model API).
+:meth:`RetrievalEngine.from_model` builds the engine from a
+:mod:`repro_torch.core.models.api` adapter, which also lets it fold in an
+unseen user at request time (:meth:`RetrievalEngine.fold_in_phi`).
 """
 from __future__ import annotations
 
@@ -36,9 +37,6 @@ from repro_torch.kernels.topk_score.ops import topk_score
 from repro_torch.obs.costs import KernelCostRecorder
 from repro_torch.obs.metrics import resolve_registry
 from repro_torch.serve.cluster import TopKResult
-
-_FOLDIN = "fold-in: not yet ported (it follows slice 4; see ROADMAP.md)"
-
 
 def exclude_ids_from_lists(item_lists: Sequence, *, min_width: int = 1,
                            device=None) -> torch.Tensor:
@@ -93,6 +91,8 @@ class RetrievalEngine:
         self._costs = KernelCostRecorder(self.registry)
         self.index = None
         self.ann = ann
+        self.model = None
+        self._params = None
         if retrieval == "ivf":
             # the engine's ψ is fixed at construction, so the IVF tier
             # indexes it once, eagerly
@@ -102,11 +102,39 @@ class RetrievalEngine:
             self.index = PsiIndex.build(self.psi, self.ann)
 
     @classmethod
-    def from_model(cls, model, params, **kw) -> "RetrievalEngine":
-        raise NotImplementedError(_FOLDIN)
+    def from_model(cls, model, params, *, k: int = 100,
+                   block_items: Optional[int] = None, retrieval: str = "exact",
+                   ann=None, registry=None) -> "RetrievalEngine":
+        """An engine from a :class:`repro_torch.core.models.api.Model`
+        adapter, the unified construction path::
 
-    def fold_in_phi(self, item_ids, y=None, alpha=None, **kw):
-        raise NotImplementedError(_FOLDIN)
+            engine = RetrievalEngine.from_model(model, params, k=100)
+            res = engine.topk(query)                  # model's query space
+            phi = engine.fold_in_phi(unseen_history)  # request-time fold-in
+
+        The engine keeps (model, params), so the serving tier can fold in
+        an UNSEEN user at request time: the user's history is solved to a
+        φ row against the frozen ψ table (single-row CD,
+        ``core/foldin.py``) without touching training state."""
+        eng = cls(model.export_psi(params),
+                  lambda *query: model.build_phi(
+                      params, query[0] if len(query) == 1 else query),
+                  k=k, block_items=block_items, retrieval=retrieval, ann=ann,
+                  registry=registry)
+        eng.model = model
+        eng._params = params
+        return eng
+
+    def fold_in_phi(self, item_ids, y=None, alpha=None, **kw) -> torch.Tensor:
+        """(1, D) φ row, on the ψ table's device, for an unseen user folded
+        in from their item history against the frozen ψ snapshot. Only on
+        engines built with :meth:`from_model`."""
+        if self.model is None:
+            raise RuntimeError(
+                "fold_in_phi needs a Model adapter — build the engine with "
+                "RetrievalEngine.from_model(model, params)")
+        row = self.model.fold_in_user(self._params, item_ids, y, alpha, **kw)
+        return row.float().to(self.psi.device)[None, :]
 
     @property
     def n_items(self) -> int:

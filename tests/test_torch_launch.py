@@ -68,28 +68,51 @@ def test_entry_points_refuse_what_is_not_there():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(ARGS)  # --device defaults to cuda: no fallback
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        serve.main([*ARGS, "--device", "cpu", "--continual"])
-
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("icd-fm")
+    with pytest.raises(SystemExit, match="unknown serving arch"):
+        serve.main(["--arch", "gpt-2", "--device", "cpu"])
     with pytest.raises(KeyError):
         get_smoke_config("gpt-2")
     cfg = get_config("icd-mf")
     assert (cfg.n_ctx, cfg.n_items, cfg.k) == (200_000, 68_000, 128)
+    cfg = get_config("icd-fm")
+    assert (cfg.n_ctx, cfg.n_items, cfg.k, cfg.p_ctx) == (200_000, 68_000, 128,
+                                                          336_091)
 
 
 def test_numpy_data_goes_to_cuda_unless_cpu_is_named():
-    from repro_torch.core.models import mf
+    from repro_torch.core import foldin, naive_cd
+    from repro_torch.core.models import mf, zoo
     from repro_torch.serve.cluster import shard_psi
     from repro_torch.serve.mesh import FaultTolerantRetrievalMesh
 
     w, h = np.ones((3, 4), np.float32), np.ones((6, 4), np.float32)
+    fold_kw = dict(alpha0=0.5, l2=0.1)
+    dense = ([0, 1], [1, 0], np.ones(2, np.float32), np.ones(2, np.float32),
+             2, 2, 0.5)
+    host_data = {
+        "fold_in_row": lambda **kw: foldin.fold_in_row(h, [1, 2], **fold_kw,
+                                                       **kw).row,
+        "fold_in_exact": lambda **kw: foldin.fold_in_exact(h, [1, 2], **fold_kw,
+                                                           **kw),
+        "dense_from_observed": lambda **kw: naive_cd.dense_from_observed(
+            *dense, **kw)[0],
+        "rand_f32": lambda **kw: zoo.rand_f32((3,), **kw),
+    }
     assert mf.params_from_numpy(w, h, device="cpu").h.device.type == "cpu"
     assert shard_psi(torch.as_tensor(h), 2).shards[0].device.type == "cpu"
+    for name, fn in host_data.items():
+        assert fn(device="cpu").device.type == "cpu", name
+    # a tensor keeps its own device
+    th = torch.as_tensor(h)
+    assert foldin.fold_in_row(th, [1], **fold_kw).row.device.type == "cpu"
+    assert foldin.fold_in_exact(th, [1], **fold_kw).device.type == "cpu"
+    assert naive_cd.dense_from_observed(
+        [0], [1], torch.ones(1), [1.0], 2, 2, 0.5)[0].device.type == "cpu"
     if torch.cuda.is_available():
         assert mf.params_from_numpy(w, h).h.device.type == "cuda"
         assert shard_psi(h, 2).shards[0].device.type == "cuda"
+        for name, fn in host_data.items():
+            assert fn().device.type == "cuda", name
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mf.params_from_numpy(w, h)
@@ -97,6 +120,9 @@ def test_numpy_data_goes_to_cuda_unless_cpu_is_named():
         shard_psi(h, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FaultTolerantRetrievalMesh(n_shards=2, n_replicas=1, k=2).publish(h)
+    for name, fn in host_data.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
 
 
 def test_training_data_goes_to_cuda_unless_cpu_is_named():
@@ -1925,3 +1951,170 @@ def test_mf_long_item_row_on_cuda_matches_cpu(cuda, psi_dispatch):
         vmem.SPLIT_ROW if gather else vmem.BLOCK_ROW)
     for a, b in zip(out[str(cuda)], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=3e-4, atol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# FM (slice 4b) and fold-in: the kernels at FM's shapes (export width
+# D = k + 2, fused blocks of m = k_b + 1 columns) and the epochs and
+# fold-in on the card against the CPU.
+# ---------------------------------------------------------------------------
+def test_fm_shapes_take_the_forms_fm_drives():
+    """At icd-fm's k = 128, block_k 0 gives k_b 8 and m = 9: the slab
+    reduce takes the tiled form and the gather residual patch the one-slot
+    kernel (the register forms stop at m = CDG_KB = 8); block_k 7 (m = 8)
+    keeps the one-tile and register-slot forms. A 130-column fp32 row is
+    520 bytes, not a multiple of 16, and a bf16 one 260."""
+    from repro_torch.core import sweeps
+    from repro_torch.kernels import vmem
+
+    k_b = sweeps.resolve_block_k(0, 128)
+    assert k_b == 8 and vmem.cd_slab_reduce_form(k_b + 1) == vmem.SLAB_TILED
+    for d in (128, 1_024):
+        assert vmem.cd_resid_patch_form(d, k_b + 1, gather=True) == vmem.PATCH_ONE_SLOT
+        assert vmem.cd_resid_patch_form(d, 8, gather=True) == vmem.PATCH_REG_SLOTS
+    assert vmem.cd_slab_reduce_form(8) == vmem.SLAB_ONE_TILE
+    assert (4 * 130) % 16 and (2 * 130) % 16
+    assert 128 // k_b == 16 and sweeps.resolve_block_k(7, 128) == 7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["fp32", "bf16"])
+def test_fused_topk_at_fm_width_equals_chain_and_plain_on_cuda(cuda, storage):
+    """D = 130 (FM's Φe·Ψe): scalar loads (the rows are not 16-byte
+    multiples) and a partial last D-slab, in the one-launch form, bit for
+    bit the chain and the plain version in small integers (every score
+    exact), K 1, 100 and 256, with exclusion lists, at the engine's
+    68,000-row table and at short tables."""
+    for b, rows in ((16, 68_000), (5, 1_001), (33, 300)):
+        phi, psi = _fused_case(cuda, b, rows, 130, rows + 130)
+        if storage == "bf16":
+            psi = psi.bfloat16()
+        e = np.random.default_rng(rows).integers(0, rows, (b, 12)).astype(np.int32)
+        e[-1, 6:] = -1
+        kw = dict(exclude_ids=torch.tensor(e, device=cuda))
+        for k in (1, 100, 256):
+            (s, i), (cs_, ci) = _fused_vs_chain(phi, psi, k, **kw)
+            assert torch.equal(i, ci) and _same_bits(s, cs_), (storage, b, rows, k)
+            rs, ri = ref.topk_score_ref(phi, psi, k, **kw)
+            assert torch.equal(i, ri) and torch.equal(s, rs), (storage, b, rows, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [200_000, 68_000])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gram_kernel_at_fm_width_exact_on_cuda(cuda, rows, weighted):
+    """The Gram of Φe (200,000 × 130) and Ψe (68,000 × 130), weighted and
+    not: 520-byte rows take the 4-byte copies. Small integers, so every sum
+    is exact (|Σ| ≤ 27 · 200,000 < 2²⁴) and the kernel equals the plain
+    version bit for bit, twice."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram.ref import gram_ref
+
+    x = _ints((rows, 130), rows, cuda)
+    w = _ints((rows,), rows + 1, cuda).abs() if weighted else None
+    before = gram_ops.gram.launches
+    got, again = gram_ops.gram(x, weights=w), gram_ops.gram(x, weights=w)
+    want = gram_ref(x, w)
+    torch.cuda.synchronize()
+    assert gram_ops.gram.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hpkw", [dict(block_k=0), dict(block_k=0, psi_dispatch="pregather"),
+                                  dict(block_k=7), dict(block_k=5, multi_hot_mode="slot")])
+def test_fm_epoch_padded_on_cuda_matches_cpu(cuda, hpkw):
+    """k = 12 (block_k 0 → k_b 8: one block of m = 9, tiled and one-slot,
+    and a tail of m = 5): two fused FM epochs with the Gram kernel on the
+    card against the same epochs through the plain versions on the CPU, to
+    the reference's fused-vs-flat tolerance (rtol 5e-4, atol 1e-5; e atol
+    5e-5); the launches by form."""
+    from repro_torch.core import sweeps
+    from repro_torch.core.models import fm
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import ops as cs
+    from repro_torch.kernels.gram import ops as gram_ops
+
+    k = 12
+    rng = np.random.default_rng(9)
+    hp = fm.FMHyperParams(k=k, alpha0=0.3, l2=0.05, implementation="pallas", **hpkw)
+    gather = hp.psi_dispatch == "gather"
+    slab = cs.cd_slab_reduce_gather if gather else cs.cd_slab_reduce
+    patch = cs.cd_resid_patch_gather if gather else cs.cd_resid_patch
+    out = {}
+    for where in ("cpu", cuda):
+        x, z, data = _mfsi_problem(where)  # a bag, one-hot fields
+        if not out:
+            arrays = (np.float32(0.2), (0.01 * rng.normal(size=x.p)).astype(np.float32),
+                      (0.1 * rng.normal(size=(x.p, k))).astype(np.float32),
+                      (0.01 * rng.normal(size=z.p)).astype(np.float32),
+                      (0.1 * rng.normal(size=(z.p, k))).astype(np.float32))
+        pdata = fm.pad_interactions(data)
+        p = fm.params_from_numpy(*arrays, device=where)
+        e = fm.residuals_padded(p, x, z, data, pdata, hp)
+        before = (gram_ops.gram.launches, slab.launches, slab.launches_one_tile,
+                  patch.launches, getattr(patch, "launches_reg_slots", 0))
+        for _ in range(2):
+            p, e = fm.epoch_padded(p, x, z, pdata, e, hp)
+        after = (gram_ops.gram.launches, slab.launches, slab.launches_one_tile,
+                 patch.launches, getattr(patch, "launches_reg_slots", 0))
+        launched = [a - b for a, b in zip(after, before)]
+        if where == "cpu":
+            assert launched == [0] * 5
+        else:
+            kb = sweeps.resolve_block_k(hp.block_k, k)
+            ms = [min(kb, k - f0) + 1 for f0 in range(0, k, kb)]
+            one_tile = sum(vmem.cd_slab_reduce_form(m) == vmem.SLAB_ONE_TILE for m in ms)
+            reg = sum(gather and vmem.cd_resid_patch_form(d, m, gather=True)
+                      == vmem.PATCH_REG_SLOTS
+                      for m in ms for d in (pdata.alpha_c.shape[1], pdata.alpha_i.shape[1]))
+            n = 2 * 2 * len(ms)
+            assert launched == [4, n, 2 * 2 * one_tile, n, 2 * reg], launched
+        out[str(where)] = [t.cpu() for t in (*p, e)]
+    for i, (a, b) in enumerate(zip(out[str(cuda)], out["cpu"])):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5 if i == 5 else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mf", "fm", "parafac"])
+def test_fold_in_on_cuda_matches_cpu(cuda, name):
+    """A user and an item folded in on the card (G from the Gram kernel,
+    one triangular solve a sweep) against the same fold-in on the CPU and
+    against the float64 oracle, to rtol 2e-4 / atol 2e-5; FM's fixed
+    columns exactly 1."""
+    from repro_torch.core import foldin
+    from repro_torch.core.models import zoo
+    from repro_torch.kernels.gram import ops as gram_ops
+
+    rows = {}
+    for where in ("cpu", cuda):
+        model, params, _ = zoo.zoo_model(name, np.random.default_rng(3),
+                                         device=where)
+        if where == "cpu":
+            host = params
+        else:
+            params = type(host)(*(t.to(cuda) for t in host))
+        before = gram_ops.gram.launches
+        u = model.fold_in_user(params, [0, 3, 5, 9], n_sweeps=256, tol=1e-8)
+        i = model.fold_in_item(params, [1, 2, 7], n_sweeps=256, tol=1e-8)
+        torch.cuda.synchronize()
+        assert u.device.type == i.device.type == torch.device(where).type
+        assert gram_ops.gram.launches - before == (0 if where == "cpu" else 2)
+        rows[str(where)] = (u.cpu(), i.cpu())
+        if where == "cpu":
+            hp = model._foldin_hp()
+            free_u, init_u = model._user_free_init()
+            free_i, init_i = model._item_free_init()
+            exact = (foldin.fold_in_exact(model.export_psi(params), [0, 3, 5, 9],
+                                          alpha0=hp["alpha0"], l2=hp["l2"],
+                                          free=free_u, init=init_u),
+                     foldin.fold_in_exact(model.phi_table(params), [1, 2, 7],
+                                          alpha0=hp["alpha0"], l2=hp["l2"],
+                                          free=free_i, init=init_i))
+    for got, cpu, want in zip(rows[str(cuda)], rows["cpu"], exact):
+        torch.testing.assert_close(got, cpu, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    if name == "fm":
+        k = 6
+        assert float(rows[str(cuda)][0][k + 1]) == 1.0
+        assert float(rows[str(cuda)][1][k]) == 1.0

@@ -235,7 +235,7 @@ def test_ranking_eval_and_engine_match_reference():
     np.testing.assert_array_equal(im.numpy(), i.numpy())
     assert eng.n_items == 120 and eng.scores(phi[:2]).shape == (2, 120)
     assert overlap_recall(i, i) == 1.0
-    with pytest.raises(NotImplementedError, match="fold-in"):
+    with pytest.raises(RuntimeError, match="from_model"):
         eng.fold_in_phi([1, 2])
     # the IVF tier: probing every cluster is the exact engine's answer,
     # and the dense mask form is refused there, as in the reference
