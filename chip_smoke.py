@@ -163,7 +163,29 @@ Phases, one line each or more:
      cold-start ranking eval of 64 MF users through fold-in;
  22. run the serve driver with ``--continual`` at full icd-mf width: the
      fold-in user's and item's rows against the CPU's, their answers
-     against a plain recompute, the delta publish's version.
+     against a plain recompute, the delta publish's version;
+ 23. run the continual-learning twin's loop at full icd-mf width on phase
+     6's log in time order (one swap of item ids puts a cold item among
+     the replayed events): 6 warm ``mf.fit`` epochs through the Model API
+     on the head (80%, the last 4 item ids cold), a 2-shard
+     ``ShardedRetrievalCluster`` (K 10) fed by a ``PsiPublisher``, 4 tail
+     batches of 64 events through ``interaction_stream`` (a fold-in and a
+     top-K a user, the cold items folded in and delta-published, a
+     rotating-block refresh a batch), a cold-start eval of 256 users; the
+     counts, versions and launches against the host's count of the log, 8
+     queries against the plain top-K and the CPU's fold-in, the wall and
+     device time a query, the peak memory;
+ 24. the training stack on phase 6's interactions: ``launch.train``'s loop
+     for 3 epochs (the objective falling), the same epochs as ``Trainer``
+     steps with a ``Checkpointer``, stopped after epoch 1 and resumed,
+     bit for bit the uninterrupted run (deterministic algorithms on), the
+     checkpoint's size and save and restore seconds; 2 iALS epochs (peak
+     memory, seconds an epoch, the objective falling); 100 BPR steps of
+     batch 4,096 against the same steps on the CPU;
+ 25. ``python -m repro_torch.launch.train --arch icd-mf --smoke --steps 10``
+     as a subprocess, the continual-learning twin at its own sizes (the
+     reference example's counts) and the observability twin into a
+     temporary directory, whose three files must parse.
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -3403,6 +3425,364 @@ def serve_continual(ref, serve, dev) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Slice 6 and the training stack: the continual-learning loop at full icd-mf
+# width (phase 23), the training stack at full width (phase 24), the CLIs
+# and twins on the card (phase 25).
+# ---------------------------------------------------------------------------
+# the continual loop's replay: 4 batches (of the example's 64 events) and a
+# cold-start eval of 256 users; the cluster's K
+CL = dict(batches=4, n_eval=256, k=10)
+# the replayed event whose item becomes the last cold id (see make_timed_log)
+CL_COLD_AT = 100
+
+
+def make_timed_log():
+    """Phase 6's log in time order: each event a seeded uniform timestamp
+    over 28 days (phase 10's), sorted by it. One swap of item ids makes
+    the item of tail event ``CL_COLD_AT`` the last id, a cold one, so a
+    cold item arrives within the replayed batches (the log's ≈ 40 tail
+    events on 4 random items would need ≈ 17,000 replayed events);
+    popularity stays a random permutation over the ids. Returns (n, 3)
+    int64 events: user, item, t in seconds."""
+    user, item = make_full_log()
+    t = np.random.default_rng(CTX["ts_seed"]).uniform(
+        0.0, CTX["days"] * 86400.0, len(user))
+    order = np.argsort(t, kind="stable")
+    events = np.stack([user[order], item[order], t[order].astype(np.int64)], 1)
+    last = FULL["n_items"] - 1
+    arriving = events[int(0.8 * len(events)) + CL_COLD_AT, 1]
+    events[:, 1] = np.where(events[:, 1] == arriving, last,
+                            np.where(events[:, 1] == last, arriving, events[:, 1]))
+    return events
+
+
+def continual_expected(events, n_items, n_cold, batches, batch_events, n_eval):
+    """What the replay must do, from the log alone on the host: the user
+    queries answered, the versions of the cold items' delta publishes, the
+    final version, and the eval's users."""
+    split = int(0.8 * len(events))
+    n_warm = n_items - n_cold
+    head = events[:split]
+    hist = {int(i): 1 for i in head[head[:, 1] >= n_warm][:, 1]}
+    live, version, deltas, users = n_warm, 1, [], 0
+    for b in range(batches):
+        lo = split + b * batch_events
+        for i in events[lo:lo + batch_events, 1]:
+            if i >= n_warm:
+                hist[int(i)] = 1
+                while hist.get(live):
+                    live, version = live + 1, version + 1
+                    deltas.append(version)
+            else:
+                users += 1
+        version += 1            # the refresh's full republish
+    order = np.argsort(events[:, 0], kind="stable")
+    bounds = np.searchsorted(events[order, 0], np.arange(n_eval + 1))
+    by_user = events[order, 1]
+    n_eval_users = 0
+    for u in range(n_eval):
+        h = by_user[bounds[u]:bounds[u + 1]]
+        if len(h) and h[-1] < n_warm and (h[:-1] < n_warm).any():
+            n_eval_users += 1
+    return {"users": users, "deltas": deltas, "version": version,
+            "n_live": live, "n_eval": n_eval_users}
+
+
+def busy_ms(fn):
+    """(wall ms, device busy ms) of one call of ``fn`` from torch.profiler
+    (busy 0 when the profiler sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum((getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+               for ev in prof.key_averages() if ev.device_type.name == "CUDA")
+    return wall, busy
+
+
+def continual_full_width(dev) -> dict:
+    """Phase 23: the continual-learning twin's ``run`` at full icd-mf width
+    (with the example's α₀ 0.3 and λ 0.05) on the timed log: warm MF
+    through the Model API on the head (80% of
+    the events, the last 4 item ids cold), live on a 2-shard cluster (K
+    10) through a PsiPublisher, 4 tail batches of 64 events replayed
+    through ``interaction_stream`` (a fold-in and a top-K a user, cold
+    items delta-published), a rotating-block refresh a batch, a cold-start
+    eval of 256 users; counts against the host's count of the log, 8
+    queries held against the plain top-K and the CPU's fold-in."""
+    from repro_torch.core import foldin
+    from repro_torch.examples import continual_learning as cl
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.topk_score import ops as tops, ref as tref
+    from repro_torch.serve.publish import dense_table
+
+    t0 = time.perf_counter()
+    events = make_timed_log()
+    want = continual_expected(events, FULL["n_items"], cl.N_COLD, CL["batches"],
+                              cl.BATCH_EVENTS, CL["n_eval"])
+    log(f"phase 23 log: {len(events)} events in time order, head "
+        f"{int(0.8 * len(events))}, built in {time.perf_counter() - t0:.1f}s")
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gops.gram.launches = tops.topk_score.launches = 0
+    t0 = time.perf_counter()
+    out = cl.run(events, FULL["n_ctx"], FULL["n_items"], FULL["k"],
+                 tail_batches=CL["batches"], n_eval=CL["n_eval"], device=dev,
+                 log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gram": gops.gram.launches, "topk_score": tops.topk_score.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for ln in lines:
+        log(f"phase 23 continual: {ln}")
+    assert out["folded_users"] == want["users"] and out["versions"] == want["deltas"] \
+        and out["version"] == want["version"] and out["n_items_live"] == want["n_live"] \
+        and out["n_eval"] == want["n_eval"], (out, want)
+    assert out["folded_items"] == cl.N_COLD, out["folded_items"]
+    want_launches = {
+        "gram": out["folded_users"] + out["folded_items"] + out["n_eval"],
+        "topk_score": 2 * out["folded_users"] + -(-out["n_eval"] // 256)}
+    assert launches == want_launches, (launches, want_launches)
+
+    # 8 queries: ids against the plain top-K over the table they ran on,
+    # rows against the same fold-in on the CPU
+    model = out["model"]
+    k = CL["k"]
+    row_err = 0.0
+    for q in out["held"]:
+        table = dense_table(q["table"])
+        rs, ri = tref.topk_score_ref(q["phi"].float()[None], table, k + 1)
+        ids_agree(rs[:, :k], ri[:, :k], q["result"].ids, rs[:, k])
+        cpu = foldin.fold_in_row(model.export_psi(q["params"]).cpu(), q["history"],
+                                 **model._foldin_hp()).row
+        torch.testing.assert_close(q["phi"].cpu(), cpu, rtol=FOLD_RTOL, atol=FOLD_ATOL)
+        row_err = max(row_err, float((q["phi"].cpu() - cpu).abs().max()))
+
+    # device time a query: 16 more of the same queries, profiled
+    params, cluster = out["params"], out["cluster"]
+    hists = [q["history"] for q in out["held"]] * 2
+
+    def queries():
+        for h in hists:
+            cluster.topk_phi(model.fold_in_user(params, h).float()[None])
+
+    queries()
+    q_wall, q_busy = busy_ms(queries)
+    qs = np.asarray(out["query_s"]) * 1e3
+    log(f"phase 23 continual at icd-mf width ({FULL['n_ctx']:,} x "
+        f"{FULL['n_items']:,}, k {FULL['k']}): warm {cl.WARM_EPOCHS} mf.fit "
+        f"epochs in {out['warm_s']:.3f}s on {out['warm_events']} events; "
+        f"{out['folded_users']} fold-in queries answered, {out['folded_items']} "
+        f"cold items delta-published (versions {out['versions']}), final "
+        f"v{out['version']} with {out['n_items_live']} items (all as the log "
+        f"implies); launches {launches} (Gram: a fold-in each; top-K: 2 shards "
+        f"a query, 1 a 256-user eval batch); query wall ms median "
+        f"{np.median(qs):.3f} mean {qs.mean():.3f} p99 "
+        f"{np.percentile(qs, 99):.3f}; 16 profiled queries wall "
+        f"{q_wall / 16:.3f} ms, device {q_busy / 16:.4f} ms a query; fold-in "
+        f"eval recall@10 {out['recall']:.4f} (popularity {out['recall_pop']:.4f}) "
+        f"over {out['n_eval']} users; 8 queries' ids equal the plain top-K "
+        f"outside near-ties, rows within rtol {FOLD_RTOL} of the CPU's fold-in "
+        f"(max |d| {row_err:.3g}); peak memory {peak / 2**30:.2f} GiB; "
+        f"{wall:.1f}s")
+    return {"launches": launches, "query_ms": float(np.median(qs)),
+            "device_ms": q_busy / 16, "peak": peak}
+
+
+def training_stack_full_width(dev) -> dict:
+    """Phase 24 on phase 6's Interactions: ``launch.train``'s loop for 3
+    epochs; the same epochs as Trainer steps with a Checkpointer, stopped
+    after epoch 1 and resumed by a new trainer, bit for bit an
+    uninterrupted run (deterministic algorithms on: the flat epoch's
+    segment sums otherwise add in a varying order); two iALS epochs; 100
+    BPR steps against the same steps on the CPU."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import bpr, ials
+    from repro_torch.core.models import mf
+    from repro_torch.launch import train
+    from repro_torch.sparse.interactions import build_interactions
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.trainer import Trainer
+
+    ctx, item = make_full_log()
+    a0 = FULL["alpha0"]
+    data = build_interactions(ctx, item, np.ones(len(ctx)),
+                              np.full(len(ctx), a0 + 4.0), FULL["n_ctx"],
+                              FULL["n_items"], alpha0=a0, device=dev)
+    hp = mf.MFHyperParams(k=FULL["k"], alpha0=a0, l2=FULL["l2"])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params0 = mf.init(FULL["n_ctx"], FULL["n_items"], FULL["k"], generator=gen)
+    obj0 = float(mf.objective(params0, data, hp))
+
+    # launch.train's loop
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, objs = train.train_loop(params0, data, hp, 3, log_every=1, log=lambda s: None)
+    loop_s = time.perf_counter() - t
+    seq = [obj0] + [o for _, o in objs]
+    assert all(b < a for a, b in zip(seq, seq[1:])), seq
+    log(f"phase 24 launch.train loop: 3 epochs (mf.fit, the objective each "
+        f"epoch) on {data.nnz} interactions: objective "
+        f"{' -> '.join(f'{o:.6g}' for o in seq)}; {loop_s / 3:.3f}s an epoch "
+        f"with its objective")
+
+    # Trainer + Checkpointer: stop after epoch 1, resume, finish
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    step = train.epoch_step(data, hp)
+
+    def trainer(ck):
+        state = TrainState(params0, None, torch.zeros((), dtype=torch.int32))
+        return Trainer(step, state, iter(lambda: {}, None), checkpointer=ck,
+                       ckpt_every=1, log_every=1000, log_fn=lambda s: None)
+
+    t_tr = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            straight = trainer(None).run(3)
+            ck = Checkpointer(os.path.join(tmp, "ck"), keep=2)
+            trainer(ck).run(1)
+            ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                             for dp, _, fs in os.walk(os.path.join(tmp, "ck")) for f in fs)
+            t = time.perf_counter()
+            ck.restore_latest(trainer(None).state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            tr = trainer(ck)
+            resumed = tr.run(3)
+            t = time.perf_counter()
+            Checkpointer(os.path.join(tmp, "save")).save(3, resumed, blocking=True)
+            save_s = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert int(resumed.step) == 3 and len(tr.metrics_history) == 2
+    for a, b in zip(resumed.params, straight.params):
+        assert torch.equal(a, b), "the resumed run differs from the uninterrupted one"
+    log(f"phase 24 Trainer + Checkpointer: stopped after epoch 1, resumed by a "
+        f"new trainer, 3 epochs bit for bit the uninterrupted run's params; "
+        f"checkpoint {ckpt_bytes / 1e6:.3f} MB, save {save_s:.3f}s, restore "
+        f"{restore_s:.3f}s; 7 deterministic epochs and the checkpoints in "
+        f"{time.perf_counter() - t_tr:.1f}s")
+
+    # two iALS epochs
+    ihp = ials.IALSHyperParams(k=FULL["k"], alpha0=a0, l2=FULL["l2"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    p, ials_s, iobjs = params0, [], [obj0]
+    for _ in range(2):
+        t = time.perf_counter()
+        p = ials.epoch(p, data, ihp)
+        torch.cuda.synchronize()
+        ials_s.append(time.perf_counter() - t)
+        iobjs.append(float(mf.objective(p, data, hp)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    outer = data.nnz * FULL["k"] ** 2 * 4
+    assert all(b < a for a, b in zip(iobjs, iobjs[1:])), iobjs
+    assert peak < total and peak - base_mem < outer, (peak, total, outer)
+    log(f"phase 24 iALS: 2 epochs, objective "
+        f"{' -> '.join(f'{o:.6g}' for o in iobjs)}; {', '.join(f'{s:.3f}' for s in ials_s)}s "
+        f"an epoch; peak memory {peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} "
+        f"GiB above the phase's start) of the card's {total / 2**30:.1f} GiB, "
+        f"against {outer / 1e9:.1f} GB for the (nnz, k, k) outer products")
+
+    # 100 BPR steps on the card and on the CPU
+    pairs = np.stack([ctx, item], 1)
+    bhp = bpr.BPRHyperParams(k=FULL["k"])
+    pb = bpr.init(FULL["n_ctx"], FULL["n_items"], FULL["k"],
+                  generator=torch.Generator(device=dev).manual_seed(6))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = bpr.fit(pb, pairs, FULL["n_items"], bhp, n_steps=100, seed=0)
+    torch.cuda.synchronize()
+    bpr_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = bpr.fit(mf.MFParams(pb.w.cpu(), pb.h.cpu()), pairs, FULL["n_items"], bhp,
+                  n_steps=100, seed=0)
+    bpr_cpu_s = time.perf_counter() - t
+    errs = []
+    for a, b in zip(got, cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+        errs.append(float((a.cpu() - b).abs().max()))
+    log(f"phase 24 BPR: 100 steps of batch {bhp.batch} at full width in "
+        f"{bpr_s:.3f}s on the card ({bpr_cpu_s:.1f}s on the CPU), equal to "
+        f"the same steps on the CPU within "
+        f"rtol 1e-5 / atol 1e-6 (max |d| {max(errs):.3g})")
+    return {"ials_s": ials_s, "ials_peak": peak, "save_s": save_s,
+            "restore_s": restore_s, "ckpt_bytes": ckpt_bytes}
+
+
+def run_clis_and_twins(dev) -> None:
+    """Phase 25: ``python -m repro_torch.launch.train --arch icd-mf --smoke
+    --steps 10`` as a subprocess on the card, the continual-learning twin
+    at its own sizes and the observability twin into a temporary
+    directory, whose three files must parse."""
+    import tempfile
+
+    from repro_torch.examples import continual_learning as cl
+    from repro_torch.examples import observability as obs
+
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", "icd-mf", "--smoke", "--steps", "10"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stdout[-1500:] + p.stderr[-1500:]
+    lines = p.stdout.splitlines()
+    assert lines[0] == "[train] arch=icd-mf smoke=True" and len(lines) == 3 \
+        and lines[1].startswith("[icd] epoch 5 objective"), lines
+    objs = [float(x.split()[-1]) for x in lines[1:]]
+    assert objs[1] < objs[0], objs
+    log(f"phase 25 launch.train CLI on the card: {' | '.join(lines)}; "
+        f"{time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    lines = []
+    out = cl.run(*_example_log(cl), device=dev, log=lines.append)
+    assert (out["folded_users"], out["folded_items"], out["versions"],
+            out["version"]) == (1005, 4, [4, 5, 6, 9], 21), out
+    for ln in lines:
+        log(f"phase 25 continual_learning twin: {ln}")
+    log(f"phase 25 continual_learning twin on the card: the reference "
+        f"example's counts; recall@10 {out['recall']:.4f} vs popularity "
+        f"{out['recall_pop']:.4f} (3 of its 300 users apart on the CPU; "
+        f"the warm epochs' segment sums add in a varying order on the "
+        f"card); {time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = []
+        out = obs.run(out_dir=tmp, device=dev, log=lines.append)
+        rows = [json.loads(x) for x in open(os.path.join(tmp, "metrics.jsonl"))]
+        prom = open(os.path.join(tmp, "metrics.prom")).read()
+        trace = json.load(open(os.path.join(tmp, "trace.json")))
+    assert len(rows) == out["n_series"] and "serve_mesh_failovers_total" in prom
+    assert len(trace["traceEvents"]) == out["n_trace_events"] > 0
+    assert out["versions"] == [1, 2, 3, 4] and out["losses"][-1] < out["losses"][0]
+    for ln in lines:
+        log(f"phase 25 observability twin: {ln.replace(tmp, '<tmp>')}")
+    log(f"phase 25 observability twin on the card: {len(rows)} JSONL series, "
+        f"{prom.count(chr(10))} Prometheus lines and {len(trace['traceEvents'])} "
+        f"trace events parsed; {time.perf_counter() - t:.1f}s")
+
+
+def _example_log(cl):
+    from repro_torch.data.synthetic import make_implicit_dataset
+
+    ds = make_implicit_dataset(n_users=cl.N_USERS, n_items=cl.N_ITEMS,
+                               attr_strength=0.8, seed=0)
+    return ds.events, cl.N_USERS, cl.N_ITEMS, cl.K
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3613,6 +3993,18 @@ def main() -> None:
     serve_continual(ref, serve, dev)
     log(f"phase 22 done in {time.perf_counter() - t0:.1f}s")
 
+    # 23.-25. the continual-learning loop at full width, the training
+    # stack, the CLIs and twins
+    t0 = time.perf_counter()
+    cont = continual_full_width(dev)
+    log(f"phase 23 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    training_stack_full_width(dev)
+    log(f"phase 24 done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    run_clis_and_twins(dev)
+    log(f"phase 25 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -3712,6 +4104,9 @@ def main() -> None:
     for r in kernels:
         if r["name"] in fm_rows:
             r["fm"] = fm_rows[r["name"]]
+        if r["name"] in cont["launches"]:
+            # the continual loop's launches (phase 23's main path)
+            r["continual"] = {"launches": cont["launches"][r["name"]]}
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

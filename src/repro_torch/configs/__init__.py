@@ -1,8 +1,8 @@
 """Architecture config registry (port of ``repro.configs``).
 
-``get_config(arch_id)`` returns the published configuration and
+``get_config(arch_id)`` returns the published configuration,
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU smoke
-runs.
+runs and ``get_shapes(arch_id)`` the arch's input shapes.
 """
 from __future__ import annotations
 
@@ -25,3 +25,8 @@ def get_config(arch_id: str):
 
 def get_smoke_config(arch_id: str):
     return _module(arch_id).SMOKE_CONFIG
+
+
+def get_shapes(arch_id: str):
+    """dict shape_name -> ShapeSpec for this arch."""
+    return _module(arch_id).SHAPES

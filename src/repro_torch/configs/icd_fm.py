@@ -7,7 +7,7 @@ Item features: video id (68k).
 """
 import dataclasses
 
-from repro_torch.configs.base import ICDConfig
+from repro_torch.configs.base import ICD_SHAPES, ICDConfig
 
 CONFIG = ICDConfig(
     name="icd-fm",
@@ -24,3 +24,5 @@ CONFIG = ICDConfig(
 SMOKE_CONFIG = dataclasses.replace(
     CONFIG, n_ctx=50, n_items=30, k=6, p_ctx=50 + 4 + 3 + 30 + 30, p_item=30
 )
+
+SHAPES = ICD_SHAPES

@@ -1,7 +1,7 @@
 """The paper's own iCD-MF at the §6 scale (200k users × 68k videos)."""
 import dataclasses
 
-from repro_torch.configs.base import ICDConfig
+from repro_torch.configs.base import ICD_SHAPES, ICDConfig
 
 CONFIG = ICDConfig(
     name="icd-mf",
@@ -14,3 +14,5 @@ CONFIG = ICDConfig(
 )
 
 SMOKE_CONFIG = dataclasses.replace(CONFIG, n_ctx=60, n_items=40, k=8)
+
+SHAPES = ICD_SHAPES

@@ -1,11 +1,12 @@
-"""Segment reductions (port of ``repro.sparse.segment``; the EmbeddingBag
-helpers wait for slice 7).
+"""Segment reductions and EmbeddingBag (port of ``repro.sparse.segment``).
 
 ``index_add_`` and ``scatter_reduce_`` are PyTorch's scatter-reduces. On
 CUDA the sum uses atomics, so its order, and the last bits of a float
 result, can change from run to run: hold it to a tolerance, not to bit
 equality."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -40,3 +41,61 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
                      dtype=data.dtype, device=data.device)
     idx = segment_ids.reshape(-1, *([1] * (data.dim() - 1))).expand_as(data)
     return out.scatter_reduce_(0, idx, data, "amax", include_self=True)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+                  n_rows: int, weights: Optional[torch.Tensor] = None,
+                  combiner: str = "sum") -> torch.Tensor:
+    """Ragged EmbeddingBag: ``out[r] = combine_{j: rows[j]==r} w_j *
+    table[ids[j]]``.
+
+    Args:
+      table:   (vocab, dim) embedding table.
+      ids:     (nnz,) feature ids (gather indices into ``table``).
+      rows:    (nnz,) output row per lookup, sorted or not.
+      n_rows:  number of output rows (batch).
+      weights: optional (nnz,) per-lookup weights.
+      combiner: 'sum' | 'mean' | 'max'.
+
+    Returns:
+      (n_rows, dim).
+    """
+    gathered = table[ids]
+    if weights is not None:
+        gathered = gathered * weights[:, None].to(gathered.dtype)
+    if combiner == "sum":
+        return segment_sum(gathered, rows, n_rows)
+    if combiner == "mean":
+        return segment_mean(gathered, rows, n_rows)
+    if combiner == "max":
+        return segment_max(gathered, rows, n_rows)
+    raise ValueError(f"unknown combiner {combiner!r}")
+
+
+def multi_hot_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     combiner: str = "sum") -> torch.Tensor:
+    """Fixed-shape EmbeddingBag for padded multi-hot batches.
+
+    Args:
+      table: (vocab, dim).
+      ids:   (batch, bag), padded with arbitrary ids where masked.
+      mask:  (batch, bag) bool/float — 1 for valid entries; None = all valid.
+      combiner: 'sum' | 'mean'.
+
+    Returns:
+      (batch, dim).
+    """
+    gathered = table[ids]  # (batch, bag, dim)
+    if mask is not None:
+        gathered = gathered * mask[..., None].to(gathered.dtype)
+    summed = torch.sum(gathered, dim=1)
+    if combiner == "sum":
+        return summed
+    if combiner == "mean":
+        denom = (torch.sum(mask.to(gathered.dtype), dim=1, keepdim=True)
+                 if mask is not None
+                 else torch.full((ids.shape[0], 1), ids.shape[1],
+                                 dtype=gathered.dtype, device=gathered.device))
+        return summed / torch.clamp(denom, min=1)
+    raise ValueError(f"unknown combiner {combiner!r}")

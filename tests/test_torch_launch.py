@@ -2118,3 +2118,136 @@ def test_fold_in_on_cuda_matches_cpu(cuda, name):
         k = 6
         assert float(rows[str(cuda)][0][k + 1]) == 1.0
         assert float(rows[str(cuda)][1][k]) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# Slice 6 and the training stack: the baselines, the optimizers and train
+# step, the checkpointer, the loader and the twins
+# ---------------------------------------------------------------------------
+SLICE6_MODULES = ("data/loader.py", "runtime/hosts.py", "sparse/csr.py",
+                  "sparse/sampler.py", "core/ials.py", "core/bpr.py",
+                  "optim/__init__.py", "optim/base.py", "optim/sgd.py",
+                  "optim/adam.py", "optim/adafactor.py", "optim/clip.py",
+                  "optim/schedules.py", "optim/mixed.py",
+                  "train/train_step.py", "train/trainer.py",
+                  "checkpoint/checkpointer.py", "launch/train.py",
+                  "examples/continual_learning.py", "examples/observability.py")
+
+
+def test_slice6_modules_sit_at_the_reference_paths():
+    """Each new module mirrors the reference's path (``runtime/hosts.py``,
+    the port's host index and count, has none) and is among the files the
+    import check reads."""
+    port = ROOT / "src" / "repro_torch"
+    for rel in SLICE6_MODULES:
+        assert (port / rel).is_file(), rel
+        if rel.startswith("examples/"):
+            assert (ROOT / rel).is_file(), rel
+        elif rel != "runtime/hosts.py":
+            assert (ROOT / "src" / "repro" / rel).is_file(), rel
+        assert not _IMPORT.search((port / rel).read_text()), rel
+
+
+def _mf_problem(seed, n_ctx, n_items, nnz, k, dev):
+    from repro_torch.core.models import mf
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(n_ctx * n_items, size=nnz, replace=False)
+    data = build_interactions(cells // n_items, cells % n_items, np.ones(nnz),
+                              np.full(nnz, 2.5), n_ctx, n_items, alpha0=0.5,
+                              device=dev)
+    w = 0.1 * rng.normal(size=(n_ctx, k)).astype(np.float32)
+    h = 0.1 * rng.normal(size=(n_items, k)).astype(np.float32)
+    return data, mf.params_from_numpy(w, h, device=dev), cells
+
+
+@pytest.mark.gpu
+def test_ials_epoch_on_cuda_matches_cpu(cuda, monkeypatch):
+    """One iALS epoch at 3,000 × 2,000, k 32, on the card and on the CPU,
+    with blocks of rows and slices of observations small enough that rows
+    split across slices."""
+    from repro_torch.core import ials
+
+    monkeypatch.setattr(ials, "_ROW_CHUNK", 1_000)
+    monkeypatch.setattr(ials, "_OBS_CHUNK", 777)
+    hp = ials.IALSHyperParams(k=32, alpha0=0.5, l2=0.1)
+    out = {}
+    for where in ("cpu", cuda):
+        data, params, _ = _mf_problem(0, 3_000, 2_000, 40_000, 32, where)
+        out[str(where)] = ials.epoch(params, data, hp)
+    torch.cuda.synchronize()
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bpr_steps_on_cuda_match_cpu(cuda):
+    """20 BPR steps of batch 4,096 (repeated ids in every batch) on the
+    card and on the CPU, from one start and the same draws."""
+    from repro_torch.core import bpr
+
+    hp = bpr.BPRHyperParams(k=16, lr=0.05, batch=4_096)
+    out = {}
+    for where in ("cpu", cuda):
+        data, params, cells = _mf_problem(1, 500, 300, 5_000, 16, where)
+        pairs = np.stack([cells // 300, cells % 300], 1)
+        out[str(where)] = bpr.fit(params, pairs, 300, hp, n_steps=20, seed=3)
+    torch.cuda.synchronize()
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_checkpoint_saved_on_cuda_restores_onto_cuda_and_cpu(cuda, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import init_state
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {"w": torch.randn(300, 64, generator=gen, device=cuda),
+              "b": torch.randn(64, generator=gen, device=cuda).bfloat16()}
+    state = init_state(params, adamw(0.1))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, state, blocking=True)
+    for where in (cuda, "cpu"):
+        target = init_state({"w": torch.zeros(300, 64, device=where),
+                             "b": torch.zeros(64, device=where).bfloat16()},
+                            adamw(0.1))
+        got = ck.restore(1, target)
+        assert got.params["w"].device.type == torch.device(where).type
+        assert got.params["b"].dtype == torch.bfloat16
+        assert torch.equal(got.params["w"].cpu(), params["w"].cpu())
+        assert torch.equal(got.params["b"].cpu(), params["b"].cpu())
+        assert torch.equal(got.opt["m"]["w"].cpu(), state.opt["m"]["w"].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_mb", [1, 4])
+def test_train_step_on_cuda_matches_cpu(cuda, n_mb):
+    from repro_torch.optim import adafactor
+    from repro_torch.train.train_step import build_train_step, init_state
+
+    rng = np.random.default_rng(5)
+    w0 = rng.normal(size=(32, 8)).astype(np.float32)
+    x = rng.normal(size=(64, 32)).astype(np.float32)
+    y = rng.normal(size=(64, 8)).astype(np.float32)
+
+    def loss(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    out = {}
+    for where in ("cpu", cuda):
+        opt = adafactor()
+        step = build_train_step(loss, opt, num_microbatches=n_mb)
+        s = init_state({"w": torch.tensor(w0, device=where)}, opt)
+        batch = {"x": torch.tensor(x, device=where), "y": torch.tensor(y, device=where)}
+        for _ in range(3):
+            s, m = step(s, batch)
+        out[str(where)] = (s.params["w"], float(m["loss"]))
+    torch.cuda.synchronize()
+    assert out[str(cuda)][0].device.type == "cuda"
+    torch.testing.assert_close(out[str(cuda)][0].cpu(), out["cpu"][0],
+                               rtol=1e-5, atol=1e-6)
+    assert out[str(cuda)][1] == pytest.approx(out["cpu"][1], rel=1e-5)
