@@ -185,7 +185,19 @@ Phases, one line each or more:
  25. ``python -m repro_torch.launch.train --arch icd-mf --smoke --steps 10``
      as a subprocess, the continual-learning twin at its own sizes (the
      reference example's counts) and the observability twin into a
-     temporary directory, whose three files must parse.
+     temporary directory, whose three files must parse;
+ 26. the distribution layer in an NCCL world of one (an in-memory store,
+     no port) at full icd-mf width on phase 6's log: ``shard_interactions``
+     (its host seconds), ``sharded_gram`` through the Gram kernel bit for
+     bit the single-device kernel, two ``mf_dist`` epochs each for
+     gather/fp32, route/fp32 and route/bf16 from the start of two flat
+     ``mf.epoch``s (fp32 within the reference's rtol 5e-4 / atol 5e-5,
+     bf16's objective within 1%, objectives falling; wall times,
+     collectives and Gram launches an epoch; one profiled epoch; one
+     collective's wall time), ``shard_map_topk`` bit for bit
+     ``cluster_topk`` and both timed, ``compressed_psum``, and a DTensor
+     checkpoint restored with ``shardings=`` bit for bit; then the world
+     is torn down.
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -201,7 +213,8 @@ check (:func:`serve_first_runs`); ``--gram-tune`` only the Gram's variants
 ``csrc/cd_gather.cu`` (:func:`sweep_tune`: blocks an SM, slots a thread,
 the split-row form's chunk length, the residual patch's slots a thread);
 ``--topk-tune`` only the variants of the top-K kernel's one-launch form
-(:func:`topk_tune`: threads a block, blocks an SM, blocks a cluster).
+(:func:`topk_tune`: threads a block, blocks an SM, blocks a cluster);
+``--dist`` only phase 26, after building the Gram and top-K kernels.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -3783,6 +3796,250 @@ def _example_log(cl):
     return ds.events, cl.N_USERS, cl.N_ITEMS, cl.K
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the distribution layer on torch.distributed, in an NCCL world of
+# one at full icd-mf width (phase 26).
+# ---------------------------------------------------------------------------
+# the reference's mf_dist tolerance (tests/test_mf_dist.py): fp32 wires
+# against the flat epoch; the bf16 wire's objective within 1%
+DIST_RTOL, DIST_ATOL, DIST_BF16_REL = 5e-4, 5e-5, 0.01
+# collectives a rank makes in one epoch at k = 128: the two Grams'
+# all-reduces, a column a dimension and side, and the two residual routes
+DIST_CALLS = {"gather": {"all_reduce": 2, "all_gather": 256, "all_to_all": 2},
+              "route": {"all_reduce": 2, "all_gather": 0, "all_to_all": 258}}
+
+
+def distribution_full_width(dev) -> dict:
+    """Phase 26: the distribution layer in an NCCL world of one (an
+    in-memory store, no port) at full icd-mf width on phase 6's log:
+    ``shard_interactions`` (its host seconds), ``sharded_gram`` through
+    the Gram kernel bit for bit the single-device kernel, two ``mf_dist``
+    epochs for each of gather/fp32, route/fp32 and route/bf16 from the
+    start of two flat ``mf.epoch``s (fp32 within rtol 5e-4 / atol 5e-5,
+    bf16's objective within 1%, every objective falling), their wall
+    times, collectives and Gram launches an epoch; ``shard_map_topk`` over
+    a 1-shard table of the trained ψ (B 16, K 100, 20 excluded ids a row)
+    bit for bit ``cluster_topk``, both timed; ``compressed_psum`` on a
+    128 × 128 gradient; and a ``Checkpointer`` round trip of the factors
+    as DTensors, restored with ``shardings=`` bit for bit. The world is
+    torn down at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.gram import gram, sharded_gram
+    from repro_torch.core.models import mf, mf_dist
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.topk_score import ops as tops
+    from repro_torch.launch.sharding import P, named
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.runtime import collectives
+    from repro_torch.serve.cluster import cluster_topk, shard_map_topk, shard_psi
+    from repro_torch.serve.engine import exclude_ids_from_lists
+    from repro_torch.sparse.interactions import build_interactions
+
+    n_ctx, n_items, k = FULL["n_ctx"], FULL["n_items"], FULL["k"]
+    ctx, item = make_full_log()
+    a0 = FULL["alpha0"]
+    data = build_interactions(ctx, item, np.ones(len(ctx)),
+                              np.full(len(ctx), a0 + 4.0), n_ctx, n_items,
+                              alpha0=a0, device=dev)
+    hp = mf.MFHyperParams(k=k, alpha0=a0, l2=FULL["l2"], implementation="pallas")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params0 = mf.init(n_ctx, n_items, k, generator=gen)
+    obj0 = float(mf.objective(params0, data, hp))
+
+    def sync_s(t):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def wall_ms(fn, n=50):
+        """Median wall ms of one call of ``fn`` with its sync."""
+        fn()
+        times = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            times.append(sync_s(t) * 1e3)
+        return float(np.median(times))
+
+    # two flat epochs from the start the distributed ones take
+    flat, e_flat, flat_s = params0, mf.residuals(params0, data), []
+    for _ in range(2):
+        t = time.perf_counter()
+        flat, e_flat = mf.epoch(flat, data, e_flat, hp)
+        flat_s.append(sync_s(t))
+    obj_flat = float(mf.objective(flat, data, hp))
+
+    out = {}
+    with collectives.world_of_one("nccl"):
+        mesh = mf_dist.make_shard_mesh(1)
+        t = time.perf_counter()
+        host = mf_dist.shard_interactions(data, 1)
+        shard_s = time.perf_counter() - t
+        log(f"phase 26 world of one over NCCL (HashStore), mesh {mesh}; "
+            f"shard_interactions of {data.nnz} interactions on the host in "
+            f"{shard_s:.3f}s: blocks p_c {host.ctx_l.shape[1]}, p_i "
+            f"{host.item_l.shape[1]}, routing blk {host.send_idx.shape[2]}")
+
+        j_dist = sharded_gram(params0.h, mesh, implementation="pallas")
+        j_one = gram(params0.h, implementation="pallas")
+        assert torch.equal(j_dist, j_one), "sharded_gram must equal the kernel"
+
+        pb = mf_dist.shard_params(params0, host)
+        e0 = mf_dist.residuals_blocked(pb, host)[0]
+        loc = host.local(0, dev)
+        gops.gram.launches = 0
+        epochs, out["gram_launches"] = {}, 0
+        for variant, wire in (("gather", torch.float32), ("route", torch.float32),
+                              ("route", torch.bfloat16)):
+            epoch = mf_dist.build_epoch(mesh, hp, host, variant=variant,
+                                        wire_dtype=wire)
+            w, h, e = pb.w[0], pb.h[0], e0
+            objs, secs, calls, grams = [obj0], [], [], []
+            for _ in range(2):
+                collectives.reset_counts()
+                before = gops.gram.launches
+                t = time.perf_counter()
+                w, h, e = epoch(w, h, loc, e)
+                secs.append(sync_s(t))
+                calls.append(collectives.read_counts())
+                grams.append(gops.gram.launches - before)
+                got = mf_dist.unshard_params(mf.MFParams(w[None], h[None]),
+                                             n_ctx, n_items)
+                objs.append(float(mf.objective(got, data, hp)))
+            name = f"{variant}/{str(wire).removeprefix('torch.')}"
+            assert all(b < a for a, b in zip(objs, objs[1:])), (name, objs)
+            assert calls == [DIST_CALLS[variant]] * 2 and grams == [2, 2], (
+                name, calls, grams)
+            if wire == torch.float32:
+                for a, b in ((got.w, flat.w), (got.h, flat.h)):
+                    torch.testing.assert_close(a, b, rtol=DIST_RTOL, atol=DIST_ATOL)
+                err = max(float((got.w - flat.w).abs().max()),
+                          float((got.h - flat.h).abs().max()))
+                held = f"max |d| {err:.3g} from the flat epochs"
+            else:
+                rel = abs(objs[-1] - obj_flat) / obj_flat
+                assert rel < DIST_BF16_REL, (name, objs[-1], obj_flat)
+                err = max(float((got.w - flat.w).abs().max()),
+                          float((got.h - flat.h).abs().max()))
+                held = (f"objective {rel:.3g} from the flat epochs' (relative), "
+                        f"max |d| {err:.3g}")
+            epochs[name] = {"s": secs, "calls": calls[0]}
+            out["gram_launches"] += sum(grams)
+            log(f"phase 26 mf_dist {name}: objective "
+                f"{' -> '.join(f'{o:.6g}' for o in objs)}; epoch s "
+                f"{', '.join(f'{x:.3f}' for x in secs)}; collectives an epoch "
+                f"{calls[0]}; Gram launches an epoch {grams}; {held}")
+            if wire == torch.float32 and variant == "gather":
+                log(f"phase 26 mf_dist {name} epoch breakdown (torch.profiler): "
+                    f"{epoch_breakdown(lambda: epoch(pb.w[0], pb.h[0], loc, e0))}")
+        # one collective's cost: with its sync, and back to back (the host
+        # time a call takes when calls queue, as in an epoch), through the
+        # wrapper on the group an epoch resolves once, and as the bare
+        # torch.distributed call into a kept and into a new output
+        col = flat.h[:, 0].contiguous()
+        group, col_out = collectives.group_of(mesh), torch.empty_like(col)
+        column, residuals = f"a {n_items}-row column", f"{e0.numel()} residuals"
+        calls = (
+            ("all_gather", column, lambda: collectives.all_gather(col, group)),
+            ("bare all_gather_into_tensor", column,
+             lambda: dist.all_gather_into_tensor(col_out, col, group=group.pg)),
+            ("bare all_gather_into_tensor into a new tensor", column,
+             lambda: dist.all_gather_into_tensor(torch.empty_like(col), col,
+                                                 group=group.pg)),
+            ("all_to_all", residuals, lambda: collectives.all_to_all(e0, group)))
+        for name, what, fn in calls:
+            t = time.perf_counter()
+            for _ in range(200):
+                fn()
+            queued = sync_s(t) / 200 * 1e3
+            log(f"phase 26 one collective in the world of one: {name} of "
+                f"{what} {wall_ms(fn):.4f} ms a call with its sync (median "
+                f"of 50), {queued:.4f} ms a call back to back (200 calls)")
+        log(f"phase 26 flat mf.epoch (Gram kernel) from the same start: epoch "
+            f"s {', '.join(f'{x:.3f}' for x in flat_s)}, objective "
+            f"{obj0:.6g} -> {obj_flat:.6g}; sharded_gram (pallas) equal bit for "
+            f"bit to the single-device kernel")
+
+        # one-program sharded top-K over the trained ψ
+        table = shard_psi(flat.h, 1)
+        rng = np.random.default_rng(26)
+        users = rng.choice(n_ctx, 16, replace=False)
+        phi = mf.build_phi(flat, torch.as_tensor(users, device=dev))
+        eids = exclude_ids_from_lists([rng.choice(n_items, 20, replace=False)
+                                       for _ in users], device=dev)
+        tops.topk_score.launches = 0
+        got_t = shard_map_topk(mesh, table, phi, 100, exclude_ids=eids)
+        out["topk_launches"] = tops.topk_score.launches
+        want_t = cluster_topk(table, phi, 100, exclude_ids=eids)
+        assert out["topk_launches"] == 1, out
+        assert torch.equal(got_t.ids, want_t.ids) and torch.equal(
+            got_t.scores, want_t.scores), "shard_map_topk must equal cluster_topk"
+
+        smt_ms = wall_ms(lambda: shard_map_topk(mesh, table, phi, 100,
+                                                exclude_ids=eids))
+        ct_ms = wall_ms(lambda: cluster_topk(table, phi, 100, exclude_ids=eids))
+        log(f"phase 26 shard_map_topk (1 shard of {n_items} x {k}, B 16, K 100, "
+            f"20 excluded ids a row): bit for bit cluster_topk, "
+            f"{out['topk_launches']} top-K launch; wall {smt_ms:.4f} ms a call "
+            f"(median of 50) against cluster_topk {ct_ms:.4f} ms")
+
+        g = torch.randn((128, 128), generator=gen, device=dev)
+        mean, err = compressed_psum(g, torch.zeros_like(g), mesh)
+        torch.testing.assert_close(mean, g, rtol=0, atol=0.05)
+        log(f"phase 26 compressed_psum (128 x 128, int8 error feedback): max "
+            f"|mean - g| {float((mean - g).abs().max()):.4g} (atol 0.05), "
+            f"carried error max {float(err.abs().max()):.4g}")
+
+        # the barrier a sharded save ends with waits on the host, and so
+        # for a kernel queued before it
+        collectives.mesh_barrier(mesh)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)
+        t = time.perf_counter()
+        collectives.mesh_barrier(mesh)
+        barrier_s = time.perf_counter() - t
+        assert torch.cuda.current_stream().query(), (
+            "mesh_barrier returned before the card's queued work ended")
+        log(f"phase 26 mesh_barrier behind a queued _sleep of 4e8 cycles: "
+            f"returned after {barrier_s:.4f}s with the stream empty")
+
+        specs = mf.MFParams(w=P("shards", None), h=P("shards", None))
+        shardings = named(mesh, specs)
+        state = mf.MFParams(*(distribute_tensor(x, s.mesh, s.placements)
+                              for x, s in zip(flat, shardings)))
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = Checkpointer(tmp)
+            t = time.perf_counter()
+            ck.save(1, state)
+            save_s = sync_s(t)
+            t = time.perf_counter()
+            back = ck.restore(1, flat, shardings=shardings)
+            restore_s = sync_s(t)
+        assert all(isinstance(x, DTensor) and x.device.type == dev.type for x in back)
+        assert torch.equal(back.w.full_tensor(), flat.w) and torch.equal(
+            back.h.full_tensor(), flat.h), "the resharded restore must be exact"
+        log(f"phase 26 Checkpointer of the factors as DTensors on the mesh: "
+            f"saved in {save_s:.3f}s, restored with shardings= in "
+            f"{restore_s:.3f}s, bit for bit")
+    assert not dist.is_initialized()
+    out["epochs"] = epochs
+    return out
+
+
+def dist_only() -> None:
+    """Phase 26 alone, after building the Gram and top-K kernels."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gram import kernel as gram_kernel
+    from repro_torch.kernels.topk_score import kernel
+
+    build.build_all([kernel.LIB, gram_kernel.LIB])
+    distribution_full_width(torch.device("cuda", 0))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4005,6 +4262,11 @@ def main() -> None:
     run_clis_and_twins(dev)
     log(f"phase 25 done in {time.perf_counter() - t0:.1f}s")
 
+    # 26. the distribution layer in an NCCL world of one
+    t0 = time.perf_counter()
+    dist26 = distribution_full_width(dev)
+    log(f"phase 26 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -4107,6 +4369,13 @@ def main() -> None:
         if r["name"] in cont["launches"]:
             # the continual loop's launches (phase 23's main path)
             r["continual"] = {"launches": cont["launches"][r["name"]]}
+    # the distribution layer's launches (phase 26's main path: the mf_dist
+    # epochs' Grams, one shard_map_topk call)
+    dist_launches = {"gram": dist26["gram_launches"],
+                     "topk_score": dist26["topk_launches"]}
+    for r in kernels:
+        if r["name"] in dist_launches:
+            r["dist"] = {"launches": dist_launches[r["name"]]}
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4126,5 +4395,7 @@ if __name__ == "__main__":
         sweep_tune()
     elif sys.argv[1:] == ["--topk-tune"]:
         topk_tune()
+    elif sys.argv[1:] == ["--dist"]:
+        dist_only()
     else:
         main()

@@ -6,8 +6,9 @@ state. One step:
     grads(bf16) ──clip──► inner.update on fp32 master
     master += updates;  params_delta = master.to(bf16) − params
 
-The reference's purpose, a ZeRO-1 schedule over a data × model mesh, needs
-the distribution layer (slice 7); on one device this is the same
+Its purpose is a ZeRO-1 schedule over a data × model mesh: the master
+and moments keep the 'data' sharding while the live params drop it
+(``launch.sharding.zero1_state_specs``). On one device it is the same
 arithmetic.
 """
 from __future__ import annotations

@@ -18,9 +18,10 @@ never matches ids outside its range).
 versioned, double-buffered publishes (``serve/publish.py``), delta
 publishes, ``devices=`` placement, the IVF tier (``retrieval='ivf'``,
 ``serve/ann.py``) and kernel cost recording. The fault-tolerant mesh
-(``serve/mesh.py``) builds on the same functions. :func:`shard_map_topk`,
-the reference's one-program ``shard_map`` path, waits for slice 7
-(``torch.distributed``) and raises.
+(``serve/mesh.py``) builds on the same functions. :func:`shard_map_topk`
+is the reference's one-program ``shard_map`` path on
+``torch.distributed``: one rank a shard, one kernel launch each, one
+all-gather of the candidates, the same merge.
 """
 from __future__ import annotations
 
@@ -31,9 +32,6 @@ import torch
 
 from repro_torch.kernels import resolve_device, vmem
 from repro_torch.kernels.topk_score.ops import topk_merge_shards, topk_score
-
-_SLICE7 = ("the shard_map path is not ported yet: one program over several "
-           "devices comes with torch.distributed in slice 7")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,10 +277,43 @@ def cluster_topk(
 
 
 def shard_map_topk(mesh, table: PsiShardSet, phi_rows, k: int, *,
-                   exclude_ids=None, block_items: Optional[int] = None):
-    """The reference's one-program path over a device mesh. Not ported:
-    it comes with ``torch.distributed`` in slice 7."""
-    raise NotImplementedError(_SLICE7)
+                   exclude_ids=None,
+                   block_items: Optional[int] = None) -> TopKResult:
+    """Every shard's kernel in one program over ``mesh``'s ranks (one ψ
+    shard a rank; φ and the exclude-id lists the same on every rank), then
+    the cross-shard merge of the gathered (S, B, K) candidates.
+
+    Every rank of the 1-D ``mesh`` calls it with the same arguments and
+    gets the same result. Rank r runs the top-K kernel once over
+    ``table.shards[r]`` with ``id_offset = r·rows_per`` and ``n_valid =
+    clip(n_items − id_offset, 0, rows_per)``; one all-gather brings the
+    candidates, scores and ids packed into one int32 tensor, to every
+    rank. Within the port the result equals :func:`cluster_topk`'s bit for
+    bit. Exclusion takes the ``exclude_ids`` form only (a dense mask would
+    have to be resharded; the id list is global)."""
+    from repro_torch.runtime import collectives
+
+    group = collectives.group_of(mesh)
+    n_ranks = mesh.size()
+    if n_ranks != table.n_shards:
+        raise ValueError(f"mesh has {n_ranks} ranks but table has "
+                         f"{table.n_shards} shards")
+    rank = mesh.get_local_rank()
+    if block_items is None:
+        block_items = resolve_cluster_block_items(table, k)
+    shard = table.shards[rank]
+    dev = shard.device
+    phi_rows = torch.as_tensor(phi_rows, dtype=torch.float32).to(dev)
+    if exclude_ids is not None:
+        exclude_ids = torch.as_tensor(exclude_ids, dtype=torch.int32).to(dev)
+    ss, ii = topk_score(phi_rows, shard, k, exclude_ids=exclude_ids,
+                        id_offset=rank * table.rows_per,
+                        n_valid=table.valid_rows(rank),
+                        block_items=block_items)
+    both = torch.stack((ss.view(torch.int32), ii))[None]     # (1, 2, B, K)
+    got = collectives.all_gather(both, group)                # (S, 2, B, K)
+    ss, ii = got[:, 0].view(torch.float32), got[:, 1]
+    return TopKResult(*topk_merge_shards(ss, ii, k))
 
 
 class ShardedRetrievalCluster:
@@ -298,8 +329,9 @@ class ShardedRetrievalCluster:
     ``publish`` is double-buffered and versioned (``serve/publish.py``):
     each ``topk`` grabs the active :class:`PsiShardSet` once and serves
     the whole request from that snapshot. ``devices=`` places shard s on
-    ``devices[s % len(devices)]``. ``mesh=`` (the one-program path) raises
-    until slice 7.
+    ``devices[s % len(devices)]``. ``mesh=`` takes the one-program path
+    (:func:`shard_map_topk`): every rank of the mesh calls ``topk`` and
+    runs the kernel on its own shard.
     """
 
     def __init__(self, phi_fn: Optional[Callable[..., torch.Tensor]] = None,
@@ -418,7 +450,17 @@ class ShardedRetrievalCluster:
         k = k or self.k
         self._m_queries.inc()
         if mesh is not None:
-            raise NotImplementedError(_SLICE7)
+            if exclude_mask is not None:
+                raise ValueError(
+                    "the shard_map path takes exclude_ids (global id lists),"
+                    " not a dense exclude_mask")
+            if self.retrieval == "ivf":
+                raise ValueError(
+                    "retrieval='ivf' serves through the host-loop path; "
+                    "the shard_map path is exact-only")
+            return shard_map_topk(mesh, table, phi_rows, k,
+                                  exclude_ids=exclude_ids,
+                                  block_items=self.block_items)
         dev = table.shards[0].device
         phi_rows = torch.as_tensor(phi_rows, dtype=torch.float32).to(dev)
         if exclude_ids is not None:

@@ -101,8 +101,30 @@ def test_structure_mismatch_rejected(tmp_path):
         bad = _state()
         bad["params"]["w"] = torch.zeros((3, 2))
         ck.restore(1, bad)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ck.restore(1, _state(), shardings=object())
+    # shardings=: a world of one on the CPU, each leaf placed on its
+    # sharding bit for bit; a sharding that is not one is refused by name
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.core.models.mf_dist import make_shard_mesh
+    from repro_torch.launch.sharding import P, named
+    from repro_torch.runtime.collectives import world_of_one
+
+    with world_of_one("gloo"):
+        mesh = make_shard_mesh(1, device_type="cpu")
+        specs = {"params": {"w": P("shards", None), "b": P(None)}, "step": None}
+        got = ck.restore(1, _state(), shardings=named(mesh, specs))
+        assert isinstance(got["params"]["w"], DTensor)
+        assert got["params"]["w"].placements == (Shard(0),)
+        assert got["params"]["b"].placements == (Replicate(),)
+        assert not isinstance(got["step"], DTensor)
+        _leaves_equal({"params": {k: v.full_tensor()
+                                  for k, v in got["params"].items()},
+                       "step": got["step"]}, _state())
+        with pytest.raises(ValueError, match="shardings= must be a tree"):
+            ck.restore(1, _state(), shardings=object())
+        with pytest.raises(TypeError, match="NamedSharding"):
+            ck.restore(1, _state(), shardings={
+                "params": {"w": object(), "b": None}, "step": None})
 
 
 def test_bfloat16_leaves_roundtrip(tmp_path):

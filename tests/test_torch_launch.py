@@ -2251,3 +2251,101 @@ def test_train_step_on_cuda_matches_cpu(cuda, n_mb):
     torch.testing.assert_close(out[str(cuda)][0].cpu(), out["cpu"][0],
                                rtol=1e-5, atol=1e-6)
     assert out[str(cuda)][1] == pytest.approx(out["cpu"][1], rel=1e-5)
+
+
+SLICE7_MODULES = ("launch/mesh.py", "launch/sharding.py", "models/__init__.py",
+                  "models/hints.py", "runtime/elastic.py",
+                  "runtime/collectives.py", "optim/compression.py",
+                  "core/models/mf_dist.py")
+
+
+def test_slice7_modules_sit_at_the_reference_paths():
+    """The distribution layer's modules mirror the reference's paths
+    (``runtime/collectives.py``, the port's collectives over
+    ``torch.distributed``, has none), are among the files the import
+    check reads, and import without touching a process group."""
+    import importlib
+
+    import torch.distributed as dist
+
+    port = ROOT / "src" / "repro_torch"
+    for rel in SLICE7_MODULES:
+        assert (port / rel).is_file(), rel
+        if rel != "runtime/collectives.py":
+            assert (ROOT / "src" / "repro" / rel).is_file(), rel
+        assert not _IMPORT.search((port / rel).read_text()), rel
+        name = "repro_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__")
+        importlib.import_module(name)
+    assert not dist.is_initialized()
+
+
+def _dist_mf_epoch(dev, backend):
+    """One route/fp32 ``mf_dist`` epoch at toy size in a world of one."""
+    from repro_torch.core.models import mf, mf_dist
+    from repro_torch.runtime import collectives
+
+    data, params, _ = _mf_problem(9, 60, 45, 400, 8, dev)
+    hp = mf.MFHyperParams(k=8, alpha0=0.5, l2=0.1)
+    with collectives.world_of_one(backend):
+        mesh = mf_dist.make_shard_mesh(1, device_type=dev.type)
+        host = mf_dist.shard_interactions(data, 1)
+        pb = mf_dist.shard_params(params, host)
+        e = mf_dist.residuals_blocked(pb, host)[0]
+        collectives.reset_counts()
+        epoch = mf_dist.build_epoch(mesh, hp, host, variant="route")
+        w, h, e = epoch(pb.w[0], pb.h[0], host.local(0, dev), e)
+        counts = collectives.read_counts()
+    return w, h, e, counts
+
+
+@pytest.mark.gpu
+def test_mf_dist_nccl_world_of_one_matches_cpu(cuda):
+    """The route/fp32 epoch over NCCL on the card against the same epoch
+    over gloo on the CPU: real NCCL collectives, one rank."""
+    got = _dist_mf_epoch(cuda, "nccl")
+    want = _dist_mf_epoch(torch.device("cpu"), "gloo")
+    torch.cuda.synchronize()
+    assert got[0].device.type == "cuda"
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a.cpu(), b, rtol=5e-4, atol=5e-5)
+    assert got[3] == want[3] == {"all_reduce": 2, "all_gather": 0,
+                                 "all_to_all": 2 * 8 + 2}
+
+
+@pytest.mark.gpu
+def test_mesh_barrier_waits_on_the_host_over_nccl(cuda):
+    """An NCCL all-reduce only queues work on the card; the barrier also
+    waits for it on the host, so a long kernel queued before it has ended
+    when it returns."""
+    from repro_torch.core.models.mf_dist import make_shard_mesh
+    from repro_torch.runtime.collectives import mesh_barrier, world_of_one
+
+    with world_of_one("nccl"):
+        mesh = make_shard_mesh(1, device_type="cuda")
+        mesh_barrier(mesh)  # NCCL's one-time set-up
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)  # ≈ 0.2 s of the card's clock
+        mesh_barrier(mesh)
+        assert torch.cuda.current_stream().query()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exclude", [False, True])
+def test_shard_map_topk_nccl_world_of_one_equals_cluster_topk(cuda, exclude):
+    from repro_torch.core.models.mf_dist import make_shard_mesh
+    from repro_torch.runtime.collectives import world_of_one
+    from repro_torch.serve.cluster import cluster_topk, shard_map_topk, shard_psi
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    table = shard_psi(torch.randn(3_001, 64, generator=gen, device=cuda), 1)
+    phi = torch.randn(16, 64, generator=gen, device=cuda)
+    eids = (torch.randint(0, 3_001, (16, 20), generator=gen, device=cuda,
+                          dtype=torch.int32) if exclude else None)
+    with world_of_one("nccl"):
+        mesh = make_shard_mesh(1, device_type="cuda")
+        before = ops.topk_score.launches
+        got = shard_map_topk(mesh, table, phi, 100, exclude_ids=eids)
+        assert ops.topk_score.launches == before + 1
+    want = cluster_topk(table, phi, 100, exclude_ids=eids)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)

@@ -173,9 +173,10 @@ def test_mesh_deadline_budget_and_stale_refusal():
 
 def test_unported_mesh_parts_raise():
     """The mesh's IVF tier, delta publish and canary, once refused, now
-    serve (held against the JAX mesh in ``test_torch_ann.py``); what stays
-    unported on this tier, the cluster's one-program ``mesh=`` path,
-    still raises."""
+    serve (held against the JAX mesh in ``test_torch_ann.py``), and so
+    does the cluster's one-program ``mesh=`` path: in a world of one on
+    the CPU, bit for bit the host-loop ``cluster_topk`` (several ranks:
+    ``test_torch_dist.py``)."""
     from repro_torch.serve.ann import AnnConfig
     from repro_torch.serve.cluster import ShardedRetrievalCluster
 
@@ -193,9 +194,22 @@ def test_unported_mesh_parts_raise():
     pm.rollback_canary()
     assert pm.begin_canary(mf.export_psi(tp)) == 3
     assert pm.promote_canary() == 3 and pm.n_items == N_ITEMS
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ShardedRetrievalCluster(n_shards=2, k=3, psi_table=tp.h).topk_phi(
-            phi, mesh=object())
+    from repro_torch.core.models.mf_dist import make_shard_mesh
+    from repro_torch.runtime.collectives import world_of_one
+
+    cluster = ShardedRetrievalCluster(lambda c: mf.build_phi(tp, c),
+                                      n_shards=1, k=3, psi_table=tp.h)
+    eids = torch.tensor([[0, 5, -1]] * 6, dtype=torch.int32)
+    with world_of_one("gloo"):
+        mesh = make_shard_mesh(1, device_type="cpu")
+        for ex in (None, eids):
+            got = cluster.topk(np.arange(6), mesh=mesh, exclude_ids=ex)
+            want = cluster_topk(cluster.table, phi, 3, exclude_ids=ex)
+            assert torch.equal(got.ids, want.ids)
+            assert torch.equal(got.scores, want.scores)
+        with pytest.raises(ValueError, match="2 shards"):
+            ShardedRetrievalCluster(n_shards=2, k=3, psi_table=tp.h).topk_phi(
+                phi, mesh=mesh)
 
 
 # ------------------------------------------------------------- batcher ---
