@@ -197,7 +197,20 @@ Phases, one line each or more:
      collective's wall time), ``shard_map_topk`` bit for bit
      ``cluster_topk`` and both timed, ``compressed_psum``, and a DTensor
      checkpoint restored with ``shardings=`` bit for bit; then the world
-     is torn down.
+     is torn down;
+ 27. the dry run's cells (``launch/cells.py``) for real, in an NCCL world
+     of one on a 1 × 1 mesh at their global shapes: the retrieval cell
+     (``shard_map_topk``, B 4,096 × 1,000,000 × 128, K 100, one top-K
+     launch; ids of 64 rows equal the plain version's) and the
+     ``epoch_youtube`` train cell (one ``mf_dist`` gather epoch at 200,000
+     × 68,000 × 128 on a seeded log of ≈ 20 M interactions, two Gram
+     launches; the objective falling; within phase 26's tolerance of the
+     flat ``mf.epoch`` from the same start), each beside the dry run's
+     roofline terms for the same step (a fake world of one, meta tensors)
+     and the retrieval kernel beside ``torch.topk(phi @ psi.T)``; the
+     log's seconds (drawn on the card), ``shard_interactions``' host
+     seconds, the phase's wall and peak memory. ``epoch_web`` (500 M
+     interactions) is dry-run only.
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -214,7 +227,8 @@ check (:func:`serve_first_runs`); ``--gram-tune`` only the Gram's variants
 the split-row form's chunk length, the residual patch's slots a thread);
 ``--topk-tune`` only the variants of the top-K kernel's one-launch form
 (:func:`topk_tune`: threads a block, blocks an SM, blocks a cluster);
-``--dist`` only phase 26, after building the Gram and top-K kernels.
+``--dist`` only phase 26, and ``--cells`` only phase 27, after building
+the Gram and top-K kernels.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -4040,6 +4054,222 @@ def dist_only() -> None:
     distribution_full_width(torch.device("cuda", 0))
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the launch tooling's cells on the card (phase 27).
+# ---------------------------------------------------------------------------
+# the train cell's log (make_cell_log): make_full_log's shape at degrees
+# scaled ≈ 5.9×, so that nnz ≈ epoch_youtube's 20,000,000 (mean 99.5)
+CELL_DEGREES = (30, 170)
+# ids of the retrieval cell held exactly against the plain version
+CELL_HOLD_ROWS = 64
+
+
+def make_cell_log(dev, seed: int = 27):
+    """The train cell's log, in ``make_full_log``'s shape at degrees
+    uniform in CELL_DEGREES (≈ 19.9 M pairs): items ∝ rank^-0.3 over a
+    seeded permutation, drawn by inverse CDF, duplicate pairs dropped. It
+    is drawn on the card from a seeded torch generator (the host takes ≈
+    40 s for numpy's draw at this size) and returned as sorted host
+    (ctx, item) pairs."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_ctx, n_items = FULL["n_ctx"], FULL["n_items"]
+    deg = torch.randint(*CELL_DEGREES, (n_ctx,), generator=gen, device=dev)
+    pop = torch.arange(1, n_items + 1, dtype=torch.float64, device=dev) ** -0.3
+    pop = pop[torch.randperm(n_items, generator=gen, device=dev)]
+    cdf = torch.cumsum(pop / pop.sum(), 0)
+    u = torch.rand(int(deg.sum()), generator=gen, device=dev, dtype=torch.float64)
+    items = torch.searchsorted(cdf, u, right=True).clamp_(max=n_items - 1)
+    users = torch.repeat_interleave(torch.arange(n_ctx, device=dev), deg)
+    pairs = torch.unique(users * n_items + items).cpu().numpy()
+    return pairs // n_items, pairs % n_items
+
+
+def _roofline_line(roof) -> str:
+    return (f"compute {roof.compute_s * 1e3:.4f} ms, memory {roof.memory_s * 1e3:.4f} ms, "
+            f"collective {roof.collective_s * 1e3:.4f} ms (bound {roof.bound_s * 1e3:.4f} "
+            f"ms, {roof.dominant}; {roof.flops:.4g} FLOP, {roof.bytes_accessed:.4g} B "
+            f"unfused, {roof.coll_bytes:.4g} B on the wire)")
+
+
+def cells_full_width(dev) -> dict:
+    """Phase 27: the dry run's cells (``launch/cells.py``) run for real on
+    the card, in an NCCL world of one on a 1 × 1 ("data", "model") mesh,
+    at their global shapes. The retrieval cell (``shard_map_topk`` of B
+    4,096 × 1,000,000 × 128, K 100) on row 10's one-launch form, its ids
+    held exactly against the plain version on a 64-row slice (small-integer
+    factors: exact scores, ties ranked by id); the ``epoch_youtube`` train
+    cell (one ``mf_dist`` gather epoch at 200,000 × 68,000 × 128 on a
+    seeded log of ≈ 20 M interactions, the Gram through row 1) from the
+    start of a flat ``mf.epoch``, within phase 26's tolerance, the
+    objective falling. Beside each cell's times, its roofline terms from
+    the dry run's trace of the same step at the same shapes in a fake
+    world of one (meta tensors). ``epoch_web`` (500 M interactions) is
+    dry-run only. Returns the kernels' launches on the cells' steps.
+    The train cell's log is drawn on the card (``make_cell_log``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_shapes
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.models import mf, mf_dist
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.topk_score import ops as tops
+    from repro_torch.kernels.topk_score import ref as tref
+    from repro_torch.launch import cells as lc
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.mesh import make_mesh_of_one
+    from repro_torch.runtime import collectives
+    from repro_torch.sparse.interactions import build_interactions
+
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    peaks = {}
+
+    def peak_since(name):
+        """The peak allocated since the last call, under ``name``."""
+        torch.cuda.synchronize()
+        peaks[name] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+        torch.cuda.reset_peak_memory_stats()
+
+    n_ctx, n_items, k = FULL["n_ctx"], FULL["n_items"], FULL["k"]
+    log("phase 27 epoch_web (10,000,000 x 1,000,000, 500 M interactions) is "
+        "dry-run only: not run on the card")
+
+    t = time.perf_counter()
+    ctx, item = make_cell_log(dev)
+    log_s = time.perf_counter() - t
+    nnz = len(ctx)
+    spec = get_shapes("icd-mf")["epoch_youtube"]
+    assert abs(nnz - spec.extra("nnz")) < 0.01 * spec.extra("nnz"), nnz
+    train_shape = ShapeSpec("epoch_youtube", "train", extras=(
+        ("n_ctx", n_ctx), ("n_items", n_items), ("nnz", nnz)))
+
+    # the dry run's terms for the steps run below, at their shapes, one rank
+    roofs = {}
+    with collectives.fake_world(1):
+        mesh = make_mesh_of_one("cpu")
+        for name, override in (("retrieval", None), ("epoch_youtube", train_shape)):
+            cell = lc.build_cell("icd-mf", name, mesh, shape_override=override)
+            tr = hlo_analysis.trace_step(cell.step_fn, cell.abstract_args)
+            roofs[name] = (tr.roofline, tr.trace_s)
+    assert not dist.is_initialized()
+    peak_since("log")
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = {}
+    with collectives.world_of_one("nccl"):
+        mesh = make_mesh_of_one("cuda")
+
+        # the retrieval cell at its global shape
+        cell = lc.build_cell("icd-mf", "retrieval", mesh)
+        shapes = [tuple(a.shape) for a in cell.abstract_args]
+        assert shapes == [(4_096, k), (1_000_000, k)], shapes
+        gen = torch.Generator(device=dev).manual_seed(27)
+        phi, psi = (torch.randint(-8, 9, shp, generator=gen, device=dev).float()
+                    for shp in shapes)
+        tops.topk_score.launches = 0
+        scores, ids = cell.step_fn(phi, psi)
+        torch.cuda.synchronize()
+        out["topk_launches"] = tops.topk_score.launches
+        assert out["topk_launches"] == 1, out
+        assert ids.shape == (4_096, lc.RETRIEVAL_K) and bool(torch.isfinite(scores).all())
+        rs, ri = tref.topk_score_ref(phi[:CELL_HOLD_ROWS], psi, lc.RETRIEVAL_K)
+        assert torch.equal(ids[:CELL_HOLD_ROWS], ri) and torch.equal(
+            scores[:CELL_HOLD_ROWS], rs), "the retrieval cell's ids must equal ref.py's"
+        step_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            cell.step_fn(phi, psi)
+            step_ms.append(sync_s(t) * 1e3)
+        kernel_ms = device_ms(lambda j: tops.topk_score(phi, psi, lc.RETRIEVAL_K), n=5)
+        # a yardstick the port never calls: the (4,096, 1 M) scores, 16 GB
+        library_ms = device_ms(lambda j: torch.topk(phi @ psi.T, lc.RETRIEVAL_K), n=3)
+        roof, trace_s = roofs["retrieval"]
+        log(f"phase 27 retrieval cell (shard_map_topk, B 4096 x 1,000,000 x {k}, "
+            f"K {lc.RETRIEVAL_K}, one shard): {out['topk_launches']} top-K launch, "
+            f"ids of {CELL_HOLD_ROWS} rows equal ref.py's; step wall "
+            f"{', '.join(f'{x:.3f}' for x in step_ms)} ms; the kernel alone "
+            f"{kernel_ms:.3f} ms (CUDA events, median of 5), torch.topk(phi @ "
+            f"psi.T) {library_ms:.3f} ms (median of 3); dry-run roofline "
+            f"(fake world of one, traced in {trace_s:.2f}s): {_roofline_line(roof)}")
+        del phi, psi, scores, ids, rs, ri
+        peak_since("retrieval")
+
+        # the epoch_youtube train cell at its global shape
+        a0 = FULL["alpha0"]
+        data = build_interactions(ctx, item, np.ones(nnz), np.full(nnz, a0 + 4.0),
+                                  n_ctx, n_items, alpha0=a0, device=dev)
+        hp = mf.MFHyperParams(k=k, alpha0=a0, l2=FULL["l2"], implementation="pallas")
+        params0 = mf.init(n_ctx, n_items, k, generator=gen)
+        obj0 = float(mf.objective(params0, data, hp))
+        t = time.perf_counter()
+        host = mf_dist.shard_interactions(data, 1)
+        shard_s = time.perf_counter() - t
+        cell = lc.build_cell("icd-mf", "epoch_youtube", mesh, shape_override=train_shape)
+        pb = mf_dist.shard_params(params0, host)
+        e0 = mf_dist.residuals_blocked(pb, host)[0]
+        loc = host.local(0, dev)
+        peak_since("train set-up")
+        epoch_s = []
+        for rep in range(2):   # the same epoch twice from one start
+            gops.gram.launches = 0
+            collectives.reset_counts()
+            t = time.perf_counter()
+            w, h, e = cell.step_fn(pb.w[0], pb.h[0], loc, e0)
+            epoch_s.append(sync_s(t))
+            calls = collectives.read_counts()
+            assert calls == DIST_CALLS["gather"] and gops.gram.launches == 2, (
+                calls, gops.gram.launches)
+        out["gram_launches"] = gops.gram.launches
+        peak_since("mf_dist epoch")
+        breakdown = epoch_breakdown(lambda: cell.step_fn(pb.w[0], pb.h[0], loc, e0))
+        got = mf_dist.unshard_params(mf.MFParams(w[None], h[None]), n_ctx, n_items)
+        obj1 = float(mf.objective(got, data, hp))
+        assert obj1 < obj0 and bool(torch.isfinite(e).all()), (obj0, obj1)
+        e_flat = mf.residuals(params0, data)
+        peak_since("objective, flat residuals")
+        t = time.perf_counter()
+        flat, _ = mf.epoch(params0, data, e_flat, hp)
+        flat_s = sync_s(t)
+        peak_since("flat epoch")
+        for a, b in ((got.w, flat.w), (got.h, flat.h)):
+            torch.testing.assert_close(a, b, rtol=DIST_RTOL, atol=DIST_ATOL)
+        err = max(float((got.w - flat.w).abs().max()),
+                  float((got.h - flat.h).abs().max()))
+        roof, trace_s = roofs["epoch_youtube"]
+        log(f"phase 27 train cell epoch_youtube ({n_ctx} x {n_items} x {k}, {nnz} "
+            f"interactions, the log drawn on the card in {log_s:.2f}s): "
+            f"shard_interactions on the host {shard_s:.3f}s (blocks p_c "
+            f"{host.ctx_l.shape[1]}, p_i {host.item_l.shape[1]}); one mf_dist "
+            f"gather epoch {', '.join(f'{x:.3f}' for x in epoch_s)} s, collectives "
+            f"{calls}, {out['gram_launches']} Gram launches; objective {obj0:.6g} -> "
+            f"{obj1:.6g}; the flat mf.epoch from the same start {flat_s:.3f} s, max "
+            f"|d| {err:.3g} (rtol {DIST_RTOL}, atol {DIST_ATOL}); dry-run roofline "
+            f"(fake world of one, traced in {trace_s:.2f}s): {_roofline_line(roof)}")
+        log(f"phase 27 train cell epoch breakdown (torch.profiler): {breakdown}")
+        del data, host, loc, pb, e0, e_flat, w, h, e, got, flat
+    assert not dist.is_initialized()
+    peak_since("the rest")
+    log(f"phase 27 wall {time.perf_counter() - t_phase:.1f}s; peak allocated "
+        f"{max(peaks.values()):.2f} GiB, by part {peaks} GiB "
+        f"({held_gib:.2f} GiB held by earlier phases at its start)")
+    return out
+
+
+def cells_only() -> None:
+    """Phase 27 alone, after building the Gram and top-K kernels."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gram import kernel as gram_kernel
+    from repro_torch.kernels.topk_score import kernel
+
+    build.build_all([kernel.LIB, gram_kernel.LIB])
+    cells_full_width(torch.device("cuda", 0))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4267,6 +4497,11 @@ def main() -> None:
     dist26 = distribution_full_width(dev)
     log(f"phase 26 done in {time.perf_counter() - t0:.1f}s")
 
+    # 27. the launch tooling's cells on the card
+    t0 = time.perf_counter()
+    cells27 = cells_full_width(dev)
+    log(f"phase 27 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -4376,6 +4611,13 @@ def main() -> None:
     for r in kernels:
         if r["name"] in dist_launches:
             r["dist"] = {"launches": dist_launches[r["name"]]}
+    # the cells' launches (phase 27's main path: the train cell's epoch's
+    # two Grams, the retrieval cell's one top-K)
+    cell_launches = {"gram": cells27["gram_launches"],
+                     "topk_score": cells27["topk_launches"]}
+    for r in kernels:
+        if r["name"] in cell_launches:
+            r["cells"] = {"launches": cell_launches[r["name"]]}
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4397,5 +4639,7 @@ if __name__ == "__main__":
         topk_tune()
     elif sys.argv[1:] == ["--dist"]:
         dist_only()
+    elif sys.argv[1:] == ["--cells"]:
+        cells_only()
     else:
         main()

@@ -61,7 +61,9 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
     merge levels), which also serves every K above 256; a K whose key
     buffers exceed the card's free memory raises. Both give the same bits.
     The mask may be a column slice of a wider mask (its rows are read at
-    their own stride). Nothing falls back to the plain version."""
+    their own stride). Any number of φ rows: above 65,535 they run in
+    slices of 65,520, one launch each (:func:`_row_slices`). Nothing falls
+    back to the plain version."""
     if exclude_mask is not None and exclude_ids is not None:
         raise ValueError("pass exclude_mask OR exclude_ids, not both")
     form = vmem.topk_form(k, form)
@@ -111,29 +113,51 @@ def topk_score(phi, psi, k: int, exclude_mask=None, *, exclude_ids=None,
            f"{vmem.TOPK_MAX_CHUNK} rows (block_items is the chain's)")
     scores = torch.empty((b, k), dtype=torch.float32, device=phi.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=phi.device)
-    if b == 0:
-        return scores, ids
-    _check(b <= 65535, f"B={b} rows exceed one launch's grid")
-    if form == vmem.TOPK_FUSED:
-        n_blocks = vmem.topk_fused_blocks(n_rows, _sm_count(phi.device))
-        n_clusters = n_blocks // vmem.TOPK_FUSED_CLUSTER
-        cand = None if n_clusters == 1 else torch.empty(
-            (n_clusters, b, k_pad), dtype=torch.int64, device=phi.device)
-        kernel.launch_fused(phi, psi, psi_scale, exclude_ids, mask,
-                            mask_stride, k, k_pad, n_blocks, id_offset,
-                            n_valid, scores, ids, cand,
-                            fused_counters(phi.device))
-    else:
-        n_chunks = -(-n_rows // chunk)
-        cand, cand2 = _key_buffers(phi, b, n_chunks, chunk, k, k_pad, n_rows)
-        kernel.launch(phi, psi, psi_scale, exclude_ids, mask, mask_stride, k,
-                      k_pad, chunk, id_offset, n_valid, scores, ids, cand,
-                      cand2)
-        topk_score.launches_chain += 1
-    _count(psi)
-    if mask is not None:
-        topk_score.launches_mask += 1
+    for rows in _row_slices(b):
+        excl = None if exclude_ids is None else exclude_ids[rows]
+        mask_r = None if mask is None else mask[rows]
+        n = rows.stop - rows.start
+        if form == vmem.TOPK_FUSED:
+            n_blocks = vmem.topk_fused_blocks(n_rows, _sm_count(phi.device))
+            n_clusters = n_blocks // vmem.TOPK_FUSED_CLUSTER
+            cand = None if n_clusters == 1 else torch.empty(
+                (n_clusters, n, k_pad), dtype=torch.int64, device=phi.device)
+            kernel.launch_fused(phi[rows], psi, psi_scale, excl, mask_r,
+                                mask_stride, k, k_pad, n_blocks, id_offset,
+                                n_valid, scores[rows], ids[rows], cand,
+                                fused_counters(phi.device))
+        else:
+            n_chunks = -(-n_rows // chunk)
+            cand, cand2 = _key_buffers(phi, n, n_chunks, chunk, k, k_pad,
+                                       n_rows)
+            kernel.launch(phi[rows], psi, psi_scale, excl, mask_r,
+                          mask_stride, k, k_pad, chunk, id_offset, n_valid,
+                          scores[rows], ids[rows], cand, cand2)
+            topk_score.launches_chain += 1
+        _count(psi)
+        if mask is not None:
+            topk_score.launches_mask += 1
     return scores, ids
+
+
+# One launch (or chain) takes at most 65,535 φ rows: the chain's merge and
+# decode grids put the rows on grid.y, and the fused form has a completion
+# counter for each block of rows up to that many. A larger batch runs in
+# slices of 4,095 row blocks (65,520 rows), one launch each, in order on
+# the current stream, each writing its rows of the output; the fused form's
+# last cluster leaves its counters at zero, so the next slice finds them
+# so. Every row's answer depends on its own φ row alone, so a slice gives
+# the bits that a call of those rows alone gives.
+_MAX_LAUNCH_ROWS = 65_535
+_ROW_SLICE = 4_095 * vmem.TOPK_ROW_BLOCK
+
+
+def _row_slices(b: int) -> list:
+    """The row slices of a B-row call, one launch each: the whole call
+    while B ≤ 65,535 (none for B = 0), else slices of 65,520 rows."""
+    if b <= _MAX_LAUNCH_ROWS:
+        return [slice(0, b)] if b else []
+    return [slice(r, min(r + _ROW_SLICE, b)) for r in range(0, b, _ROW_SLICE)]
 
 
 _SM_COUNT: dict = {}
@@ -253,7 +277,9 @@ def topk_score_ivf(phi, psi, k: int, *, probe_mask, counts, ids_global,
     over that list only, the merges. ``max_lists`` bounds the list (default
     C·⌈block_rows/chunk⌉; a caller that knows the counts on the host may
     pass Σ⌈count/chunk⌉); ``block_items`` is the chunk (default
-    TOPK_MAX_CHUNK). Nothing is copied to the host."""
+    TOPK_MAX_CHUNK). Above 65,535 φ rows the chain runs once a slice of
+    65,520 rows, as :func:`topk_score`'s does. Nothing is copied to the
+    host."""
     if psi.dtype == torch.int8 and psi_scale is None:
         raise ValueError("int8 psi needs psi_scale (per-row dequant scales)")
     if not on_cuda(phi, psi, probe_mask, counts, ids_global, exclude_ids,
@@ -296,16 +322,19 @@ def topk_score_ivf(phi, psi, k: int, *, probe_mask, counts, ids_global,
            f"max_lists={max_lists} must be in [1, {bound}]")
     scores = torch.empty((b, k), dtype=torch.float32, device=phi.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=phi.device)
-    if b == 0:
-        return scores, ids
-    _check(b <= 65535, f"B={b} rows exceed one launch's grid")
-    plan = torch.empty((max_lists + 1,), dtype=torch.int32, device=phi.device)
-    cand, cand2 = _key_buffers(phi, b, max_lists, chunk, k, k_pad, n_rows)
-    kernel.launch_ivf(phi, psi, psi_scale, exclude_ids, ids_global, counts,
-                      probe_mask.view(torch.uint8), block_rows, k, k_pad,
-                      chunk, max_lists, scores, ids, plan, cand, cand2)
-    _count(psi)
-    topk_score.launches_ivf += 1
+    probe = probe_mask.view(torch.uint8)
+    for rows in _row_slices(b):
+        n = rows.stop - rows.start
+        plan = torch.empty((max_lists + 1,), dtype=torch.int32,
+                           device=phi.device)
+        cand, cand2 = _key_buffers(phi, n, max_lists, chunk, k, k_pad, n_rows)
+        kernel.launch_ivf(phi[rows], psi, psi_scale,
+                          None if exclude_ids is None else exclude_ids[rows],
+                          ids_global, counts, probe[rows], block_rows, k,
+                          k_pad, chunk, max_lists, scores[rows], ids[rows],
+                          plan, cand, cand2)
+        _count(psi)
+        topk_score.launches_ivf += 1
     return scores, ids
 
 

@@ -23,6 +23,16 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
+def make_mesh_of_one(device_type: str = "cuda"):
+    """The production mesh's dimensions, ("data", "model"), at 1 × 1: a
+    world of one rank (``collectives.world_of_one`` or ``fake_world(1)``)
+    runs a cell at its global shape on this."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+
+
 def dp_axes(mesh) -> tuple:
     """The batch/context sharding dimensions of this mesh."""
     return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)

@@ -13,9 +13,17 @@ into a :class:`Group` by a caller that runs many collectives.
 
 Devices are explicit: a CUDA tensor needs an NCCL group and a CPU tensor
 a gloo group, and any other pairing raises. Nothing falls back to the
-other backend or to a local copy. Each wrapper counts its calls in its
-``calls`` attribute (as the kernel wrappers count ``launches``), so a
-caller can read how many collectives a step made.
+other backend or to a local copy. The one other pairing is the dry run's
+(``launch/dryrun.py``): a ``meta`` tensor, which holds a shape and no
+data, on a group of torch's ``fake`` backend (:func:`fake_world`), which
+moves nothing. A meta tensor needs a fake group and a fake group serves
+meta tensors only, so no tensor with data ever reaches one.
+
+Each wrapper counts its calls in its ``calls`` attribute (as the kernel
+wrappers count ``launches``) and its payload in ``bytes``: the tensor an
+all-reduce or an all-to-all sends, the result of an all-gather. So a
+caller can read how many collectives a step made and what they carried
+(:func:`read_counts`, :func:`read_bytes`).
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ class Group:
     read where the group is named, so that a collective on it checks only
     its tensor's device (``ProcessGroup`` itself is ``.pg``)."""
 
-    __slots__ = ("pg", "size", "nccl", "gloo")
+    __slots__ = ("pg", "size", "nccl", "gloo", "fake")
 
     def __init__(self, pg):
         import torch.distributed as dist
@@ -37,13 +45,23 @@ class Group:
         backend = str(dist.get_backend(pg))
         self.pg, self.size = pg, dist.get_world_size(pg)
         self.nccl, self.gloo = "nccl" in backend, "gloo" in backend
-        if not (self.nccl or self.gloo):
-            raise RuntimeError(f"a collective needs an nccl or a gloo group; "
-                               f"this group's backend is {backend!r}")
+        self.fake = backend == "fake"
+        if not (self.nccl or self.gloo or self.fake):
+            raise RuntimeError(f"a collective needs an nccl, a gloo or (for "
+                               f"meta tensors) a fake group; this group's "
+                               f"backend is {backend!r}")
 
     def checked(self, t: torch.Tensor):
         """The ``ProcessGroup``, after checking that it serves ``t``'s
-        device: a CUDA tensor needs NCCL, a CPU tensor gloo."""
+        device: a CUDA tensor needs NCCL, a CPU tensor gloo, a meta tensor
+        a fake group, which serves nothing else."""
+        if t.is_meta or self.fake:
+            if not (t.is_meta and self.fake):
+                raise RuntimeError(
+                    f"a meta tensor needs a fake group and a fake group "
+                    f"serves only meta tensors; this is a {t.device.type} "
+                    f"tensor on a {'fake' if self.fake else 'real'} group")
+            return self.pg
         if not (self.nccl if t.is_cuda else self.gloo):
             want = "nccl" if t.is_cuda else "gloo"
             raise RuntimeError(f"a {t.device.type} tensor needs a {want} "
@@ -83,6 +101,7 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     group = group_of(group)
     dist.all_reduce(t, group=group.checked(t))
     all_reduce.calls += 1
+    all_reduce.bytes += t.nbytes
     return t
 
 
@@ -96,6 +115,7 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     out = t.new_empty((group.size * t.shape[0], *t.shape[1:]))
     dist.all_gather_into_tensor(out, t, group=group.checked(t))
     all_gather.calls += 1
+    all_gather.bytes += out.nbytes
     return out
 
 
@@ -110,6 +130,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group.checked(t))
     all_to_all.calls += 1
+    all_to_all.bytes += t.nbytes
     return out
 
 
@@ -141,13 +162,42 @@ def world_of_one(backend: str = "nccl"):
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A ``torch.distributed`` world of ``world_size`` ranks in which this
+    process is rank 0 and no other rank exists: torch's ``fake`` backend
+    (``FakeStore``), whose collectives return at once and move nothing.
+    Only meta tensors may use it (:class:`Group`). The dry run traces one
+    rank of a production mesh in it; torn down on exit."""
+    import torch.distributed as dist
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+_WRAPPERS = (all_reduce, all_gather, all_to_all)
+
+
 def reset_counts() -> None:
-    for fn in (all_reduce, all_gather, all_to_all):
+    for fn in _WRAPPERS:
         fn.calls = 0
+        fn.bytes = 0
 
 
 def read_counts() -> dict:
-    return {fn.__name__: fn.calls for fn in (all_reduce, all_gather, all_to_all)}
+    return {fn.__name__: fn.calls for fn in _WRAPPERS}
+
+
+def read_bytes() -> dict:
+    """Each wrapper's payload bytes since :func:`reset_counts`: what an
+    all-reduce or an all-to-all sent, what an all-gather returned."""
+    return {fn.__name__: fn.bytes for fn in _WRAPPERS}
 
 
 reset_counts()

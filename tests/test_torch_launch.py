@@ -153,6 +153,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    # the launch tooling among them
+    assert {ROOT / "src" / "repro_torch" / "launch" / f
+            for f in ("cells.py", "dryrun.py", "hlo_analysis.py")} <= set(files)
     offenders = {str(f.relative_to(ROOT)): m.group(0).strip()
                  for f in files for m in [_IMPORT.search(f.read_text())] if m}
     assert offenders == {}
@@ -2349,3 +2352,206 @@ def test_shard_map_topk_nccl_world_of_one_equals_cluster_topk(cuda, exclude):
     want = cluster_topk(table, phi, 100, exclude_ids=eids)
     torch.cuda.synchronize()
     assert torch.equal(got.ids, want.ids) and torch.equal(got.scores, want.scores)
+
+
+# ---------------------------------------------------------------------------
+# The top-K kernel at any number of query rows. Above 65,535 φ rows the
+# wrappers run the kernel once a slice of 65,520 rows (4,095 row blocks).
+# ---------------------------------------------------------------------------
+MANY_ROWS = 70_000
+
+
+def _launch_counts():
+    return {f: getattr(ops.topk_score, f) for f in
+            ("launches", "launches_chain", "launches_mask", "launches_ivf")}
+
+
+def _launched(before):
+    return {f: n - before[f] for f, n in _launch_counts().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,excl", [(10, "ids"), (100, "mask"), (300, None),
+                                    (300, "mask")])
+def test_topk_past_65535_rows_exact_on_cuda(cuda, k, excl):
+    """70,000 φ rows in small integers (exact scores, ties everywhere):
+    the one-launch form (K ≤ 256) and the chain (K = 300) against the
+    plain version, ids exact, two launches a call; the dense mask a
+    strided column slice, the id lists sliced by rows with φ."""
+    rows, d = 2_000, 8
+    phi, psi = _ints((MANY_ROWS, d), 35, cuda), _ints((rows, d), 36, cuda)
+    rng = np.random.default_rng(37)
+    kw = {}
+    if excl == "ids":
+        e = rng.integers(0, rows, (MANY_ROWS, 6)).astype(np.int32)
+        e[:, -1] = -1
+        kw["exclude_ids"] = torch.tensor(e, device=cuda)
+    elif excl == "mask":
+        wide = torch.tensor(rng.random((MANY_ROWS, rows + 64)) < 0.3, device=cuda)
+        kw["exclude_mask"] = wide[:, 32:32 + rows]
+    before = _launch_counts()
+    s, i = ops.topk_score(phi, psi, k, n_valid=rows - 7, id_offset=5, **kw)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"launches": 2,
+                                 "launches_chain": 2 if k > 256 else 0,
+                                 "launches_mask": 2 if excl == "mask" else 0,
+                                 "launches_ivf": 0}
+    rs, ri = ref.topk_score_ref(phi, psi, k, n_valid=rows - 7, id_offset=5, **kw)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [100, 300])
+def test_topk_ivf_past_65535_rows_exact_on_cuda(cuda, k):
+    """The IVF form at 70,000 φ rows against its plain version, ids exact,
+    with a random probe mask and exclusions, two launch chains a call."""
+    c = 7
+    phi, forms, arrays, excl, _ = _ivf_case(cuda, b=MANY_ROWS, c=c,
+                                            block_rows=300, d=8, seed=k)
+    rng = np.random.default_rng(k + 2)
+    probe = torch.tensor(rng.random((MANY_ROWS, c)) < 0.5, device=cuda)
+    psi, scale = forms["fp32"]
+    args = dict(probe_mask=probe, psi_scale=scale, exclude_ids=excl, **arrays)
+    before = _launch_counts()
+    s, i = ops.topk_score_ivf(phi, psi, k, **args)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"launches": 2, "launches_chain": 0,
+                                 "launches_mask": 0, "launches_ivf": 2}
+    rs, ri = ref.topk_score_ivf_ref(phi, psi, k, **args)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["fused", "chain", "ivf"])
+def test_topk_past_65535_rows_equals_separate_calls_on_cuda(cuda, form):
+    """Random fp32: every row of one 70,000-row call equals, bit for bit,
+    the same row answered by calls of at most 65,535 rows, sliced where the
+    wrapper does not slice (35,000 and 35,000; then 65,535 and 4,465)."""
+    gen = torch.Generator(device=cuda).manual_seed(38)
+    d, rows = 32, 5_000
+    phi = torch.randn((MANY_ROWS, d), generator=gen, device=cuda)
+    psi = torch.randn((rows, d), generator=gen, device=cuda)
+    eids = torch.randint(0, rows, (MANY_ROWS, 5), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    if form == "ivf":
+        probe = torch.rand((MANY_ROWS, 10), generator=gen, device=cuda) < 0.6
+        arrays = dict(counts=torch.full((10,), 500, dtype=torch.int32, device=cuda),
+                      ids_global=torch.arange(rows, dtype=torch.int32, device=cuda),
+                      block_rows=500)
+
+        def call(r):
+            return ops.topk_score_ivf(phi[r], psi, 50, probe_mask=probe[r],
+                                      exclude_ids=eids[r], **arrays)
+    else:
+        k = 100 if form == "fused" else 400
+
+        def call(r):
+            return ops.topk_score(phi[r], psi, k, exclude_ids=eids[r])
+    whole = call(slice(0, MANY_ROWS))
+    for cut in (35_000, 65_535):
+        parts = [call(slice(0, cut)), call(slice(cut, MANY_ROWS))]
+        torch.cuda.synchronize()
+        for j in (0, 1):
+            assert torch.equal(whole[j], torch.cat([p[j] for p in parts])), (
+                form, cut, j)
+
+
+@pytest.mark.parametrize("b,want", [
+    (0, []), (1, [(0, 1)]), (65_535, [(0, 65_535)]),
+    (65_536, [(0, 65_520), (65_520, 65_536)]),
+    (MANY_ROWS, [(0, 65_520), (65_520, MANY_ROWS)]),
+    (131_040, [(0, 65_520), (65_520, 131_040)]),
+    (131_041, [(0, 65_520), (65_520, 131_040), (131_040, 131_041)])])
+def test_row_slices_cover_any_batch_in_launchable_pieces(b, want):
+    from repro_torch.kernels import vmem
+
+    got = ops._row_slices(b)
+    assert [(s.start, s.stop) for s in got] == want
+    # a slice fits one launch: the merges' grid.y and the fused form's
+    # counters (one a block of TOPK_ROW_BLOCK rows, up to 65,535 rows)
+    assert all(s.stop - s.start <= 65_535 for s in got)
+    assert all(s.start % vmem.TOPK_ROW_BLOCK == 0 for s in got)
+
+
+def _fake_launches(monkeypatch, seen):
+    """Stand-ins for the three C entry points that answer with the plain
+    version on the slice they are handed, writing into the output views
+    the wrapper passes: the wrapper's slicing, run on the CPU."""
+    from repro_torch.kernels.topk_score import kernel
+
+    def exact(phi, psi, psi_scale, excl, mask, k, id_offset, n_valid,
+              scores, ids):
+        seen.append(phi.shape[0])
+        s, i = ref.topk_score_ref(phi, psi, k, None if mask is None else mask != 0,
+                                  exclude_ids=excl, psi_scale=psi_scale,
+                                  id_offset=id_offset, n_valid=n_valid)
+        scores.copy_(s)
+        ids.copy_(i)
+
+    def fused(phi, psi, psi_scale, excl, mask, mask_stride, k, k_pad, n_blocks,
+              id_offset, n_valid, scores, ids, cand, counters):
+        exact(phi, psi, psi_scale, excl, mask, k, id_offset, n_valid, scores, ids)
+
+    def chain(phi, psi, psi_scale, excl, mask, mask_stride, k, k_pad, chunk,
+              id_offset, n_valid, scores, ids, cand, cand2):
+        exact(phi, psi, psi_scale, excl, mask, k, id_offset, n_valid, scores, ids)
+
+    def ivf(phi, psi, psi_scale, excl, ids_global, counts, probe, block_rows,
+            k, k_pad, chunk, max_lists, scores, ids, plan, cand, cand2):
+        seen.append(phi.shape[0])
+        s, i = ref.topk_score_ivf_ref(phi, psi, k, probe_mask=probe,
+                                      counts=counts, ids_global=ids_global,
+                                      block_rows=block_rows, exclude_ids=excl,
+                                      psi_scale=psi_scale)
+        scores.copy_(s)
+        ids.copy_(i)
+
+    monkeypatch.setattr(kernel, "launch_fused", fused)
+    monkeypatch.setattr(kernel, "launch", chain)
+    monkeypatch.setattr(kernel, "launch_ivf", ivf)
+    monkeypatch.setattr(ops, "on_cuda", lambda *ts: True)
+    monkeypatch.setattr(ops, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(ops, "fused_counters", lambda dev: None)
+    monkeypatch.setattr(ops, "_key_buffers", lambda *a: (None, None))
+
+
+@pytest.mark.parametrize("form,excl", [("fused", "ids"), ("fused", "mask"),
+                                       ("chain", "mask"), ("chain", None),
+                                       ("ivf", "ids")])
+def test_wrapper_slices_rows_past_65535_on_the_cpu(monkeypatch, form, excl):
+    """The wrapper's slicing past 65,535 rows, with the launches standing in
+    as the plain version on each slice (the card runs the kernels in
+    ``test_topk_past_65535_rows_*``): two launches of 65,520 and 4,480 rows,
+    each given its rows of φ, of the id lists, the mask and the probe
+    mask, and writing its rows of the result, equal to one plain call."""
+    seen = []
+    _fake_launches(monkeypatch, seen)
+    rng = np.random.default_rng(39)
+    rows, d = 40, 4
+    phi = torch.tensor(rng.integers(-3, 4, (MANY_ROWS, d)), dtype=torch.float32)
+    psi = torch.tensor(rng.integers(-3, 4, (rows, d)), dtype=torch.float32)
+    kw = {}
+    if excl == "ids":
+        kw["exclude_ids"] = torch.tensor(
+            rng.integers(-1, rows, (MANY_ROWS, 3)), dtype=torch.int32)
+    elif excl == "mask":
+        kw["exclude_mask"] = torch.tensor(rng.random((MANY_ROWS, rows + 8)) < 0.3)[:, 4:4 + rows]
+    before = _launch_counts()
+    if form == "ivf":
+        kw.update(probe_mask=torch.tensor(rng.random((MANY_ROWS, 4)) < 0.5),
+                  counts=torch.tensor([10, 7, 0, 10], dtype=torch.int32),
+                  ids_global=torch.arange(rows, dtype=torch.int32),
+                  block_rows=10)
+        s, i = ops.topk_score_ivf(phi, psi, 6, **kw)
+        rs, ri = ref.topk_score_ivf_ref(phi, psi, 6, **kw)
+    else:
+        k = 6 if form == "fused" else 300
+        s, i = ops.topk_score(phi, psi, k, id_offset=3, n_valid=rows - 2, **kw)
+        rs, ri = ref.topk_score_ref(phi, psi, k, id_offset=3,
+                                    n_valid=rows - 2, **kw)
+    assert seen == [65_520, MANY_ROWS - 65_520]
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert _launched(before) == {
+        "launches": 2, "launches_chain": 2 if form == "chain" else 0,
+        "launches_mask": 2 if excl == "mask" else 0,
+        "launches_ivf": 2 if form == "ivf" else 0}
