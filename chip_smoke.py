@@ -89,8 +89,10 @@ Phases, one line each or more:
      68,000, D_pad = 1,024, n_src = 200,000; m = 8, the ψ slab a column
      slice of a k = 128 table), at m = 9 and 17 with strided slabs, on rows
      of 20,480 slots and with ids past the slab, each slab reduce called
-     twice for the same bits, the gather one at m ≤ 8 in its one-tile
-     form (``csrc/cd_gather.cu``), and the gather residual patch at m ≤ 8
+     twice for the same bits, both at m ≤ 9 in the one-tile form
+     (``csrc/cd_gather.cu``; its m = 9 instance also on FM's 9-column slab
+     at both sides' full width) equal bit for bit to the tiled form
+     (``csrc/cd_slab.cu``, which m = 17 takes), and the gather residual patch at m ≤ 8
      in its register-slot form equal bit for bit to the one-slot kernel,
      at m = 1–9, slabs with and without 16-byte loads, D_pad off a
      multiple of 4;
@@ -143,15 +145,18 @@ Phases, one line each or more:
  19. train FM at icd-fm width (``configs/icd_fm``: p_ctx 336,091, 68,000
      items, k = 128, D = k + 2 = 130) on phase 14's log and designs: 3
      ``epoch_padded`` epochs with the defaults (block_k 0 → k_b 8, m = 9:
-     96 launches each of the tiled gather slab reduce and the one-slot
-     gather residual patch, 6 Gram launches; the objective falling), then
-     from one start a pregather (tiled), a flat and a block_k 7 (m = 8:
+     96 launches each of the gather slab reduce, all in the one-tile
+     form's m = 9 instance, and the one-slot gather residual patch, 6 Gram
+     launches; the objective falling), then from one start a pregather
+     (32 one-tile slab reduces), a flat and a block_k 7 (m = 8:
      the one-tile and register-slot forms) epoch held against the gather
      one, their wall times in turns, and one profiled epoch at m = 9 and
      at m = 8;
  20. time the Gram of Φe (200,000 × 130) and Ψe (68,000 × 130) beside
      ``torch.mm`` and kernels 6–9 at m = 9 at both sides' shapes beside
-     their plain versions, bounds and ``torch.bmm``/``baddbmm``;
+     their plain versions, bounds and ``torch.bmm``/``baddbmm``, the slab
+     reduces' one-tile form beside the tiled form it replaced (bit for
+     bit);
  21. serve FM from the Model API (``RetrievalEngine.from_model`` over Ψe):
      16 users' top-100 in one top-K launch at D = 130, bit for bit the
      chain, against a plain recompute, and its time; fold in a user and an
@@ -225,7 +230,8 @@ check (:func:`serve_first_runs`); ``--gram-tune`` only the Gram's variants
 (:func:`gram_tune`); ``--sweep-tune`` only the variants of
 ``csrc/cd_gather.cu`` (:func:`sweep_tune`: blocks an SM, slots a thread,
 the split-row form's chunk length, the residual patch's slots a thread);
-``--topk-tune`` only the variants of the top-K kernel's one-launch form
+``--slab-tune`` only the variants of the slab reduce's m = 9 instance
+(:func:`slab_tune`: blocks an SM, slots in flight); ``--topk-tune`` only the variants of the top-K kernel's one-launch form
 (:func:`topk_tune`: threads a block, blocks an SM, blocks a cluster);
 ``--dist`` only phase 26, and ``--cells`` only phase 27, after building
 the Gram and top-K kernels.
@@ -1175,19 +1181,23 @@ def _ptxas_by_kernel(log_text: str) -> dict:
     """{kernel instance: "N registers, S B spill stores"} from nvcc's
     ``-Xptxas -v`` report: sweep<lanes,slots>, with the row patch
     sweep<lanes,slots,P> and from the tile sweep<lanes,slots,P,T> (the
-    k_b = 8 instances), slab<lanes> (T: from the tile), the split-row
-    pass 1 and the register-slot patch (16-byte loads), each gathered or
-    from the tile."""
+    k_b = 8 instances), slab<lanes> (T: from the tile; slab<32,9> the m =
+    9 instance), the split-row pass 1 and the register-slot patch (16-byte
+    loads), each gathered or from the tile."""
     import re
 
     out, name = {}, None
     for ln in log_text.splitlines():
         if "Compiling entry" in ln:
-            m = re.search(r"reg_kernelILi(\d+)E(?:Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E|Lb(\d)E)", ln)
-            name = None if not m else (
-                f"sweep<{m.group(1)},{m.group(2)}{',P' * (m.group(4) == '1')}"
-                f"{',T' * (m.group(5) == '1')}>" if m.group(3) == "8" else
-                None if m.group(2) else f"slab<{m.group(1)}{',T' * (m.group(6) == '1')}>")
+            m = re.search(r"(sweep_gather|slab_reduce)_reg_kernelI((?:L[ib]\d+E)+)E", ln)
+            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else []
+            name = None
+            if m and m.group(1) == "sweep_gather" and args[2] == "8":
+                lanes, slots, _, patch, tile = args
+                name = f"sweep<{lanes},{slots}{',P' * (patch == '1')}{',T' * (tile == '1')}>"
+            elif m and m.group(1) == "slab_reduce":
+                lanes, kb, tile = args
+                name = f"slab<{lanes}{',' + kb if kb != '8' else ''}{',T' * (tile == '1')}>"
             if "split_reduce" in ln:
                 name = "split pass 1" + " tile" * ("kernelILb1" in ln)
             elif "resid_patch_reg_kernelILb1" in ln:
@@ -1197,6 +1207,66 @@ def _ptxas_by_kernel(log_text: str) -> dict:
         elif name and "registers" in ln:
             out[name] = ln.split("Used")[1].split(",")[0].strip() + ", " + out.get(name, "")
     return out
+
+
+# --slab-tune: builds of csrc/cd_gather.cu, each (the slab reduce's m = 9
+# instance's blocks an SM, its slots in flight)
+SLAB_TUNE_BUILDS = ((2, 2), (3, 1), (3, 2), (2, 3), (2, 4))
+
+
+def slab_tune() -> None:
+    """``python3 chip_smoke.py --slab-tune``: build ``cd_gather.cu`` once
+    for each of SLAB_TUNE_BUILDS and time the slab reduce's m = 9 instance
+    at both sides' full-width shapes (context C 200,000 × D_pad 128, n_src
+    68,000; item 68,000 × 1,024, n_src 200,000; the log's padding share),
+    gathered from FM's concatenated slab (row stride 9) and from the
+    pre-gathered tile, each first held bit for bit against the tiled form,
+    beside the tiled form's time; with each build's registers and
+    spills."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cd_sweep import kernel as ck, ref as cr
+
+    dev = torch.device("cuda", 0)
+    libs = [build.CudaLibrary("cd_gather", ck.GATHER_LIB.source, bind=ck._bind_gather,
+                              defines={**ck.GATHER_DEFINES,
+                                       "CDG_SLAB_WIDE_MIN_BLOCKS": blocks,
+                                       "CDG_SLAB_WIDE_INFLIGHT": inflight})
+            for blocks, inflight in SLAB_TUNE_BUILDS]
+    t0 = time.perf_counter()
+    build.build_all([*libs, ck.SLAB_LIB])
+    log(f"slab-tune build: {len(libs)} variants in {time.perf_counter() - t0:.1f}s")
+    for lib, v in zip(libs, SLAB_TUNE_BUILDS):
+        regs = _ptxas_by_kernel(lib.build_log)
+        log(f"slab-tune build {v}: " + "; ".join(
+            f"{k} {r}" for k, r in sorted(regs.items()) if k.startswith("slab<")))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    m = FM_M
+    for c, d, n_src, pad in ((FULL["n_ctx"], 128, FULL["n_items"], 0.87),
+                             (FULL["n_items"], 1_024, FULL["n_ctx"], 0.95)):
+        x = slab_inputs(gen, dev, c, d, m, n_src, pad_frac=pad, k=m)
+        ids, alpha, e = x["ids"], x["alpha"], x["e"]
+        psi = cr.gather_psi_blk(x["tab"], ids).contiguous()
+        q_t, p_t = torch.empty((c, m), device=dev), torch.empty((c, m, m), device=dev)
+        q, p = torch.empty_like(q_t), torch.empty_like(p_t)
+        for what, tab, pb in (("gather", x["tab"], None), ("tile", None, psi)):
+            gid = None if tab is None else ids
+
+            def tiled(j, tab=tab, pb=pb, gid=gid):
+                ck.slab_reduce(pb, tab, gid, alpha, e, q_t, p_t)
+            tiled(0)
+            old = device_ms(tiled, n=20)
+            parts = []
+            for lib, v in zip(libs, SLAB_TUNE_BUILDS):
+                def call(j, lib=lib, tab=tab, pb=pb, gid=gid):
+                    ck.slab_reduce_reg(tab, gid, alpha, e, q, p, lanes=32, psi_blk=pb,
+                                       lib=lib)
+                call(0)
+                torch.cuda.synchronize()
+                assert torch.equal(q, q_t) and torch.equal(p, p_t), (what, v)
+                parts.append(f"{v} {device_ms(call, n=20):.4f}")
+            log(f"slab-tune m 9 C {c} D_pad {d} {what}: tiled form {old:.4f} ms; "
+                "one-tile (blocks an SM, slots in flight) " + ", ".join(parts) + " ms")
+        del x, ids, alpha, e, psi, q_t, p_t, q, p
 
 
 def sweep_tune() -> None:
@@ -2237,9 +2307,10 @@ def hold_slab(cs, cr, x) -> dict:
     inputs; returns the largest |error| of each. Q and P to SWEEP_RTOL /
     SWEEP_ATOL, plus, for rows of SLAB_LONG_D slots and more,
     LONG_ROW_REL of the row's Σ|terms|; P symmetric bit for bit, and the
-    same bits from a second call (the gather form at m ≤ 8 in its one-tile
-    form); e patched in place to SWEEP_RTOL / SWEEP_ATOL (m terms a slot,
-    no long sum), the gather patch in its register-slot form (m ≤ 8)
+    same bits from a second call; where m takes the one-tile form (m ≤ 9,
+    either routing), Q and P equal bit for bit to the tiled form it
+    replaced; e patched in place to SWEEP_RTOL / SWEEP_ATOL (m terms a
+    slot, no long sum), the gather patch in its register-slot form (m ≤ 8)
     equal bit for bit to the one-slot kernel it replaced."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import kernel as ck
@@ -2272,6 +2343,13 @@ def hold_slab(cs, cr, x) -> dict:
         bad_p = (p - rp).abs() > SWEEP_RTOL * rp.abs() + SWEEP_ATOL + rel * p_abs
         err[name] = max(float((q - rq).abs().max()), float((p - rp).abs().max()))
         assert not bool(bad_q.any()) and not bool(bad_p.any()), (name, c, d, err[name])
+        if one_tile:
+            q_t, p_t = torch.empty_like(q), torch.empty_like(p)
+            gather = len(first) == 2
+            ck.slab_reduce(None if gather else psi, tab if gather else None,
+                           ids if gather else None, alpha, e, q_t, p_t)  # the tiled form
+            torch.cuda.synchronize()
+            assert torch.equal(q, q_t) and torch.equal(p, p_t), f"{name}: forms differ"
     re = cr.cd_resid_patch_ref(psi, e, dphi)
     reg = vmem.cd_resid_patch_form(d, tab.shape[1], gather=True) == vmem.PATCH_REG_SLOTS
     for name, first in (("cd_resid_patch_gather", (tab, ids)),
@@ -2295,8 +2373,11 @@ def hold_slab(cs, cr, x) -> dict:
 
 def hold_slab_kernels(dev) -> dict:
     """Phase 13: kernels 6–9 against their plain versions at both sides'
-    full-width shapes (m = 8), and at m = 9 and 17, a long row, ids past
-    the slab."""
+    full-width shapes (m = 8, and m = 9 on FM's 9-column slab, the shapes
+    FM's main path gives the m = 9 instance), and at m =
+    9 (the one-tile form's wide instance) and 17 (the tiled form), a long
+    row, ids past the slab. Returns the largest |error| of each kernel,
+    and of the slab reduces at m = 9 under ``<name>:m9``."""
     from repro_torch.kernels.cd_sweep import ops as cs, ref as cr
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -2305,8 +2386,11 @@ def hold_slab_kernels(dev) -> dict:
 
     def hold(x, what):
         got = hold_slab(cs, cr, x)
+        m = x["tab"].shape[1]
         for n, v in got.items():
             worst[n] = max(worst.get(n, 0.0), v)
+            if m == FM_M and "slab" in n:
+                worst[f"{n}:m9"] = max(worst.get(f"{n}:m9", 0.0), v)
         log(f"phase 13 hold {what}: max |err| " + ", ".join(
             f"{n} {v:.3g}" for n, v in got.items()))
 
@@ -2316,7 +2400,13 @@ def hold_slab_kernels(dev) -> dict:
          f"context side C {n_ctx} D_pad 128 n_src {n_items} m 8")
     hold(slab_inputs(gen, dev, n_items, 1_024, 8, n_ctx, pad_frac=0.95, k=128),
          f"item side C {n_items} D_pad 1024 n_src {n_ctx} m 8")
-    # FM's m = k_b + 1 and a P of three column tiles, with ψ slabs strided
+    # FM's m = k_b + 1 on its concatenated slab (ld 9) at both sides
+    hold(slab_inputs(gen, dev, n_ctx, 128, FM_M, n_items, pad_frac=0.87, k=FM_M),
+         f"context side C {n_ctx} D_pad 128 n_src {n_items} m 9 ld 9")
+    hold(slab_inputs(gen, dev, n_items, 1_024, FM_M, n_ctx, pad_frac=0.95, k=FM_M),
+         f"item side C {n_items} D_pad 1024 n_src {n_ctx} m 9 ld 9")
+    # m = 9 (one tile) and a P of three column tiles (m = 17, the tiled
+    # form), with ψ slabs strided
     for m in (9, 17):
         hold(slab_inputs(gen, dev, 5_000, 128, m, 3_000, pad_frac=0.5, k=m + 7),
              f"m {m}, strided slab")
@@ -2502,8 +2592,9 @@ def time_slab_kernels(dev, pdata, m: int = 8, phase: int = 15,
     slice, m for FM's concatenated slab), beside their plain versions,
     their bounds and, for the pre-gathered forms, the one ``torch.bmm``
     (``baddbmm``) that computes the same function on the same tile. Where
-    m takes the register forms (m ≤ 8), also the tiled and one-slot
-    kernels they replaced, in the same call."""
+    m takes the register forms (the one-tile slab reduce at m ≤ 9, the
+    register-slot patch at m ≤ 8), also the tiled and one-slot kernels
+    they replaced, in the same call."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import kernel as ck, ops as cs, ref as cr
     from repro_torch.obs.costs import cd_resid_patch_cost, cd_slab_reduce_cost
@@ -3140,11 +3231,12 @@ def fold_in_oracle(table, ids, free, init, hp) -> dict:
 def train_fm_full_width(dev, x, z, data, pdata) -> dict:
     """Phase 19: FM at icd-fm width (``configs/icd_fm``) on phase 14's log
     and designs: 3 ``epoch_padded`` epochs with the defaults (block_k 0 →
-    k_b 8, m = 9: the tiled slab reduce and the one-slot residual patch,
-    gather routing, jacobi), the objective falling every epoch; from one
-    start a pregather, a flat and a block_k 7 (m = 8: the one-tile and
-    register-slot forms) epoch held against the gather one; profiles of
-    one epoch at m = 9 and at m = 8."""
+    k_b 8, m = 9: the slab reduce's one-tile m = 9 instance and the
+    one-slot residual patch, gather routing, jacobi), the objective
+    falling every epoch; from one start a pregather (one-tile too), a flat
+    and a block_k 7 (m = 8: the one-tile and register-slot forms) epoch
+    held against the gather one; profiles of one epoch at m = 9 and at m =
+    8."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3172,13 +3264,14 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
     nb = -(-k // 8)
     log(f"phase 19 train: fm.epoch_padded x3 (icd-fm: p_ctx {x.p}, p_item "
         f"{z.p}, k {k}, D = k + 2 = {k + 2}; block_k 0 -> k_b 8, m 9, gather, "
-        f"jacobi, Gram kernel): objective {' -> '.join(f'{o:.6g}' for o in objs)}; "
+        f"jacobi, Gram kernel; slab reduce one-tile, m = 9 instance): objective "
+        f"{' -> '.join(f'{o:.6g}' for o in objs)}; "
         f"epoch s {', '.join(f'{s:.3f}' for s in epoch_s)} (objective "
         f"excluded); launches {launches}")
     assert all(b < a for a, b in zip(objs, objs[1:])), "objective must fall"
     assert launches == {"gram": 6, "cd_slab_reduce": 0,
                         "cd_slab_reduce_gather": 3 * 2 * nb,
-                        "cd_slab_reduce_gather:one_tile": 0,
+                        "cd_slab_reduce_gather:one_tile": 3 * 2 * nb,
                         "cd_resid_patch": 0,
                         "cd_resid_patch_gather": 3 * 2 * nb,
                         "cd_resid_patch_gather:reg_slots": 0}, launches
@@ -3190,7 +3283,7 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
                                   dataclasses.replace(hp, psi_dispatch="pregather"), 1)
     pre_launches = read_slab_counts()
     assert pre_launches["cd_slab_reduce"] == pre_launches["cd_resid_patch"] == 2 * nb \
-        and pre_launches["cd_slab_reduce:one_tile"] == 0 \
+        and pre_launches["cd_slab_reduce:one_tile"] == 2 * nb \
         and pre_launches["cd_slab_reduce_gather"] == 0, pre_launches
     d_pre = _hold_params(pp, pg, ep_, eg)
     del pp, ep_
@@ -3216,7 +3309,8 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
     d_m8 = _hold_params(f7[0], pg, f7[1], eg)
     del p7, f7
     log(f"phase 19 one epoch from one start: gather {epoch_s[0]:.3f}s; "
-        f"pregather {pre_s[0]:.3f}s (slab reduce tiled in all "
+        f"pregather {pre_s[0]:.3f}s (slab reduce one-tile in all "
+        f"{pre_launches['cd_slab_reduce:one_tile']} of its "
         f"{pre_launches['cd_slab_reduce']} launches, max |d param| {d_pre:.3g}); "
         f"flat fm.epoch {flat_s:.3f}s (max |d param| {d_flat:.3g}); rtol "
         f"{TENSOR_RTOL} atol {TENSOR_ATOL} (e atol {TENSOR_E_ATOL})")
@@ -3225,7 +3319,7 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
         f"one-tile and register-slot in all "
         f"{m8_launches['cd_slab_reduce_gather']} launches) epoch s "
         f"{', '.join(f'{s:.3f}' for s in m8_s)}; block_k 8 (m 9: {nb} blocks "
-        f"a side, tiled and one-slot) epoch s {', '.join(f'{s:.3f}' for s in m9_s)}; "
+        f"a side, one-tile and one-slot) epoch s {', '.join(f'{s:.3f}' for s in m9_s)}; "
         f"block_k 7 params against block_k 8's max |d| {d_m8:.3g}")
     prof = {}
     for name, h in (("m9", hp), ("m8", hp7)):
@@ -4586,6 +4680,17 @@ def main() -> None:
         "bound_by": form_times[form]["bound_by"],
         "library_ms": form_times[form]["lib"]}
         for form in ("bf16", "int8", "mask", "ivf")]
+    # rows 6 and 7 at FM's m = 9 (the one-tile form's wide instance):
+    # launches of phase 19's main path, errors of phase 13, times of
+    # phase 20 beside the tiled form it replaced
+    for name, line in (("cd_slab_reduce", 275), ("cd_slab_reduce_gather", 585)):
+        gather = name.endswith("gather")
+        r9 = row(f"{name}_m9", gather_src, f"src/repro/kernels/cd_sweep/kernel.py:{line}",
+                 (fmx["launches"] if gather else fmx["pre_launches"])[f"{name}:one_tile"],
+                 slab_errs[f"{name}:m9"], fm_slab[name],
+                 None if gather else fm_slab[name]["lib"])
+        r9["tiled_ms"] = float(np.mean(fm_slab[name]["tiled"]))
+        kernels.append(r9)
     # FM's path (phases 19-21): its launches and its shapes' times
     fm_rows = {"gram": fm_of(fmx["launches"]["gram"], fm_gram, fm_gram["lib"])}
     for name in ("cd_slab_reduce", "cd_slab_reduce_gather", "cd_resid_patch",
@@ -4635,6 +4740,8 @@ if __name__ == "__main__":
         gram_tune()
     elif sys.argv[1:] == ["--sweep-tune"]:
         sweep_tune()
+    elif sys.argv[1:] == ["--slab-tune"]:
+        slab_tune()
     elif sys.argv[1:] == ["--topk-tune"]:
         topk_tune()
     elif sys.argv[1:] == ["--dist"]:

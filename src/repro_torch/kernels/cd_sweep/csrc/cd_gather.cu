@@ -8,7 +8,7 @@
 // _sweep_rowpatch_gather_kernel), cd_block_sweep_rowpatch_pallas (body
 // _sweep_rowpatch_kernel) at k_b ≤ 8, cd_slab_reduce_gather_pallas (body
 // _slab_reduce_gather_kernel) and cd_slab_reduce_pallas (body
-// _slab_reduce_kernel) at m ≤ 8, and cd_resid_patch_gather_pallas (body
+// _slab_reduce_kernel) at m ≤ 9, and cd_resid_patch_gather_pallas (body
 // _resid_patch_gather_kernel) at m ≤ 8. The functions are those of
 // csrc/cd_sweep.cu's cd_sweep_kernel and cd_sweep_block_row_kernel, and
 // csrc/cd_slab.cu's cd_slab_reduce_kernel and cd_resid_patch_kernel, which
@@ -37,7 +37,10 @@
 //   * the slab reduce gathered a slot's columns as guarded scalar loads, kept
 //     a run-time tile loop's 8 × 8 accumulators and operands live across a
 //     branch (118–143 registers, one 256-thread block an SM), and reduced
-//     each of its 44 sums by a full butterfly (220 shuffles a row);
+//     each of its 44 sums by a full butterfly (220 shuffles a row); at FM's
+//     m = 9 it made three passes over each row, (0, 0), (0, 1) and (1, 1),
+//     two of them for one live column, each re-reading ids and α (and e)
+//     and re-gathering ψ: 32 B a slot against 12;
 //   * the residual patch gave a thread one slot: m guarded scalar loads of
 //     the row's Δφ and m scalar gathers, one slot in flight a thread.
 // The pre-gathered row-patch sweep had the first two faults with the tile in
@@ -94,19 +97,30 @@
 // order than the block-row form's, so the bits differ from it; every run
 // gives the same bits.
 //
-// Slab reduce, one-tile form (m ≤ 8). A group of LANES ≤ 32 threads owns
-// one row and streams its slots (d ≡ t mod LANES), CDG_SLAB_INFLIGHT at a
-// time, gathered with the same vector loads while the next chunk's ids, α
-// and e are already in flight. A thread keeps Q (8 sums) and P's upper
-// triangle (36) as 44 named registers: no tile loop, no branch in the slot
-// loop. The 44 sums are then reduced across the group by a
+// Slab reduce, one-tile form (m ≤ CDG_KB_WIDE). One instance a column count
+// KB: KB = CDG_KB (8) takes m ≤ 8, KB = CDG_KB_WIDE (9) takes FM's m = k_b +
+// 1 = 9. A group of LANES ≤ 32 threads owns one row and streams its slots
+// (d ≡ t mod LANES), CDG_SLAB_INFLIGHT at a time (the wide instance
+// CDG_SLAB_WIDE_INFLIGHT), gathered with 16-byte loads where the slab
+// allows (KB = 8 only: FM's 9-column slab takes scalar loads) while the
+// next chunk's ids, α and e are already in flight. A thread keeps Q (KB sums) and P's upper
+// triangle (KB(KB+1)/2) as named registers, 44 at KB = 8 and 54 at KB = 9:
+// no tile loop, no branch in the slot loop, each slot's α, e, id and ψ row
+// read once. The sums are then reduced across the group by a
 // transpose-reduce: at each xor level a lane keeps one half of its values
 // and sends the other half to its partner, which keeps that half, so the
-// levels cost 22 + 11 + 6 + 3 + 2 shuffles at 32 lanes against 44 × 5, and
-// each lane ends with the final sums it writes. Each final sum is one fixed
-// tree over the lanes — at 32 lanes the butterfly's, so the form matches the
-// tiled one bit for bit — and every run gives the same bits. P is written
-// symmetric from the one sum of each pair.
+// levels cost 22 + 11 + 6 + 3 + 2 shuffles at 32 lanes and KB = 8 (27 + 14
+// + 7 + 4 + 2 at KB = 9) against one butterfly a sum, and each lane ends
+// with the final sums it writes, its (a, b) decoded without a loop. Each
+// final sum is one fixed tree over the lanes — at 32 lanes the
+// butterfly's, so the form matches the tiled one bit for bit — and every
+// run gives the same bits. P is written symmetric from the one sum of each
+// pair. The 54 sums of KB = 9 and its ψ values in flight do not fit the 80
+// registers a thread has at three 256-thread blocks an SM (two slots in
+// flight spilled 144 bytes); its __launch_bounds__ asks for
+// CDG_SLAB_WIDE_MIN_BLOCKS = 2 (128 registers), which holds four slots in
+// flight without a spill: the fastest of chip_smoke.py --slab-tune's
+// variants at FM's gather shapes (PERF.md).
 //
 // Residual patch, register-slot form (m ≤ 8). A thread takes CDG_PATCH_SLOTS
 // consecutive slots of one row (16-byte loads of ids and e where D_pad is a
@@ -142,27 +156,44 @@
 #ifndef CDG_PATCH_SLOTS
 #define CDG_PATCH_SLOTS 4         // residual patch: slots a thread, a multiple of 4
 #endif
+// The slab reduce's KB = 9 instance: blocks an SM and slots a thread gathers
+// at once, passed only by kernels/vmem.py (kernel.GATHER_DEFINES).
+#if !defined(CDG_SLAB_WIDE_MIN_BLOCKS) || !defined(CDG_SLAB_WIDE_INFLIGHT)
+#error "build with -DCDG_SLAB_WIDE_MIN_BLOCKS and -DCDG_SLAB_WIDE_INFLIGHT (kernel.GATHER_DEFINES)"
+#endif
 
 #define CDG_KB 8                                      // columns in registers
+#define CDG_KB_WIDE 9                                 // the slab reduce's wide instance
 #define CDG_NSUM (CDG_KB + CDG_KB * (CDG_KB + 1) / 2)  // Q and P's triangle: 44
 #define FULL_MASK 0xffffffffu
 static_assert(CDG_PATCH_SLOTS % 4 == 0, "the patch loads slots four at a time");
 
-// Slab row ``id``'s first kb ≤ CDG_KB columns into x, zeros beyond. vec:
-// every slab row starts 16-byte aligned and kb is 4 or 8.
-__device__ __forceinline__ void gather_cols(float (&x)[CDG_KB], const float* __restrict__ tab,
+// Sums a thread of the slab reduce keeps at KB columns: Q and P's upper
+// triangle (44 at KB = 8, 54 at KB = 9).
+template <int KB>
+struct Sums {
+    static constexpr int n = KB + KB * (KB + 1) / 2;
+};
+static_assert(Sums<CDG_KB>::n == CDG_NSUM, "the split-row scratch holds 44 sums a chunk");
+
+// Slab row ``id``'s first kb ≤ KB columns into x, zeros beyond. vec (KB =
+// 8 only): every slab row starts 16-byte aligned and kb is 4 or 8.
+template <int KB>
+__device__ __forceinline__ void gather_cols(float (&x)[KB], const float* __restrict__ tab,
                                             long long ld_tab, int id, int kb, bool vec) {
     const float* r = tab + (long long)id * ld_tab;
-    if (vec) {
-        const float4 lo = __ldg(reinterpret_cast<const float4*>(r));
-        const float4 hi = kb == 8 ? __ldg(reinterpret_cast<const float4*>(r) + 1)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-        x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
-        x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
-    } else {
-#pragma unroll
-        for (int c = 0; c < CDG_KB; ++c) x[c] = c < kb ? __ldg(r + c) : 0.f;
+    if constexpr (KB == CDG_KB) {
+        if (vec) {
+            const float4 lo = __ldg(reinterpret_cast<const float4*>(r));
+            const float4 hi = kb == 8 ? __ldg(reinterpret_cast<const float4*>(r) + 1)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+            x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+            x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+            return;
+        }
     }
+#pragma unroll
+    for (int c = 0; c < KB; ++c) x[c] = c < kb ? __ldg(r + c) : 0.f;
 }
 
 __device__ __forceinline__ int clip_id(int id, int n_src) {
@@ -332,18 +363,32 @@ cd_sweep_gather_reg_kernel(const float* __restrict__ psi_blk,  // (C, kb, D)
     }
 }
 
-// Where Q_a and P(a, b), a ≤ b, sit among a thread's CDG_NSUM sums.
+// Where Q_a and P(a, b), a ≤ b, sit among a thread's Sums<KB>::n sums: Q
+// first, then P's upper triangle row by row (row a holds KB − a sums).
+template <int KB>
 __host__ __device__ constexpr int q_at(int a) { return a; }
+template <int KB>
 __host__ __device__ constexpr int p_at(int a, int b) {
-    return CDG_KB + a * CDG_KB - a * (a - 1) / 2 + (b - a);
+    return KB + a * KB - a * (a - 1) / 2 + (b - a);
 }
 
-// One level of the transpose-reduce over a lane's first N values with the
-// lane at xor O, then the next level at O / 2: the lane whose bit O is clear
-// keeps [0, H), its partner [H, N) (H = ⌈N/2⌉; an odd N pads the upper half
-// with a zero), and each adds the partner's copy of the half it keeps.
-template <int N, int O>
-__device__ __forceinline__ void transpose_reduce(float (&v)[CDG_NSUM], int lane) {
+// Row a of P's triangle entry r = p_at(a, b) − KB, without a loop: the
+// number of rows after the first that start at or before r (each start a
+// compile-time constant).
+template <int KB>
+__device__ __forceinline__ int tri_row(int r) {
+    int a = 0;
+#pragma unroll
+    for (int i = 1; i < KB; ++i) a += r >= p_at<KB>(i, i) - KB;
+    return a;
+}
+
+// One level of the transpose-reduce over a lane's first N of NS values with
+// the lane at xor O, then the next level at O / 2: the lane whose bit O is
+// clear keeps [0, H), its partner [H, N) (H = ⌈N/2⌉; an odd N pads the upper
+// half with a zero), and each adds the partner's copy of the half it keeps.
+template <int N, int O, int NS>
+__device__ __forceinline__ void transpose_reduce(float (&v)[NS], int lane) {
     if constexpr (O > 0) {
         constexpr int H = (N + 1) / 2;
         const bool hi = (lane & O) != 0;
@@ -381,27 +426,30 @@ __device__ __forceinline__ int reduced_index(int k, int lane) {
     }
 }
 
-// Adds to acc the 44 moments (Q_a, and P(a, b) for a ≤ b) of the slots
-// d = d_first, d_first + STEP, … < d_end of the row at offset g, m ≤ CDG_KB
-// columns (zeros beyond), CDG_SLAB_INFLIGHT slots at a time. A slot's m
-// values are gathered through ids from the slab (TILE false) or read from
-// the row's (m, D) block of the pre-gathered (C, m, D) tile (TILE true:
-// column a of slot d at tile[g·m + a·D + d], coalesced across the lanes).
-template <int STEP, bool TILE = false>
-__device__ __forceinline__ void add_moments(float (&acc)[CDG_NSUM], const float* __restrict__ tab,
-                                            long long ld_tab, int n_src, int vec,
-                                            const int* __restrict__ ids,
+// Adds to acc the Sums<KB>::n moments (Q_a, and P(a, b) for a ≤ b) of the
+// slots d = d_first, d_first + STEP, … < d_end of the row at offset g, m ≤
+// KB columns (zeros beyond; a wide KB takes m = KB only),
+// CDG_SLAB_INFLIGHT slots at a time (wide: CDG_SLAB_WIDE_INFLIGHT). A
+// slot's m values are gathered through ids from the slab (TILE false) or
+// read from the row's (m, D) block of the pre-gathered (C, m, D) tile (TILE
+// true: column a of slot d at tile[g·m + a·D + d], coalesced across the
+// lanes).
+template <int KB, int STEP, bool TILE = false>
+__device__ __forceinline__ void add_moments(float (&acc)[Sums<KB>::n],
+                                            const float* __restrict__ tab, long long ld_tab,
+                                            int n_src, int vec, const int* __restrict__ ids,
                                             const float* __restrict__ alpha,
                                             const float* __restrict__ e, size_t g, int d_first,
                                             int d_end, int m, const float* __restrict__ tile = nullptr,
                                             int D = 0) {
-    constexpr int U = CDG_SLAB_INFLIGHT;
+    constexpr int U = KB == CDG_KB ? CDG_SLAB_INFLIGHT : CDG_SLAB_WIDE_INFLIGHT;
+    if constexpr (KB != CDG_KB) m = KB;  // a compile-time width for the wide instance
     if constexpr (TILE) {
         // every load is independent of the others: a chunk's U slots issue
         // their α, e and m values at once
         const float* tr = tile + g * m;
         for (int d0 = d_first; d0 < d_end; d0 += U * STEP) {
-            float al[U], ae[U], x[U][CDG_KB];
+            float al[U], ae[U], x[U][KB];
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 const int d = d0 + u * STEP;
@@ -409,18 +457,18 @@ __device__ __forceinline__ void add_moments(float (&acc)[CDG_NSUM], const float*
                 al[u] = in ? alpha[g + d] : 0.f;
                 ae[u] = in ? e[g + d] : 0.f;
 #pragma unroll
-                for (int a = 0; a < CDG_KB; ++a)
+                for (int a = 0; a < KB; ++a)
                     x[u][a] = in && a < m ? __ldg(tr + (size_t)a * D + d) : 0.f;
             }
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 ae[u] = al[u] * ae[u];
 #pragma unroll
-                for (int a = 0; a < CDG_KB; ++a) {
-                    acc[q_at(a)] += x[u][a] * ae[u];
+                for (int a = 0; a < KB; ++a) {
+                    acc[q_at<KB>(a)] += x[u][a] * ae[u];
                     const float api = al[u] * x[u][a];
 #pragma unroll
-                    for (int b = a; b < CDG_KB; ++b) acc[p_at(a, b)] += api * x[u][b];
+                    for (int b = a; b < KB; ++b) acc[p_at<KB>(a, b)] += api * x[u][b];
                 }
             }
         }
@@ -438,7 +486,7 @@ __device__ __forceinline__ void add_moments(float (&acc)[CDG_NSUM], const float*
         en[u] = d < d_end ? e[g + d] : 0.f;
     }
     for (int d0 = d_first; d0 < d_end; d0 += U * STEP) {
-        float al[U], ae[U], x[U][CDG_KB];
+        float al[U], ae[U], x[U][KB];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             gather_cols(x[u], tab, ld_tab, clip_id(idn[u], n_src), m, vec);
@@ -455,19 +503,22 @@ __device__ __forceinline__ void add_moments(float (&acc)[CDG_NSUM], const float*
 #pragma unroll
         for (int u = 0; u < U; ++u) {
 #pragma unroll
-            for (int a = 0; a < CDG_KB; ++a) {
-                acc[q_at(a)] += x[u][a] * ae[u];
+            for (int a = 0; a < KB; ++a) {
+                acc[q_at<KB>(a)] += x[u][a] * ae[u];
                 const float api = al[u] * x[u][a];
 #pragma unroll
-                for (int b = a; b < CDG_KB; ++b) acc[p_at(a, b)] += api * x[u][b];
+                for (int b = a; b < KB; ++b) acc[p_at<KB>(a, b)] += api * x[u][b];
             }
         }
     }
 }
 
-// TILE: the pre-gathered form, ψ from the (C, m, D) tile (tab, ids unused).
-template <int LANES, bool TILE>
-__global__ void __launch_bounds__(CDG_THREADS, CDG_SLAB_MIN_BLOCKS)
+// KB: the instance's column count (CDG_KB for m ≤ 8, CDG_KB_WIDE for m =
+// 9). TILE: the pre-gathered form, ψ from the (C, m, D) tile (tab, ids
+// unused).
+template <int LANES, int KB, bool TILE>
+__global__ void __launch_bounds__(CDG_THREADS,
+                                  KB == CDG_KB ? CDG_SLAB_MIN_BLOCKS : CDG_SLAB_WIDE_MIN_BLOCKS)
 cd_slab_reduce_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n_src,
                           int vec, const int* __restrict__ ids,  // (C, D)
                           const float* __restrict__ tile,        // (C, m, D)
@@ -477,34 +528,33 @@ cd_slab_reduce_reg_kernel(const float* __restrict__ tab, long long ld_tab, int n
                           float* __restrict__ p_out,             // (C, m, m)
                           int C, int D, int m) {
     constexpr int ROWS = CDG_THREADS / LANES;
+    constexpr int NS = Sums<KB>::n;
     static_assert(LANES <= 32 && 32 % LANES == 0, "a row's lanes share a warp");
+    if constexpr (KB != CDG_KB) m = KB;
     const int lane = threadIdx.x & 31, t = threadIdx.x % LANES;
     const long long row = (long long)blockIdx.x * ROWS + threadIdx.x / LANES;
     const bool live = row < C;
     const size_t g = (size_t)(live ? row : C - 1) * D;
 
-    float acc[CDG_NSUM];
+    float acc[NS];
 #pragma unroll
-    for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
-    add_moments<LANES, TILE>(acc, tab, ld_tab, n_src, vec, ids, alpha, e, g, t, D, m, tile, D);
+    for (int i = 0; i < NS; ++i) acc[i] = 0.f;
+    add_moments<KB, LANES, TILE>(acc, tab, ld_tab, n_src, vec, ids, alpha, e, g, t, D, m, tile,
+                                 D);
 
-    transpose_reduce<CDG_NSUM, LANES / 2>(acc, lane);
+    transpose_reduce<NS, LANES / 2>(acc, lane);
     if (!live) return;
     const size_t qr = (size_t)row * m, pr = (size_t)row * m * m;
 #pragma unroll
-    for (int k = 0; k < Reduced<CDG_NSUM, LANES / 2>::n; ++k) {
-        const int idx = reduced_index<CDG_NSUM, LANES / 2>(k, lane);
+    for (int k = 0; k < Reduced<NS, LANES / 2>::n; ++k) {
+        const int idx = reduced_index<NS, LANES / 2>(k, lane);
         if (idx < 0) continue;
-        if (idx < CDG_KB) {
+        if (idx < KB) {
             if (idx < m) q_out[qr + idx] = acc[k];
             continue;
         }
-        int r = idx - CDG_KB, a = 0;
-        while (r >= CDG_KB - a) {
-            r -= CDG_KB - a;
-            ++a;
-        }
-        const int b = a + r;
+        const int r = idx - KB, a = tri_row<KB>(r);
+        const int b = a + r - (p_at<KB>(a, a) - KB);
         if (b < m) {
             p_out[pr + (size_t)a * m + b] = acc[k];
             p_out[pr + (size_t)b * m + a] = acc[k];
@@ -532,9 +582,9 @@ cd_split_reduce_kernel(const float* __restrict__ psi_blk,  // (C, kb, D)
     float acc[CDG_NSUM];
 #pragma unroll
     for (int i = 0; i < CDG_NSUM; ++i) acc[i] = 0.f;
-    add_moments<CDG_THREADS, TILE>(acc, tab, ld_tab, n_src, vec, ids, alpha, e,
-                                   (size_t)row * D, c0 + threadIdx.x, min(D, c0 + chunk), kb,
-                                   psi_blk, D);
+    add_moments<CDG_KB, CDG_THREADS, TILE>(acc, tab, ld_tab, n_src, vec, ids, alpha, e,
+                                           (size_t)row * D, c0 + threadIdx.x, min(D, c0 + chunk),
+                                           kb, psi_blk, D);
     transpose_reduce<CDG_NSUM, 16>(acc, lane);
 #pragma unroll
     for (int k = 0; k < Reduced<CDG_NSUM, 16>::n; ++k) {
@@ -575,15 +625,15 @@ cd_split_solve_kernel(const float* __restrict__ part, int n_chunks,
     const float* P = cpl + row * cs0;
     float dl[CDG_KB];
     for (int j = 0; j < kb; ++j) {
-        float lp = S[q_at(j)];
+        float lp = S[q_at<CDG_KB>(j)];
         float r1j = r1_in[row * ld_r1 + j];
         for (int i = 0; i < j; ++i) {
-            lp += dl[i] * S[p_at(i, j)];
+            lp += dl[i] * S[p_at<CDG_KB>(i, j)];
             r1j += dl[i] * P[i * cs1 + j * cs2];
         }
         const float wj = w_in[row * ld_w + j];
         const float num = lp + alpha0 * r1j + l2 * wj;
-        const float den = S[p_at(j, j)] + alpha0 * P[j * cs1 + j * cs2] + l2;
+        const float den = S[p_at<CDG_KB>(j, j)] + alpha0 * P[j * cs1 + j * cs2] + l2;
         const float delta = -eta * num / fmaxf(den, 1e-12f);
         dl[j] = delta;
         w_out[row * kb + j] = wj + delta;
@@ -788,35 +838,38 @@ extern "C" int cd_sweep_reg_f32(const float* psi_blk, const float* tab, long lon
     return (int)cudaErrorInvalidValue;
 }
 
-// As csrc/cd_slab.cu's cd_slab_reduce_f32 for m ≤ 8: the gather form (tab,
-// ids; psi_blk null) or the pre-gathered form (psi_blk (C, m, D)
-// contiguous; tab, ids null); lanes (8, 16 or 32) threads own a row.
+// As csrc/cd_slab.cu's cd_slab_reduce_f32 for m ≤ CDG_KB_WIDE: the gather
+// form (tab, ids; psi_blk null) or the pre-gathered form (psi_blk (C, m, D)
+// contiguous; tab, ids null); lanes threads own a row: 8, 16 or 32 at m ≤ 8
+// (the KB = 8 instance), 32 at m = 9 (KB = 9).
 extern "C" int cd_slab_reduce_reg_f32(const float* psi_blk, const float* tab, long long ld_tab,
                                       int n_src, const int* ids, const float* alpha,
                                       const float* e, float* q_out, float* p_out, int C, int D,
                                       int m, int lanes, void* stream) {
     const bool tile = psi_blk != nullptr;
-    if (C < 0 || D < 1 || m < 1 || m > CDG_KB || alpha == nullptr || e == nullptr ||
-        q_out == nullptr || p_out == nullptr || !source_ok(psi_blk, tab, ld_tab, n_src, ids, m))
+    if (C < 0 || D < 1 || m < 1 || m > CDG_KB_WIDE || (m > CDG_KB && lanes != 32) ||
+        alpha == nullptr || e == nullptr || q_out == nullptr || p_out == nullptr ||
+        !source_ok(psi_blk, tab, ld_tab, n_src, ids, m))
         return (int)cudaErrorInvalidValue;
     if (C == 0) return (int)cudaSuccess;
     const int vec = tile ? 0 : vec_loads(tab, ld_tab, m);
     cudaStream_t st = (cudaStream_t)stream;
-#define CDG_SLAB_CASE(L)                                                                      \
-    if (lanes == L) {                                                                         \
+#define CDG_SLAB_LAUNCH(L, K)                                                                 \
+    {                                                                                         \
         constexpr int rows = CDG_THREADS / L;                                                 \
         if (tile)                                                                             \
-            cd_slab_reduce_reg_kernel<L, true><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>( \
+            cd_slab_reduce_reg_kernel<L, K, true><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>( \
                 tab, ld_tab, n_src, vec, ids, psi_blk, alpha, e, q_out, p_out, C, D, m);      \
         else                                                                                  \
-            cd_slab_reduce_reg_kernel<L, false><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>( \
+            cd_slab_reduce_reg_kernel<L, K, false><<<(C + rows - 1) / rows, CDG_THREADS, 0, st>>>( \
                 tab, ld_tab, n_src, vec, ids, psi_blk, alpha, e, q_out, p_out, C, D, m);      \
         return (int)cudaGetLastError();                                                       \
     }
-    CDG_SLAB_CASE(8)
-    CDG_SLAB_CASE(16)
-    CDG_SLAB_CASE(32)
-#undef CDG_SLAB_CASE
+    if (m > CDG_KB) CDG_SLAB_LAUNCH(32, CDG_KB_WIDE)
+    if (lanes == 8) CDG_SLAB_LAUNCH(8, CDG_KB)
+    if (lanes == 16) CDG_SLAB_LAUNCH(16, CDG_KB)
+    if (lanes == 32) CDG_SLAB_LAUNCH(32, CDG_KB)
+#undef CDG_SLAB_LAUNCH
     return (int)cudaErrorInvalidValue;
 }
 

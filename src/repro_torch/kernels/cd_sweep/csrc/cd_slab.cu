@@ -21,16 +21,19 @@
 // byte against the card's 20), at m ≥ 17 operations-bound. The residual
 // patch reads ids and e and writes e (12 B a slot) for 2m FLOP a slot.
 //
-// Slab reduce design. One warp owns one row and streams its slots once per
-// tile of columns (a lane owns the slots d ≡ lane mod 32), so nothing per
-// slot is held in shared memory and any D_pad runs. The m columns are cut
-// into tiles of SLAB_TILE; a pass over the row accumulates one
-// (SLAB_TILE × SLAB_TILE) block of P in registers — on a diagonal block the
-// upper triangle only, with that tile's entries of Q — so any m ≥ 1 runs in
-// ⌈m/T⌉(⌈m/T⌉+1)/2 passes (one at m ≤ 8). Each sum is then reduced across
-// the warp by an xor butterfly: a fixed order, and + is commutative, so every
-// lane ends with the same bits and every run gives the same bits. P is
-// written symmetric from the one sum of each pair (i, j).
+// Slab reduce design (the tiled form). One warp owns one row and streams its
+// slots once per tile of columns (a lane owns the slots d ≡ lane mod 32), so
+// nothing per slot is held in shared memory and any D_pad runs. The m
+// columns are cut into tiles of SLAB_TILE; a pass over the row accumulates
+// one (SLAB_TILE × SLAB_TILE) block of P in registers — on a diagonal block
+// the upper triangle only, with that tile's entries of Q — so any m ≥ 1 runs
+// in ⌈m/T⌉(⌈m/T⌉+1)/2 passes (one at m ≤ 8, three at m = 9). Each sum is then
+// reduced across the warp by an xor butterfly: a fixed order, and + is
+// commutative, so every lane ends with the same bits and every run gives the
+// same bits. P is written symmetric from the one sum of each pair (i, j).
+// The wrappers launch it only for m > 9: up to m = 9 the one-tile form of
+// csrc/cd_gather.cu (kernels/vmem.cd_slab_reduce_form) reads each slot once
+// and gives this form's bits.
 //
 // Residual patch design. One thread owns one slot and adds the m products
 // in ascending j to the caller's e (the reference gather form's order).

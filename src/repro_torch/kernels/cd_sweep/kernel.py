@@ -12,9 +12,10 @@ source (so ``build_all`` compiles them at once):
   * ``csrc/cd_gather.cu`` (:data:`GATHER_LIB`) — the redesigned forms: the
     block sweep's register-row form and split-row form (long rows, three
     launches), gathered (shared J or per-row patch) or, for the row patch,
-    from the pre-gathered tile; the slab reduce's one-tile form and the
-    residual patch's register-slot form (m ≤ 8), each in both ψ routings;
-    their sizes come from ``kernels/vmem`` as ``-D`` flags."""
+    from the pre-gathered tile; the slab reduce's one-tile form (m ≤ 9:
+    an instance at m ≤ 8 and one at m = 9) and the residual patch's
+    register-slot form (m ≤ 8), each in both ψ routings; their sizes come
+    from ``kernels/vmem`` as ``-D`` flags."""
 from __future__ import annotations
 
 import ctypes
@@ -78,6 +79,8 @@ GATHER_DEFINES = {
     "CDG_SLAB_MIN_BLOCKS": vmem.CDG_SLAB_MIN_BLOCKS,
     "CDG_SLAB_INFLIGHT": vmem.CDG_SLAB_INFLIGHT,
     "CDG_PATCH_SLOTS": vmem.CDG_PATCH_SLOTS,
+    "CDG_SLAB_WIDE_MIN_BLOCKS": vmem.CDG_SLAB_WIDE_MIN_BLOCKS,
+    "CDG_SLAB_WIDE_INFLIGHT": vmem.CDG_SLAB_WIDE_INFLIGHT,
 }
 
 GATHER_LIB = CudaLibrary(
@@ -190,7 +193,8 @@ def launch_split(psi_tab, ids, alpha, e, w_blk, r1_blk, cpl, w_out, part,
 
 def slab_reduce_reg(psi_tab, ids, alpha, e, q_out, p_out, *, lanes: int,
                     psi_blk=None, lib=None) -> None:
-    """Enqueue one slab reduce in the one-tile form (m ≤ 8), ``lanes``
+    """Enqueue one slab reduce in the one-tile form (m ≤ 9: the instance
+    at m ≤ 8, or at m = 9 the one of 54 sums, 32 lanes only), ``lanes``
     threads a row (``vmem.cd_slab_reduce_lanes``): ψ gathered from
     ``psi_tab`` through ``ids``, or, with ``psi_blk`` (C, m, D_pad) given
     (``psi_tab`` and ``ids`` None), read from the pre-gathered tile; as

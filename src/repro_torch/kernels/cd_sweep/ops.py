@@ -23,8 +23,9 @@ counts its calls that launch (one launch chain each),
 ``launches_reg_row`` those in the register-row form,
 ``launches_block_row`` those on long rows (the block-row or split-row
 form) and ``launches_split_row`` those in the split-row form. A slab
-reduce at m ≤ 8, gather or pre-gathered, takes the one-tile form
-(``vmem.cd_slab_reduce_form``), counted in ``launches_one_tile``; a
+reduce at m ≤ 9, gather or pre-gathered, takes the one-tile form
+(``vmem.cd_slab_reduce_form``: an instance at m ≤ 8 and one at FM's m =
+9), counted in ``launches_one_tile``; a larger m takes the tiled form; a
 gather residual patch at m ≤ 8 on a
 grid of D_pad % 4 == 0 whose ids and e start 16-byte aligned takes the
 register-slot form (``vmem.cd_resid_patch_form``), counted in

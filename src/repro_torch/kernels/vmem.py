@@ -340,17 +340,19 @@ def cd_sweep_block_row_smem_bytes(k_b: int) -> int:
 # tile. Register-row sweep and one-tile slab reduce: a group of `lanes`
 # threads owns a row and every thread holds `slots` slots' e, α and k_b ≤
 # CDG_KB ψ values in registers for the whole launch (the slab reduce: Q and
-# P's upper triangle, 44 sums); shared memory holds only the coupling block
-# (the shared J, or each row's patch P) and per-warp partial sums. Blocks
-# have CDG_THREADS threads; __launch_bounds__ asks for CDG_*_MIN_BLOCKS of
-# them an SM. A sweep thread of more than CDG_SWEEP_REG_SLOTS slots re-reads
-# ψ_j from L1 a step ahead instead of holding it. Split-row sweep (rows
+# P's upper triangle, 44 sums at m ≤ 8, 54 in its m = 9 instance, which has
+# its own blocks an SM and slots in flight); shared memory holds only the
+# coupling block (the shared J, or each row's patch P) and per-warp partial
+# sums. Blocks have CDG_THREADS threads; __launch_bounds__ asks for
+# CDG_*_MIN_BLOCKS of them an SM. A sweep thread of more than
+# CDG_SWEEP_REG_SLOTS slots re-reads ψ_j from L1 a step ahead instead of
+# holding it. Split-row sweep (rows
 # longer than a block's shared memory): pass 1 gives each chunk of a row one
 # block, which writes the chunk's 44 moments to a scratch; a solve runs the
 # k_b steps on them; pass 2 is the residual patch. The residual patch's
 # register-slot form gives a thread CDG_PATCH_SLOTS consecutive slots. The
-# values are the fastest of ``chip_smoke.py --sweep-tune``'s variants at the
-# full-width shapes (PERF.md).
+# values are the fastest of ``chip_smoke.py --sweep-tune``'s variants (the
+# m = 9 slab reduce's: ``--slab-tune``) at the full-width shapes (PERF.md).
 # ---------------------------------------------------------------------------
 CDG_THREADS = 256
 CDG_KB = 8                          # block columns held in registers
@@ -361,9 +363,12 @@ CDG_SWEEP_MAX_SLOTS = 8             # beyond: the form's longest row 256 × 8
 CDG_SWEEP_MIN_LANES = 8
 CDG_SWEEP_MIN_BLOCKS = 3
 CDG_SWEEP_REG_SLOTS = 4             # ψ in registers up to this many slots
-CDG_SLAB_LANES = (8, 16, 32)        # compiled group sizes
+CDG_SLAB_LANES = (8, 16, 32)        # compiled group sizes (32 only at m = 9)
 CDG_SLAB_MIN_BLOCKS = 3
 CDG_SLAB_INFLIGHT = 2               # slots a thread gathers at once
+CDG_KB_WIDE = 9                     # the slab reduce's wide instance: m = 9
+CDG_SLAB_WIDE_MIN_BLOCKS = 2        # the m = 9 instance's blocks an SM
+CDG_SLAB_WIDE_INFLIGHT = 4          # and its slots in flight
 CDG_NSUM = CDG_KB + CDG_KB * (CDG_KB + 1) // 2   # Q and P's triangle: 44
 CDG_SPLIT_CHUNK = 4_096             # most slots a split-row pass-1 block
 CDG_SPLIT_TARGET_BLOCKS = 4 * 132   # pass-1 blocks to aim for: 4 an SM
@@ -427,20 +432,23 @@ def cd_resid_patch_form(d_pad: int, m: int, *, gather: bool) -> str:
 
 
 def cd_slab_reduce_form(m: int) -> str:
-    """:data:`SLAB_ONE_TILE` for the slab reduce at m ≤ CDG_KB in either ψ
-    routing (the 44 sums in registers; a slot's m values gathered through
-    the ids, or read from the pre-gathered tile), else :data:`SLAB_TILED`
-    (``csrc/cd_slab.cu``'s tile loop, any m, both routings)."""
-    return SLAB_ONE_TILE if m <= CDG_KB else SLAB_TILED
+    """:data:`SLAB_ONE_TILE` for the slab reduce at m ≤ CDG_KB_WIDE (an
+    instance at m ≤ 8 and one at FM's m = k_b + 1 = 9), in either ψ
+    routing (Q and P's triangle in registers, each slot read once; its m
+    values gathered through the ids, or read from the pre-gathered tile),
+    else :data:`SLAB_TILED` (``csrc/cd_slab.cu``'s tile loop, any m, both
+    routings)."""
+    return SLAB_ONE_TILE if m <= CDG_KB_WIDE else SLAB_TILED
 
 
 def cd_slab_reduce_lanes(d_pad: int) -> int:
     """Threads a row of the one-tile slab reduce: 32, whatever the row.
     At 32 lanes a thread sums the slots d ≡ lane (mod 32) in order and
     the transpose-reduce's trees are the butterfly's, so the form gives
-    the tiled form's bits. 8 and 16 lanes (compiled for ``chip_smoke.py
-    --sweep-tune``) took up to 22% less time at icd-mf's shapes but sum in
-    another order (PERF.md, kernel table row 7)."""
+    the tiled form's bits. 8 and 16 lanes (compiled at m ≤ 8 for
+    ``chip_smoke.py --sweep-tune``) took up to 22% less time at icd-mf's
+    shapes but sum in another order (PERF.md, kernel table row 7); the
+    m = 9 instance is compiled at 32 lanes only."""
     return 32
 
 

@@ -862,7 +862,7 @@ def test_register_row_sizing_holds_each_row_in_registers():
     shared-J sweep does not. k_b > 8 and rows past CDG_THREADS ×
     CDG_SWEEP_MAX_SLOTS keep the shared-memory forms, and MF's dispatch
     takes long rows in their form, refusing only a k_b no form launches;
-    the slab reduce takes the one-tile form at m ≤ 8 in either routing."""
+    the slab reduce takes the one-tile form at m ≤ 9 in either routing."""
     from repro_torch.kernels import vmem
     from repro_torch.kernels.cd_sweep import ops as cs
 
@@ -897,10 +897,12 @@ def test_register_row_sizing_holds_each_row_in_registers():
     assert vmem.resolve_cd_sweep_dispatch(1_024, 8) is True
     assert vmem.cd_sweep_reg_smem_bytes() == 4 * (64 + 4 * vmem.CDG_THREADS // 32)
     assert vmem.cd_sweep_reg_smem_bytes() <= vmem.SMEM_STATIC_BYTES
-    # the slab reduce: one tile for either routing at m ≤ 8
-    for m in range(1, 9):
+    # the slab reduce: one tile for either routing at m ≤ 9 (the m ≤ 8
+    # instance, then FM's m = 9), the tiled form from the first m past it
+    for m in range(1, 10):
         assert vmem.cd_slab_reduce_form(m) == vmem.SLAB_ONE_TILE
-    assert vmem.cd_slab_reduce_form(9) == vmem.SLAB_TILED
+    for m in (10, 17):
+        assert vmem.cd_slab_reduce_form(m) == vmem.SLAB_TILED
     for d in (1, 128, 1_024, 20_480):
         assert vmem.cd_slab_reduce_lanes(d) in vmem.CDG_SLAB_LANES
     # every wrapper counts its forms; the CPU's plain versions launch nothing
@@ -922,9 +924,10 @@ def test_register_row_sizing_holds_each_row_in_registers():
 
 
 def test_cost_model_carries_the_register_forms_and_their_traffic():
-    """The register-row sweep and the one-tile slab reduce move what the
-    function must (``form_bytes == hbm_bytes``); the tiled slab reduce
-    makes one pass over the row per pair of 8-column tiles."""
+    """The register-row sweep and the one-tile slab reduce (m = 8 and
+    FM's m = 9) move what the function must (``form_bytes ==
+    hbm_bytes``); the tiled slab reduce, from m = 10, makes one pass over
+    the row per pair of 8-column tiles."""
     from repro_torch.kernels import vmem
     from repro_torch.obs.costs import cd_slab_reduce_cost, cd_sweep_cost
 
@@ -941,11 +944,14 @@ def test_cost_model_carries_the_register_forms_and_their_traffic():
     assert cd_sweep_cost(100, 128, 8, 8, n_src=50, gather=False)["form"] ==         vmem.WARP_ROW
     c, d, n_src = 1_000, 128, 300
     out = lambda m: 4 * c * (m + m * m)  # noqa: E731
-    tiled = cd_slab_reduce_cost(c, d, 9, n_src=n_src)
+    wide = cd_slab_reduce_cost(c, d, 9, n_src=n_src)
+    assert wide["form"] == vmem.SLAB_ONE_TILE
+    assert wide["form_bytes"] == wide["hbm_bytes"] == 12 * c * d + 4 * n_src * 9 + out(9)
+    tiled = cd_slab_reduce_cost(c, d, 10, n_src=n_src)
     assert tiled["form"] == vmem.SLAB_TILED
-    assert tiled["hbm_bytes"] == 12 * c * d + 4 * n_src * 9 + out(9)
+    assert tiled["hbm_bytes"] == 12 * c * d + 4 * n_src * 10 + out(10)
     # passes (0, 0), (0, 1), (1, 1): ids and α each, e on the diagonal
-    assert tiled["form_bytes"] == (12 + 8 + 12) * c * d + 4 * n_src * 9 + out(9)
+    assert tiled["form_bytes"] == (12 + 8 + 12) * c * d + 4 * n_src * 10 + out(10)
     pre = cd_slab_reduce_cost(c, d, 8, gather=False)
     assert pre["form"] == vmem.SLAB_ONE_TILE
     assert pre["form_bytes"] == pre["hbm_bytes"] == 4 * 10 * c * d + out(8)
@@ -1127,8 +1133,9 @@ def _hold_one_tile(x, long_rows, *, lanes=None):
 ])
 def test_one_tile_slab_reduce_matches_plain_on_cuda(cuda, c, d, m, ld, f0,
                                                     past, zero_rows):
-    """The gather slab reduce's one-tile form (m ≤ 8) through the wrapper,
-    as ``_hold_one_tile`` holds it; each launch counted in its form, rows
+    """The gather slab reduce's one-tile form (m ≤ 8 here; m = 9 below)
+    through the wrapper, as ``_hold_one_tile`` holds it; each launch
+    counted in its form, rows
     with α = 0 giving zero Q and P. ψ is 0.1·N(0, 1), as phase 13 of
     ``chip_smoke.py`` holds it: at 0.3 a 128-slot row's Σ|α·e·ψ| reaches
     ≈ 45, where any two fp32 summation orders (the tiled form's too) can
@@ -1142,11 +1149,12 @@ def test_one_tile_slab_reduce_matches_plain_on_cuda(cuda, c, d, m, ld, f0,
     q, p = _hold_one_tile(x, d >= 1_024)
     assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (2, 2)
     assert not bool(q[:zero_rows].any()) and not bool(p[:zero_rows].any())
-    # m = 9 keeps the tiled form
-    x = _reg_operands(cuda, 40, 128, 9, 16, 0, 9, scale=0.1)
-    before = (fn.launches, fn.launches_one_tile)
-    cs.cd_slab_reduce_gather(x["tab"], x["ids"], x["alpha"], x["e"])
-    assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (1, 0)
+    # m = 9 takes the one-tile form's wide instance, m = 10 the tiled form
+    for m, one_tile in ((9, 1), (10, 0)):
+        x = _reg_operands(cuda, 40, 128, m, 16, 0, 9, scale=0.1)
+        before = (fn.launches, fn.launches_one_tile)
+        cs.cd_slab_reduce_gather(x["tab"], x["ids"], x["alpha"], x["e"])
+        assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (1, one_tile)
 
 
 @pytest.mark.gpu
@@ -1907,6 +1915,167 @@ def test_pregathered_one_tile_slab_reduce_equals_tiled_on_cuda(cuda, c, d, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c,d,ld,f0,past,zero_rows", [
+    (203, 128, 9, 0, True, 1),       # FM's concatenated slab (ld 9)
+    (37, 1, 12, 0, False, 0),        # D_pad 1; ld 12: a strided column slice
+    (61, 63, 12, 0, True, 2),        # D_pad 63
+    (2_000, 128, 12, 0, False, 0),   # the context side's D_pad
+    (680, 1_024, 130, 4, True, 0),   # the item side's D_pad, a slice of a 130-column table
+    (77, 200, 12, 3, True, 1),       # ld 12, the slice off 16-byte alignment
+    (5, 20_480, 9, 0, True, 1),      # long rows
+])
+def test_wide_one_tile_slab_reduce_equals_tiled_on_cuda(cuda, c, d, ld, f0, past,
+                                                       zero_rows):
+    """FM's m = 9 in the one-tile form's wide instance (54 sums a thread),
+    in both ψ routings: equal bit for bit to the tiled form it replaced (a
+    lane sums its slots d ≡ lane mod 32 in order with the same products,
+    the transpose-reduce's trees are the butterfly's), each wrapper call
+    counted as a one-tile launch, two calls giving the same bits, and
+    against the plain version as ``_hold_one_tile`` holds it; C off the
+    block's 8 rows, ids past both ends of the slab, rows with α = 0 giving
+    zero Q and P."""
+    from repro_torch.kernels import vmem
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    m = 9
+    assert vmem.cd_slab_reduce_form(m) == vmem.SLAB_ONE_TILE
+    x = _reg_operands(cuda, c, d, m, ld, f0, c + d + ld, past=past,
+                      zero_rows=zero_rows, scale=0.1)
+    assert x["tab"].stride(0) == ld
+    fn = cs.cd_slab_reduce_gather
+    before = (fn.launches, fn.launches_one_tile)
+    q, p = _hold_one_tile(x, d >= 1_024)
+    assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (2, 2)
+    tq, tp = torch.empty_like(q), torch.empty_like(p)
+    kernel.slab_reduce(None, x["tab"], x["ids"], x["alpha"], x["e"], tq, tp)  # tiled
+    torch.cuda.synchronize()
+    assert _same_bits(q, tq) and _same_bits(p, tp)
+    assert not bool(q[:zero_rows].any()) and not bool(p[:zero_rows].any())
+    # the pre-gathered routing on the same ψ
+    psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+    fn = cs.cd_slab_reduce
+    before = (fn.launches, fn.launches_one_tile)
+    q_pre, p_pre = fn(psi, x["alpha"], x["e"])
+    q_pre2, p_pre2 = fn(psi, x["alpha"], x["e"])
+    kernel.slab_reduce(psi, None, None, x["alpha"], x["e"], tq, tp)  # tiled
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.launches_one_tile - before[1]) == (2, 2)
+    assert torch.equal(q_pre, q_pre2) and torch.equal(p_pre, p_pre2)
+    assert _same_bits(q_pre, tq) and _same_bits(p_pre, tp)
+    assert _same_bits(q_pre, q) and _same_bits(p_pre, p)
+
+
+@pytest.mark.gpu
+def test_wide_one_tile_slab_reduce_refuses_other_group_sizes(cuda):
+    """The m = 9 instance is compiled at 32 lanes only: the binding refuses
+    8 and 16 lanes at m = 9 (and m = 10, past every instance), where the
+    m ≤ 8 instance takes them."""
+    from repro_torch.kernels.cd_sweep import kernel
+
+    x = _reg_operands(cuda, 16, 64, 9, 9, 0, 3, scale=0.1)
+    q, p = torch.empty((16, 9), device=cuda), torch.empty((16, 9, 9), device=cuda)
+    for lanes in (8, 16):
+        with pytest.raises(RuntimeError, match="cd_slab_reduce_reg"):
+            kernel.slab_reduce_reg(x["tab"], x["ids"], x["alpha"], x["e"], q, p,
+                                   lanes=lanes)
+    kernel.slab_reduce_reg(x["tab"], x["ids"], x["alpha"], x["e"], q, p, lanes=32)
+    x = _reg_operands(cuda, 16, 64, 10, 10, 0, 3, scale=0.1)
+    q, p = torch.empty((16, 10), device=cuda), torch.empty((16, 10, 10), device=cuda)
+    with pytest.raises(RuntimeError, match="cd_slab_reduce_reg"):
+        kernel.slab_reduce_reg(x["tab"], x["ids"], x["alpha"], x["e"], q, p, lanes=32)
+    torch.cuda.synchronize()
+
+
+def _digest(*tensors):
+    """SHA-256 (first 16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _register_form_digests(dev):
+    """The k_b = m = 8 (and m ≤ 8) instances of ``csrc/cd_gather.cu`` on
+    fixed inputs made from numpy seeds: the register-row sweep (gathered
+    with 16-byte and scalar loads, the per-row patch gathered and from the
+    tile), the split-row sweep (gathered and from the tile), the one-tile
+    slab reduce (16-byte and scalar gathers, the tile, 8 and 16 lanes) and
+    the register-slot residual patch; {case: digest of its outputs}."""
+    from repro_torch.kernels.cd_sweep import kernel, ops as cs, ref as cr
+
+    out = {}
+    kw = dict(alpha0=0.7, l2=0.05, eta=0.9)
+    for name, (c, d, ld, f0) in (("sweep_vec", (203, 128, 128, 8)),
+                                 ("sweep_scalar", (50, 40, 9, 1)),
+                                 ("sweep_long", (33, 2_048, 8, 0)),
+                                 ("split", (3, 20_000, 16, 8))):
+        x = _reg_operands(dev, c, d, 8, ld, f0, c + d, past=True, zero_rows=1)
+        w, e = cs.cd_block_sweep_gather(x["tab"], x["ids"], x["alpha"], x["e"].clone(),
+                                        x["w"], x["r1"], x["j"], **kw)
+        out[name] = _digest(w, e)
+    for name, (c, d) in (("rowpatch", (97, 128)), ("rowpatch_split", (2, 20_480))):
+        x = _rowpatch_operands(dev, c, d, 8, 3 * d + 7, c + d)
+        w, e = cs.cd_block_sweep_rowpatch_gather(x["tab"], x["ids"], x["alpha"],
+                                                 x["e"].clone(), x["w"], x["r1"],
+                                                 x["p"], **kw)
+        psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+        wt, et = cs.cd_block_sweep_rowpatch(psi, x["alpha"], x["e"].clone(), x["w"],
+                                            x["r1"], x["p"], **kw)
+        out[name] = _digest(w, e)
+        out[name + "_tile"] = _digest(wt, et)
+    for name, (c, d, m, ld, f0) in (("slab_vec", (2_000, 128, 8, 128, 8)),
+                                    ("slab_scalar", (97, 200, 4, 7, 2)),
+                                    ("slab_long", (5, 20_480, 8, 8, 0))):
+        x = _reg_operands(dev, c, d, m, ld, f0, c + d + m, past=True, zero_rows=1,
+                          scale=0.1)
+        out[name] = _digest(*cs.cd_slab_reduce_gather(x["tab"], x["ids"], x["alpha"],
+                                                      x["e"]))
+        psi = cr.gather_psi_blk(x["tab"], x["ids"]).contiguous()
+        out[name + "_tile"] = _digest(*cs.cd_slab_reduce(psi, x["alpha"], x["e"]))
+        for lanes in (8, 16):
+            q = torch.empty((c, m), device=dev)
+            p = torch.empty((c, m, m), device=dev)
+            kernel.slab_reduce_reg(x["tab"], x["ids"], x["alpha"], x["e"], q, p,
+                                   lanes=lanes)
+            out[f"{name}_{lanes}"] = _digest(q, p)
+    x = _slab_operands(dev, 301, 128, 8, 500, 11, past=True)
+    e = x["e"].clone()
+    cs.cd_resid_patch_gather(x["tab"], x["ids"], e, x["dphi"])
+    out["patch"] = _digest(e)
+    torch.cuda.synchronize()
+    return out
+
+
+# ``_register_form_digests`` on the tree before the m = 9 instance was
+# added (NVIDIA H100 80GB HBM3): the KB = 8 instances must keep their bits.
+# The pre-gathered cases equal the gathered ones: the same sums in the same
+# order.
+KB8_DIGESTS = {
+    "sweep_vec": "df9770f532c6cfa5", "sweep_scalar": "a07cf2ecca0e82b2",
+    "sweep_long": "13ea65a69fa2008b", "split": "71320357646578b6",
+    "rowpatch": "cd509f5e2e4841c0", "rowpatch_tile": "cd509f5e2e4841c0",
+    "rowpatch_split": "eb9208d9e078c9ec", "rowpatch_split_tile": "eb9208d9e078c9ec",
+    "slab_vec": "953d8f891c059e9b", "slab_vec_tile": "953d8f891c059e9b",
+    "slab_vec_8": "b476069ea5bb875f", "slab_vec_16": "ba0a1c29d89dc919",
+    "slab_scalar": "5cb2b7a28a44e900", "slab_scalar_tile": "5cb2b7a28a44e900",
+    "slab_scalar_8": "0d230426197a909d", "slab_scalar_16": "ea6ca3cbac8b3b19",
+    "slab_long": "11479d8e9c08c135", "slab_long_tile": "11479d8e9c08c135",
+    "slab_long_8": "9f65844ec2eabf7e", "slab_long_16": "d3c3169f896d1cef",
+    "patch": "81ed1eaf73ee8735",
+}
+
+
+@pytest.mark.gpu
+def test_kb8_register_forms_keep_their_bits_on_cuda(cuda):
+    """Generalising the register machinery over the column count left the
+    m ≤ 8 instances' arithmetic as it was: every case of
+    ``_register_form_digests`` gives the bits it gave before."""
+    assert _register_form_digests(cuda) == KB8_DIGESTS
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("psi_dispatch", ["gather", "pregather"])
 def test_mf_long_item_row_on_cuda_matches_cpu(cuda, psi_dispatch):
     """MF with one item row of 20,001 slots (every user on item 0, D_pad
@@ -1963,15 +2132,18 @@ def test_mf_long_item_row_on_cuda_matches_cpu(cuda, psi_dispatch):
 # ---------------------------------------------------------------------------
 def test_fm_shapes_take_the_forms_fm_drives():
     """At icd-fm's k = 128, block_k 0 gives k_b 8 and m = 9: the slab
-    reduce takes the tiled form and the gather residual patch the one-slot
-    kernel (the register forms stop at m = CDG_KB = 8); block_k 7 (m = 8)
-    keeps the one-tile and register-slot forms. A 130-column fp32 row is
-    520 bytes, not a multiple of 16, and a bf16 one 260."""
+    reduce takes the one-tile form's m = 9 instance and the gather
+    residual patch the one-slot kernel (its register-slot form stops at m
+    = CDG_KB = 8); the first m past the slab reduce's widest instance (10)
+    takes the tiled form; block_k 7 (m = 8) keeps the one-tile and
+    register-slot forms. A 130-column fp32 row is 520 bytes, not a
+    multiple of 16, and a bf16 one 260."""
     from repro_torch.core import sweeps
     from repro_torch.kernels import vmem
 
     k_b = sweeps.resolve_block_k(0, 128)
-    assert k_b == 8 and vmem.cd_slab_reduce_form(k_b + 1) == vmem.SLAB_TILED
+    assert k_b == 8 and vmem.cd_slab_reduce_form(k_b + 1) == vmem.SLAB_ONE_TILE
+    assert vmem.cd_slab_reduce_form(k_b + 2) == vmem.SLAB_TILED
     for d in (128, 1_024):
         assert vmem.cd_resid_patch_form(d, k_b + 1, gather=True) == vmem.PATCH_ONE_SLOT
         assert vmem.cd_resid_patch_form(d, 8, gather=True) == vmem.PATCH_REG_SLOTS
