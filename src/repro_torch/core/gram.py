@@ -19,6 +19,8 @@ import contextlib
 
 import torch
 
+from repro_torch.obs.trace import span
+
 
 @contextlib.contextmanager
 def full_fp32():
@@ -37,6 +39,11 @@ def gram(m: torch.Tensor, *, implementation: str = "xla",
          weights=None) -> torch.Tensor:
     """J = mᵀm (or mᵀ·diag(w)·m) with fp32 accumulation; m: (rows, k) →
     (k, k)."""
+    with span("gram"):
+        return _gram(m, implementation, weights)
+
+
+def _gram(m: torch.Tensor, implementation: str, weights) -> torch.Tensor:
     if implementation == "pallas":
         from repro_torch.kernels.gram import ops as gram_ops
 

@@ -69,6 +69,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_slab_reduce,
     cd_slab_reduce_gather,
 )
+from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions
 from repro_torch.sparse.segment import segment_sum
 
@@ -267,19 +268,24 @@ def _linear_and_bias(lin, bias, self_ext, other_j, layers, e, u_of, patch,
     ``u_of(e)`` is Σ α·e·ψ_spec a row and ``patch(e, Δspec)`` returns e
     with Δspec·ψ_spec added, per row (a (n,) Δspec) or to all rows (a
     scalar one). Returns (lin, bias, e)."""
+    side = "ctx" if spec_col == hp.k else "item"
     if hp.use_linear and lin is not None:
         u = u_of(e)
         r_b = self_ext @ other_j[:, spec_col]
         for ids_g, xw, rows, vocab, offset, eta in layers:
-            lin, u, r_b, dspec = _linear_layer_update(
-                lin, self_ext, u, r_b, p0, j_ss, ids_g, xw, rows, vocab,
-                offset, spec_col, hp, eta)
-            e = patch(e, dspec)
+            with span("fm.field_layer", side=side, dim="linear", offset=offset):
+                lin, u, r_b, dspec = _linear_layer_update(
+                    lin, self_ext, u, r_b, p0, j_ss, ids_g, xw, rows, vocab,
+                    offset, spec_col, hp, eta)
+            with span("fm.patch"):
+                e = patch(e, dspec)
     if hp.use_bias and bias is not None:
-        r_b = self_ext @ other_j[:, spec_col]
-        bias, delta = _bias_update(bias, self_ext, u_of(e), r_b, p0, j_ss,
-                                   n_rows, spec_col, hp)
-        e = patch(e, delta)
+        with span("fm.bias"):
+            r_b = self_ext @ other_j[:, spec_col]
+            bias, delta = _bias_update(bias, self_ext, u_of(e), r_b, p0, j_ss,
+                                       n_rows, spec_col, hp)
+        with span("fm.patch"):
+            e = patch(e, delta)
     return lin, bias, e
 
 
@@ -290,6 +296,7 @@ def _side_sweep(table, lin, bias, self_ext, other_ext, other_j,
     bias. ``table`` and ``self_ext`` are updated in place; returns
     (table, lin, bias, self_ext, e) with a new ``e``."""
     n_rows = design.n_rows
+    side = "ctx" if spec_col == hp.k else "item"
     layers = _field_layers(design, hp)
     o_spec_nnz = other_ext[:, spec_col][other_nnz_ids]     # ones, kept generic
     p0 = segment_sum(alpha * o_spec_nnz * o_spec_nnz, rows_nnz, n_rows)
@@ -297,20 +304,23 @@ def _side_sweep(table, lin, bias, self_ext, other_ext, other_j,
 
     def dim_body(f, carry):
         table, self_ext, e = carry
-        other_f_nnz = other_ext[:, f][other_nnz_ids]
-        p2 = segment_sum(alpha * other_f_nnz * other_f_nnz, rows_nnz, n_rows)
-        p1 = segment_sum(alpha * other_f_nnz * o_spec_nnz, rows_nnz, n_rows)
-        q = segment_sum(alpha * e * other_f_nnz, rows_nnz, n_rows)
-        u = segment_sum(alpha * e * o_spec_nnz, rows_nnz, n_rows)
+        with span("fm.moments"):
+            other_f_nnz = other_ext[:, f][other_nnz_ids]
+            p2 = segment_sum(alpha * other_f_nnz * other_f_nnz, rows_nnz, n_rows)
+            p1 = segment_sum(alpha * other_f_nnz * o_spec_nnz, rows_nnz, n_rows)
+            q = segment_sum(alpha * e * other_f_nnz, rows_nnz, n_rows)
+            u = segment_sum(alpha * e * o_spec_nnz, rows_nnz, n_rows)
         r_a = self_ext @ other_j[:, f]
         r_b = self_ext @ other_j[:, spec_col]
         j_ff, j_fs = other_j[f, f], other_j[f, spec_col]
         table_col = table[:, f]
         for ids_g, xw, rows, vocab, offset, eta in layers:
-            table_col, q, u, r_a, r_b, dphi_f, dphi_s = _embed_layer_update(
-                table_col, self_ext, q, u, r_a, r_b, p2, p1, p0, j_ff, j_fs,
-                j_ss, ids_g, xw, rows, vocab, offset, f, spec_col, hp, eta)
-            e = e + dphi_f[rows_nnz] * other_f_nnz + dphi_s[rows_nnz] * o_spec_nnz
+            with span("fm.field_layer", side=side, dim=f, offset=offset):
+                table_col, q, u, r_a, r_b, dphi_f, dphi_s = _embed_layer_update(
+                    table_col, self_ext, q, u, r_a, r_b, p2, p1, p0, j_ff, j_fs,
+                    j_ss, ids_g, xw, rows, vocab, offset, f, spec_col, hp, eta)
+            with span("fm.patch"):
+                e = e + dphi_f[rows_nnz] * other_f_nnz + dphi_s[rows_nnz] * o_spec_nnz
         sweeps.put_col(table, f, table_col)
         return table, self_ext, e
 
@@ -434,7 +444,7 @@ def epoch(params: FMParams, x: Design, z: Design, data: Interactions,
     ``weights`` (optional, (nnz,) ctx-major) folds into α exactly."""
     data = _weighted(data, weights)
     b, w_lin, w, h_lin, h = _trained(params, hp)
-    with full_fp32():
+    with span("fm.epoch"), full_fp32():
         pe = phi_ext(params, x, hp)
         se = psi_ext(params, z, hp)
         j_i = gram(se, implementation=hp.implementation)
@@ -448,8 +458,8 @@ def epoch(params: FMParams, x: Design, z: Design, data: Interactions,
             h, h_lin, None, se, pe, j_c, z, data.t_item, data.t_ctx, alpha_t,
             e_t, spec_col=hp.k + 1, hp=hp, schedule=schedule,
             sweep_index=sweep_index)
-    return (_params(params, b, w_lin, w, h_lin, h),
-            sweeps.to_ctx_major(e_t, data.t_perm))
+        e = sweeps.to_ctx_major(e_t, data.t_perm)
+    return _params(params, b, w_lin, w, h_lin, h), e
 
 
 def epoch_padded(params: FMParams, x: Design, z: Design,

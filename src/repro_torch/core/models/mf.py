@@ -26,6 +26,7 @@ from repro_torch.core import sweeps
 from repro_torch.core.gram import full_fp32, gram
 from repro_torch.core.implicit import implicit_objective
 from repro_torch.kernels import resolve_device
+from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions
 from repro_torch.sparse.segment import segment_sum
 
@@ -131,7 +132,8 @@ def _side_sweep(side, other_j, other_cols_nnz, rows_nnz, alpha, e,
         delta = sweeps.newton_delta(
             sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp),
             s_col, hp.l2, hp.eta)
-        e = e + delta[rows_nnz] * o_col                # rank-1 residual patch
+        with span("mf.patch"):                         # rank-1 residual patch
+            e = e + delta[rows_nnz] * o_col
         return sweeps.put_col(side_m, f, s_col + delta), e
 
     return sweeps.sweep_columns(
@@ -153,7 +155,7 @@ def epoch(params: MFParams, data: Interactions, e: torch.Tensor,
     if weights is not None:
         data = dataclasses.replace(data, alpha=data.alpha * weights)
     w, h = params.w.clone(), params.h.clone()
-    with full_fp32():
+    with span("mf.epoch"), full_fp32():
         # context side: J_I from the fixed item factors
         j_i = gram(h, implementation=hp.implementation)
         w, e = _side_sweep(
@@ -167,7 +169,8 @@ def epoch(params: MFParams, data: Interactions, e: torch.Tensor,
         h, e_t = _side_sweep(
             h, j_c, lambda f: sweeps.take_col(w, f)[data.t_ctx], data.t_item,
             alpha_t, e_t, data.n_items, hp, schedule, sweep_index)
-    return MFParams(w, h), sweeps.to_ctx_major(e_t, data.t_perm)
+        e = sweeps.to_ctx_major(e_t, data.t_perm)
+    return MFParams(w, h), e
 
 
 def residuals(params: MFParams, data: Interactions) -> torch.Tensor:

@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
+
 
 class NewtonParts(NamedTuple):
     """Halved derivative pieces; the common factor 2 of eqs. (2,3,13,14)
@@ -180,11 +182,13 @@ def residuals_from_factors(phi, psi, ctx, item, y) -> torch.Tensor:
 
 def to_item_major(e_ctx_major: torch.Tensor, t_perm: torch.Tensor) -> torch.Tensor:
     """Permute a per-nnz vector from context-major to item-major order."""
-    return e_ctx_major[t_perm]
+    with span("reorder"):
+        return e_ctx_major[t_perm]
 
 
 def to_ctx_major(e_item_major: torch.Tensor, t_perm: torch.Tensor) -> torch.Tensor:
     """Inverse permutation of :func:`to_item_major`."""
-    out = torch.empty_like(e_item_major)
-    out[t_perm] = e_item_major
-    return out
+    with span("reorder"):
+        out = torch.empty_like(e_item_major)
+        out[t_perm] = e_item_major
+        return out

@@ -2,7 +2,8 @@
 accounting (port of ``repro.obs``; same metric and span names).
 
   metrics.py  label-aware Counter/Gauge/Histogram registry
-  trace.py    spans with parent/child links and batcher-ticket correlation
+  trace.py    spans with parent/child links and batcher-ticket correlation;
+              the installed tracer that training's spans reach
   export.py   JSONL + Prometheus text exposition; Chrome-trace JSON
   costs.py    per-dispatch bytes / FLOPs / shared memory of the kernels
   train.py    the ``fit(callback=...)`` metrics adapter of the training loop
@@ -30,7 +31,7 @@ from repro_torch.obs.metrics import (
     resolve_registry,
     set_default_registry,
 )
-from repro_torch.obs.trace import Span, Tracer, trace_for_ticket
+from repro_torch.obs.trace import Span, Tracer, installed, trace_for_ticket
 from repro_torch.obs.train import compose_callbacks, fit_metrics_callback
 
 __all__ = [
@@ -46,6 +47,7 @@ __all__ = [
     "compose_callbacks",
     "default_registry",
     "fit_metrics_callback",
+    "installed",
     "metrics_jsonl",
     "next_instance_id",
     "prometheus_text",

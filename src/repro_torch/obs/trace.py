@@ -35,9 +35,23 @@ Like everything in this repo's serving tier, the tracer takes an
 injectable clock so tests drive it under simulated time; tracing is
 OPT-IN per component (``tracer=None`` skips every span) and never
 touches result values.
+
+Training code does not thread a tracer through its calls: it opens
+spans with the module-level :func:`span`, which reaches the tracer that
+:func:`installed` put in place, and returns one shared no-op context
+when none is (no ``Span`` built, no profiler call). A tracer made with
+``profiler_ranges=True`` also enters a ``torch.profiler.record_function``
+range of the same name for each span, so under ``torch.profiler`` the
+span is a ``user_annotation`` event on the clock of the kernels and
+the ops it encloses; its attributes stay on the in-memory ``Span``::
+
+    with installed(Tracer(clock=time.perf_counter)) as tracer:
+        params = mf.fit(params, data, hp, n_epochs=4)
+    write_trace("train_trace.json", tracer, process_name="train")
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional
@@ -73,11 +87,17 @@ _AUTO_PARENT = object()  # sentinel: parent defaults to the active span
 class Tracer:
     """Collects spans; single-threaded like the serving loop it traces."""
 
-    def __init__(self, clock: Callable[[], float] = time.monotonic):
+    def __init__(self, clock: Callable[[], float] = time.monotonic, *,
+                 profiler_ranges: bool = False):
         self.clock = clock
         self.spans: List[Span] = []
         self._stack: List[Span] = []
         self._next_id = 0
+        self._profiler = None
+        if profiler_ranges:
+            import torch.profiler
+
+            self._profiler = torch.profiler
 
     @property
     def current(self) -> Optional[Span]:
@@ -89,8 +109,11 @@ class Tracer:
         caller owns its lifetime: pair with :meth:`end`. ``parent``
         overrides the default (the innermost active span); pass ``None``
         to force a root span, or a :class:`Span` to link explicitly."""
+        return self._open(name, parent, attrs)
+
+    def _open(self, name: str, parent, attrs: dict) -> Span:
         if parent is _AUTO_PARENT:
-            parent = self.current
+            parent = self._stack[-1] if self._stack else None
         sp = Span(
             self._next_id,
             parent.span_id if isinstance(parent, Span) else parent,
@@ -106,16 +129,11 @@ class Tracer:
             span.attrs.update(attrs)
         return span
 
-    @contextmanager
     def span(self, name: str, *, parent=_AUTO_PARENT, **attrs):
-        """Scoped span: begins, becomes the active parent, ends."""
-        sp = self.begin(name, parent=parent, **attrs)
-        self._stack.append(sp)
-        try:
-            yield sp
-        finally:
-            self._stack.pop()
-            self.end(sp)
+        """Scoped span: begins, becomes the active parent, ends; inside a
+        ``record_function`` range of the same name where the tracer was
+        made with ``profiler_ranges``."""
+        return _Scope(self, name, parent, attrs)
 
     @contextmanager
     def activate(self, span: Span):
@@ -143,6 +161,64 @@ class Tracer:
             out.append(sp)
             frontier.extend(by_parent.get(sp.span_id, ()))
         return out
+
+
+class _Scope:
+    """The context :meth:`Tracer.span` returns (a class, not a generator:
+    an epoch opens ≈ 10⁴ of them)."""
+
+    __slots__ = ("tracer", "name", "parent", "attrs", "span", "range")
+
+    def __init__(self, tracer: Tracer, name: str, parent, attrs: dict):
+        self.tracer = tracer
+        self.name = name
+        self.parent = parent
+        self.attrs = attrs
+        self.span: Optional[Span] = None
+        self.range = None
+
+    def __enter__(self) -> Span:
+        tracer = self.tracer
+        if tracer._profiler is not None:
+            self.range = tracer._profiler.record_function(self.name)
+            self.range.__enter__()
+        self.span = tracer._open(self.name, self.parent, self.attrs)
+        tracer._stack.append(self.span)
+        return self.span
+
+    def __exit__(self, *exc) -> bool:
+        tracer = self.tracer
+        tracer._stack.pop()
+        self.span.t1 = tracer.clock()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+_installed: Optional[Tracer] = None
+
+
+@contextmanager
+def installed(tracer: Tracer):
+    """Make ``tracer`` the one :func:`span` reaches for the block; the one
+    installed before (or none) comes back after."""
+    global _installed
+    prev, _installed = _installed, tracer
+    try:
+        yield tracer
+    finally:
+        _installed = prev
+
+
+def span(name: str, **attrs):
+    """A span of the installed tracer (parented to its innermost open
+    span), or, with none installed, one shared no-op context. ``name`` is
+    a static string: readers of the profiler's trace group by it."""
+    tracer = _installed
+    if tracer is None:
+        return _NO_SPAN
+    return tracer.span(name, **attrs)
 
 
 def trace_for_ticket(tracer: Tracer, ticket: int) -> List[Span]:

@@ -6,7 +6,10 @@ model's ``fit`` invokes its callback, so that is where the registry gets
 fed:
 
   * ``train_epoch_seconds``        histogram of epoch wall time
-                                   (boundary to boundary, registry clock)
+                                   (boundary to boundary, registry clock;
+                                   the params' CUDA device is synchronised
+                                   before each read, so the epoch's work
+                                   is timed, not its enqueue)
   * ``train_loss``                 gauge; set when an ``objective`` fn is
                                    given (the trajectory rides
                                    ``callback.history`` too)
@@ -36,6 +39,8 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.obs.costs import KernelCostRecorder
 from repro_torch.obs.metrics import next_instance_id, resolve_registry
 
@@ -56,6 +61,21 @@ def compose_callbacks(*callbacks) -> Callable:
 
     composed.callbacks = cbs
     return composed
+
+
+def _cuda_device(params):
+    """The CUDA device of the first CUDA tensor among ``params``' leaves
+    (a tensor, or a tuple, list or dict of them), or None."""
+    if isinstance(params, dict):
+        leaves = params.values()
+    elif isinstance(params, (tuple, list)):
+        leaves = params
+    else:
+        leaves = (params,)
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            return leaf.device
+    return None
 
 
 def fit_metrics_callback(
@@ -104,6 +124,9 @@ def fit_metrics_callback(
     state = {"t": clk()}
 
     def callback(epoch: int, params) -> None:
+        device = _cuda_device(params)
+        if device is not None:
+            torch.cuda.synchronize(device)
         now = clk()
         dt = now - state["t"]
         state["t"] = now

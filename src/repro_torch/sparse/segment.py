@@ -10,12 +10,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.trace import span
+
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
-                      device=data.device)
-    return out.index_add_(0, segment_ids, data)
+    with span("segment_sum"):
+        out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
+                          device=data.device)
+        return out.index_add_(0, segment_ids, data)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
