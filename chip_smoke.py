@@ -215,7 +215,14 @@ Phases, one line each or more:
      and the retrieval kernel beside ``torch.topk(phi @ psi.T)``; the
      log's seconds (drawn on the card), ``shard_interactions``' host
      seconds, the phase's wall and peak memory. ``epoch_web`` (500 M
-     interactions) is dry-run only.
+     interactions) is dry-run only;
+ 28. the sorted segment sum (``kernels/segment_sum``) at the cells' log
+     shape (``bench.harness.traffic.draw_log``, the ``youtube`` mix:
+     19,992,436 entries, 200,000 context rows, 68,000 item rows, the top
+     item ≈ 97,294): two and four values on each side, against the float64
+     sums (1e-6 of a row's Σ|x| + 1) and twice for the same bits, timed
+     beside its byte bound, its plain version, the ``zeros`` +
+     ``index_add_`` it replaced and ``torch.segment_reduce``.
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -234,7 +241,10 @@ the split-row form's chunk length, the residual patch's slots a thread);
 (:func:`slab_tune`: blocks an SM, slots in flight); ``--topk-tune`` only the variants of the top-K kernel's one-launch form
 (:func:`topk_tune`: threads a block, blocks an SM, blocks a cluster);
 ``--dist`` only phase 26, and ``--cells`` only phase 27, after building
-the Gram and top-K kernels.
+the Gram and top-K kernels; ``--segment-sum`` only phase 28, after
+building the segment-sum kernel; ``--segment-sum-tune`` only the variants
+of ``csrc/segment_sum.cu`` (:func:`segment_sum_tune`: threads a block, path
+items a lane).
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -829,6 +839,7 @@ def train_full_width(dev) -> dict:
     from repro_torch.eval.ranking import ranking_eval
     from repro_torch.kernels.cd_sweep import ops as cs
     from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.segment_sum import ops as seg_ops
     from repro_torch.kernels.topk_score import ops as tops, ref as tref
     from repro_torch.sparse.interactions import build_interactions
 
@@ -893,10 +904,16 @@ def train_full_width(dev) -> dict:
         torch.cuda.synchronize()
         finals[name] = (p, e, time.perf_counter() - t,
                         {c.__name__: c.launches for c in counters})
+    e_seg = mf.residuals(params0, data)
+    seg_ops.segment_sum_sorted.launches = 0
     t = time.perf_counter()
-    p_seg, _ = mf.epoch(params0, data, mf.residuals(params0, data), hp)
+    p_seg, _ = mf.epoch(params0, data, e_seg, hp)
     torch.cuda.synchronize()
     seg_s = time.perf_counter() - t
+    seg_launches = seg_ops.segment_sum_sorted.launches
+    del e_seg
+    # per side and column one sorted-sum call of two values, two launches
+    assert seg_launches == 2 * 2 * FULL["k"], seg_launches
     (pg, eg, sg, lg), (pp, ep_, sp, lp) = finals["gather"], finals["pregather"]
     assert lp["cd_block_sweep"] == 32 and lp["cd_block_sweep_gather"] == 0, lp
     for a, b in ((pp.w, pg.w), (pp.h, pg.h), (ep_, eg)):
@@ -913,7 +930,7 @@ def train_full_width(dev) -> dict:
     log(f"phase 6 one epoch from one start: gather {sg:.3f}s, pregather "
         f"{sp:.3f}s (max |dW| {dw:.3g}, rtol {DISPATCH_RTOL}), segment-sum "
         f"mf.epoch {seg_s:.3f}s (max |d| {seg_err:.3g}, rtol {EPOCH_RTOL} "
-        f"atol {EPOCH_ATOL})")
+        f"atol {EPOCH_ATOL}; {seg_launches} sorted-sum launches)")
 
     # streaming ranking eval of the trained model through the top-K kernel
     n_eval = 4096
@@ -946,7 +963,8 @@ def train_full_width(dev) -> dict:
         f"recompute {ref_r:.4f} / {ref_n:.4f}; {eval_launches} top-K launches")
     return {"launches": launches, "pdata": pdata, "params": trained,
             "eval_launches": eval_launches,
-            "pregather_launches": lp["cd_block_sweep"]}
+            "pregather_launches": lp["cd_block_sweep"],
+            "segment_sum_launches": seg_launches}
 
 
 def epoch_breakdown(fn, top: int = 8) -> str:
@@ -3241,6 +3259,7 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.models import fm
+    from repro_torch.kernels.segment_sum import ops as seg_ops
 
     cfg = get_config("icd-fm")
     assert (x.p, z.p, x.n_rows, z.n_rows, cfg.k) == (
@@ -3287,10 +3306,17 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
         and pre_launches["cd_slab_reduce_gather"] == 0, pre_launches
     d_pre = _hold_params(pp, pg, ep_, eg)
     del pp, ep_
+    e_flat = fm.residuals(params0, x, z, data, hp)
+    seg_ops.segment_sum_sorted.launches = 0
     t = time.perf_counter()
-    pf, ef = fm.epoch(params0, x, z, data, fm.residuals(params0, x, z, data, hp), hp)
+    pf, ef = fm.epoch(params0, x, z, data, e_flat, hp)
     torch.cuda.synchronize()
     flat_s = time.perf_counter() - t
+    seg_launches = seg_ops.segment_sum_sorted.launches
+    del e_flat
+    # per side p0, k moments calls and u for the linear layers, and u for
+    # the bias once: one sorted-sum call each, two launches
+    assert seg_launches == 2 * (2 * (k + 1) + 3), seg_launches
     d_flat = _hold_params(pf, pg, ef, eg[pdata.c_rows, pdata.c_cols])
     del pf, ef
     # m = 9 against m = 8 from one start, in turns (m 8, m 9, m 9, m 8)
@@ -3312,7 +3338,8 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
         f"pregather {pre_s[0]:.3f}s (slab reduce one-tile in all "
         f"{pre_launches['cd_slab_reduce:one_tile']} of its "
         f"{pre_launches['cd_slab_reduce']} launches, max |d param| {d_pre:.3g}); "
-        f"flat fm.epoch {flat_s:.3f}s (max |d param| {d_flat:.3g}); rtol "
+        f"flat fm.epoch {flat_s:.3f}s (max |d param| {d_flat:.3g}, {seg_launches} "
+        f"sorted-sum launches); rtol "
         f"{TENSOR_RTOL} atol {TENSOR_ATOL} (e atol {TENSOR_E_ATOL})")
     log(f"phase 19 m = 9 against m = 8, one epoch from one start each, in "
         f"turns (m 8, m 9, m 9, m 8): block_k 7 (m 8: {nb7} blocks a side, "
@@ -3328,7 +3355,8 @@ def train_fm_full_width(dev, x, z, data, pdata) -> dict:
         log(f"phase 19 epoch breakdown at {name[0]} = {name[1]} (torch.profiler, "
             f"one gather epoch and a copy of its start grid): {prof[name]}")
     return {"params": p, "hp": hp, "launches": launches,
-            "pre_launches": pre_launches, "m9_s": m9_s, "m8_s": m8_s}
+            "pre_launches": pre_launches, "m9_s": m9_s, "m8_s": m8_s,
+            "segment_sum_launches": seg_launches}
 
 
 def time_gram_fm(dev, p, x, z, hp) -> dict:
@@ -4364,6 +4392,197 @@ def cells_only() -> None:
     cells_full_width(torch.device("cuda", 0))
 
 
+def _segment_kernel_ms(fn, n: int = 10) -> dict:
+    """Device ms a call of each segment-sum kernel ``fn`` launches, by
+    name, from torch.profiler (empty when the profiler sees none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for j in range(n):
+            fn(j)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0 and "segment_sum" in ev.key and ev.device_type.name == "CUDA":
+            out[ev.key.split("<")[0].split("(")[0]] = us / n / 1e3
+    return out
+
+
+def segment_sums_at_cell_shape(dev) -> dict:
+    """Phase 28: the sorted segment sum (``kernels/segment_sum``) at the
+    cells' log shape: ``bench.harness.traffic.draw_log`` with the
+    ``youtube`` mix and icd-mf's sizes (19,992,436 entries; 200,000 rows
+    context-major, 68,000 item-major, the top item ≈ 97,294), random fp32
+    values. For each side, two values (MF's call) and four (FM's moments):
+    the kernel beside its byte bound, its plain version, the ``zeros`` +
+    ``index_add_`` a value that it replaced (on the sorted int64 row ids,
+    as the epochs held them) and ``torch.segment_reduce(..., offsets=)``
+    a value (the library yardstick, never called by the port); each pass's
+    time from the profiler; the result within 1e-6 of each row's Σ|x| + 1
+    of the float64 sums (beside the fp32 plain version's distance) and the
+    same bits in two launches."""
+    from bench.harness import traffic
+    from repro_torch.kernels.segment_sum import ops as so, ref as sr
+
+    with open(os.path.join(ROOT, "bench", "configs", "icd-mf.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, "bench", "traffic", "youtube.json")) as f:
+        mix = json.load(f)
+    n_ctx, n_items = int(cfg["n_ctx"]), int(cfg["n_items"])
+    t0 = time.perf_counter()
+    ctx, item = traffic.draw_log(n_ctx, n_items, mix["log"], dev)
+    t_item = torch.sort(item, stable=True).values
+    ctx_ptr = torch.searchsorted(ctx, torch.arange(n_ctx + 1, device=dev))
+    item_ptr = torch.searchsorted(t_item, torch.arange(n_items + 1, device=dev))
+    torch.cuda.synchronize()
+    nnz = int(ctx.shape[0])
+    top_item = int(torch.diff(item_ptr).max())
+    log(f"phase 28 log: {nnz} entries, {n_ctx} context rows (busiest "
+        f"{int(torch.diff(ctx_ptr).max())}), {n_items} item rows (top {top_item}), "
+        f"drawn on the card with its offsets in {time.perf_counter() - t0:.2f}s")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    values = [torch.randn((nnz,), generator=gen, device=dev) for _ in range(4)]
+    out = {"nnz": nnz, "top_item": top_item}
+    for side, ptr, ids in (("context", ctx_ptr, ctx), ("item", item_ptr, t_item)):
+        n = ptr.shape[0] - 1
+        for nv in (2, 4):
+            vals = values[:nv]
+            got = so.segment_sum_sorted(vals, ptr)
+            again = so.segment_sum_sorted(vals, ptr)
+            exact = sr.segment_sum_sorted_ref([v.double() for v in vals], ptr)
+            mass = sr.segment_sum_sorted_ref([v.double().abs() for v in vals], ptr)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                "two launches of the segment-sum kernel differ"
+            err = max(float(((g.double() - x).abs() / (m + 1.0)).max())
+                      for g, x, m in zip(got, exact, mass))
+            plain_err = max(float(((g.double() - x).abs() / (m + 1.0)).max())
+                            for g, x, m in zip(sr.segment_sum_sorted_ref(vals, ptr),
+                                               exact, mass))
+            assert err <= 1e-6, (side, nv, err)
+            del got, again, exact, mass
+            kernel_ms = device_ms(lambda j: so.segment_sum_sorted(vals, ptr))
+            passes = _segment_kernel_ms(lambda j: so.segment_sum_sorted(vals, ptr))
+            plain_ms = device_ms(lambda j: sr.segment_sum_sorted_ref(vals, ptr), n=10)
+            scatter_ms = device_ms(lambda j: [
+                torch.zeros(n, device=dev).index_add_(0, ids, v) for v in vals], n=20)
+            library_ms = device_ms(lambda j: [
+                torch.segment_reduce(v, "sum", offsets=ptr) for v in vals], n=20)
+            nbytes = nv * nnz * 4 + (n + 1) * 8 + nv * n * 4
+            bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+            out[f"{side}_v{nv}"] = dict(ms=kernel_ms, bound=bound_ms, plain=plain_ms,
+                                        scatter=scatter_ms, lib=library_ms,
+                                        passes=passes, err=err, plain_err=plain_err)
+            log(f"phase 28 {side} side, {nv} values: kernel {kernel_ms:.4f} ms "
+                f"({kernel_ms / bound_ms:.2f}x its bound {bound_ms:.4f} ms, bytes: "
+                f"{nbytes} B; by pass: "
+                f"{', '.join(f'{k} {v:.4f} ms' for k, v in passes.items()) or 'not measured'}"
+                f"), plain {plain_ms:.4f} ms, zeros + index_add_ x{nv} "
+                f"{scatter_ms:.4f} ms, torch.segment_reduce x{nv} {library_ms:.4f} ms; "
+                f"max |err| / (row's sum of |x| + 1) against float64 {err:.3g} (the "
+                f"plain version in fp32 {plain_err:.3g}), two launches bit for bit")
+    return out
+
+
+SEGSUM_TUNE_BUILDS = [(128, 23), (128, 15), (64, 23), (256, 23)]
+
+
+def segment_sum_tune() -> None:
+    """Build ``csrc/segment_sum.cu`` in ``SEGSUM_TUNE_BUILDS``' variants
+    (threads a block, path items a lane) and time each at phase 28's shapes,
+    two and four values on both sides, each result within 1e-6 of each
+    row's Σ|x| + 1 of the float64 sums, with registers and spills by
+    kernel."""
+    import ctypes
+
+    from bench.harness import traffic
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_sum import kernel as sk, ref as sr
+
+    dev = torch.device("cuda", 0)
+    libs = {cfg: build.CudaLibrary(
+        "segment_sum", sk.LIB.source,
+        defines={"SEGSUM_THREADS": cfg[0], "SEGSUM_ITEMS": cfg[1]},
+        bind=sk._bind) for cfg in SEGSUM_TUNE_BUILDS}
+    t0 = time.perf_counter()
+    build.build_all(libs.values())
+    log(f"segment-sum tune: {len(libs)} builds in {time.perf_counter() - t0:.1f}s")
+    with open(os.path.join(ROOT, "bench", "configs", "icd-mf.json")) as f:
+        cfg_mf = json.load(f)
+    with open(os.path.join(ROOT, "bench", "traffic", "youtube.json")) as f:
+        mix = json.load(f)
+    n_ctx, n_items = int(cfg_mf["n_ctx"]), int(cfg_mf["n_items"])
+    ctx, item = traffic.draw_log(n_ctx, n_items, mix["log"], dev)
+    t_item = torch.sort(item, stable=True).values
+    ptrs = {"context": torch.searchsorted(ctx, torch.arange(n_ctx + 1, device=dev)),
+            "item": torch.searchsorted(t_item, torch.arange(n_items + 1, device=dev))}
+    nnz = int(ctx.shape[0])
+    del ctx, item, t_item
+    gen = torch.Generator(device=dev).manual_seed(28)
+    values = [torch.randn((nnz,), generator=gen, device=dev) for _ in range(4)]
+    truth = {(side, nv): (sr.segment_sum_sorted_ref([v.double() for v in values[:nv]], ptr),
+                          sr.segment_sum_sorted_ref([v.double().abs() for v in values[:nv]], ptr))
+             for side, ptr in ptrs.items() for nv in (2, 4)}
+    for (threads, items), lib in libs.items():
+        so = lib.load()
+        tile = threads * items
+        ptx = " | ".join(ln.split("'")[1][:40] if "Compiling entry" in ln else ln.strip()
+                         for ln in lib.build_log.splitlines()
+                         if "Compiling entry" in ln or "registers" in ln or "spill" in ln)
+        times = []
+        for side, ptr in ptrs.items():
+            n = ptr.shape[0] - 1
+            for nv in (2, 4):
+                vals = values[:nv]
+                per = ctypes.c_int(0)
+                lib.check(so.segment_sum_blocks(nv, ctypes.byref(per)), "segment_sum")
+                blocks = min(per.value, -(-(n + nnz) // tile))
+                scratch = torch.empty(blocks * threads // 32 * (12 + 8 * nv),
+                                      dtype=torch.uint8, device=dev)
+                outs = torch.empty((nv, n), device=dev)
+
+                def call(j):
+                    rc = so.segment_sum_f32(
+                        ptr.data_ptr(), n, nnz, nv, *[v.data_ptr() for v in vals],
+                        *[None] * (4 - nv), *[o.data_ptr() for o in outs], *[None] * (4 - nv),
+                        blocks, scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                    lib.check(rc, "segment_sum")
+
+                call(0)
+                torch.cuda.synchronize()
+                exact, mass = truth[(side, nv)]
+                err = max(float(((o.double() - x).abs() / (m + 1.0)).max())
+                          for o, x, m in zip(outs, exact, mass))
+                assert err <= 1e-6, (threads, items, side, nv, err)
+                ms = device_ms(call)
+                nbytes = nv * nnz * 4 + (n + 1) * 8 + nv * n * 4
+                times.append(f"{side} {nv}v {ms:.4f} ms "
+                             f"({ms / (nbytes / H100_BYTES_PER_S * 1e3):.2f}x, {blocks} blocks)")
+        log(f"segment-sum tune {threads} threads x {items} items: "
+            f"{'; '.join(times)}; ptxas {ptx}")
+
+
+def segment_sum_only() -> None:
+    """Phase 28 alone, after building the segment-sum kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_sum import kernel as sk
+
+    t0 = time.perf_counter()
+    build.build_all([sk.LIB])
+    ptxas = [ln.strip() for ln in sk.LIB.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    log(f"phase 1 build: {sk.LIB.path().name} in {time.perf_counter() - t0:.1f}s; "
+        f"ptxas: {' | '.join(ptxas)}")
+    segment_sums_at_cell_shape(torch.device("cuda", 0))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4372,6 +4591,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.cd_sweep import kernel as cd_kernel
     from repro_torch.kernels.gram import kernel as gram_kernel
+    from repro_torch.kernels.segment_sum import kernel as seg_kernel
     from repro_torch.kernels.topk_score import kernel, ops, ref
     from repro_torch.launch import serve
 
@@ -4380,7 +4600,7 @@ def main() -> None:
 
     # 1. build every kernel, one nvcc per source, all at once
     libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB, cd_kernel.SLAB_LIB,
-            cd_kernel.GATHER_LIB]
+            cd_kernel.GATHER_LIB, seg_kernel.LIB]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
@@ -4596,6 +4816,11 @@ def main() -> None:
     cells27 = cells_full_width(dev)
     log(f"phase 27 done in {time.perf_counter() - t0:.1f}s")
 
+    # 28. the sorted segment sum at the cells' log shape
+    t0 = time.perf_counter()
+    seg28 = segment_sums_at_cell_shape(dev)
+    log(f"phase 28 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -4723,6 +4948,21 @@ def main() -> None:
     for r in kernels:
         if r["name"] in cell_launches:
             r["cells"] = {"launches": cell_launches[r["name"]]}
+    # the sorted segment sum (phase 28's times, two values a call, the two
+    # sides' mean; launches of phase 6's flat mf.epoch, the main path, and
+    # of phase 19's flat fm.epoch)
+    seg = {key: [seg28[f"{side}_v2"][key] for side in ("context", "item")]
+           for key in ("ms", "plain", "bound", "lib", "err")}
+    kernels.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
+        "replaces": "none (jax.ops.segment_sum under XLA)",
+        "launches": tr["segment_sum_launches"],
+        "fm": {"launches": fmx["segment_sum_launches"]},
+        "max_abs_err": max(seg["err"]),
+        "ms": float(np.mean(seg["ms"])), "plain_ms": float(np.mean(seg["plain"])),
+        "bound_ms": float(np.mean(seg["bound"])), "bound_by": "bytes",
+        "library_ms": float(np.mean(seg["lib"]))})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4748,5 +4988,9 @@ if __name__ == "__main__":
         dist_only()
     elif sys.argv[1:] == ["--cells"]:
         cells_only()
+    elif sys.argv[1:] == ["--segment-sum"]:
+        segment_sum_only()
+    elif sys.argv[1:] == ["--segment-sum-tune"]:
+        segment_sum_tune()
     else:
         main()

@@ -36,7 +36,10 @@ for each m is chosen inside ``kernels/cd_sweep/ops.py``.
 
 PyTorch runs eagerly: the layers are host loops of gathers and
 ``index_add_`` segment sums in full fp32 (atomics on CUDA, so the last bits
-can change from run to run). ``e_pad`` is updated in place, as the
+can change from run to run); the flat epoch's sums over the log's sorted
+rows (p0, the moments p2, p1, q, u, and u for the linear layers and the
+bias) go to ``segment.segment_sum_sorted``, a hand-written kernel on CUDA
+that sums in a fixed order. ``e_pad`` is updated in place, as the
 reference donates it. Where ``use_linear``/``use_bias`` is off, the epochs
 return the parameter as it came (the reference returns ``None`` there).
 :func:`params_from_numpy` carries the JAX package's ``FMParams`` over.
@@ -71,7 +74,7 @@ from repro_torch.kernels.cd_sweep.ops import (
 )
 from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions
-from repro_torch.sparse.segment import segment_sum
+from repro_torch.sparse.segment import segment_sum, segment_sum_sorted
 
 __all__ = ["FMParams", "FMHyperParams", "pad_interactions", "init",
            "params_from_numpy", "phi_ext", "psi_ext", "export_psi",
@@ -290,26 +293,28 @@ def _linear_and_bias(lin, bias, self_ext, other_j, layers, e, u_of, patch,
 
 
 def _side_sweep(table, lin, bias, self_ext, other_ext, other_j,
-                design: Design, rows_nnz, other_nnz_ids, alpha, e, spec_col,
-                hp: FMHyperParams, schedule=None, sweep_index: int = 0):
+                design: Design, rows_nnz, row_ptr, other_nnz_ids, alpha, e,
+                spec_col, hp: FMHyperParams, schedule=None,
+                sweep_index: int = 0):
     """One side's sweep over the flat observations: dims, linear weights,
-    bias. ``table`` and ``self_ext`` are updated in place; returns
-    (table, lin, bias, self_ext, e) with a new ``e``."""
+    bias. ``rows_nnz`` are the entries' rows, sorted, and ``row_ptr`` their
+    (n + 1,) CSR offsets. ``table`` and ``self_ext`` are updated in place;
+    returns (table, lin, bias, self_ext, e) with a new ``e``."""
     n_rows = design.n_rows
     side = "ctx" if spec_col == hp.k else "item"
     layers = _field_layers(design, hp)
     o_spec_nnz = other_ext[:, spec_col][other_nnz_ids]     # ones, kept generic
-    p0 = segment_sum(alpha * o_spec_nnz * o_spec_nnz, rows_nnz, n_rows)
+    p0, = segment_sum_sorted((alpha * o_spec_nnz * o_spec_nnz,), row_ptr)
     j_ss = other_j[spec_col, spec_col]
 
     def dim_body(f, carry):
         table, self_ext, e = carry
         with span("fm.moments"):
             other_f_nnz = other_ext[:, f][other_nnz_ids]
-            p2 = segment_sum(alpha * other_f_nnz * other_f_nnz, rows_nnz, n_rows)
-            p1 = segment_sum(alpha * other_f_nnz * o_spec_nnz, rows_nnz, n_rows)
-            q = segment_sum(alpha * e * other_f_nnz, rows_nnz, n_rows)
-            u = segment_sum(alpha * e * o_spec_nnz, rows_nnz, n_rows)
+            a_f, a_e = alpha * other_f_nnz, alpha * e  # α·ψ_f and α·e, each once
+            p2, p1, q, u = segment_sum_sorted(
+                (a_f * other_f_nnz, a_f * o_spec_nnz, a_e * other_f_nnz,
+                 a_e * o_spec_nnz), row_ptr)
         r_a = self_ext @ other_j[:, f]
         r_b = self_ext @ other_j[:, spec_col]
         j_ff, j_fs = other_j[f, f], other_j[f, spec_col]
@@ -330,7 +335,7 @@ def _side_sweep(table, lin, bias, self_ext, other_ext, other_j,
 
     lin, bias, e = _linear_and_bias(
         lin, bias, self_ext, other_j, layers, e,
-        lambda e: segment_sum(alpha * e * o_spec_nnz, rows_nnz, n_rows),
+        lambda e: segment_sum_sorted((alpha * e * o_spec_nnz,), row_ptr)[0],
         lambda e, d: e + (d[rows_nnz] if d.dim() else d) * o_spec_nnz,
         p0, j_ss, n_rows, spec_col, hp)
     return table, lin, bias, self_ext, e
@@ -449,14 +454,15 @@ def epoch(params: FMParams, x: Design, z: Design, data: Interactions,
         se = psi_ext(params, z, hp)
         j_i = gram(se, implementation=hp.implementation)
         w, w_lin, b, pe, e = _side_sweep(
-            w, w_lin, b, pe, se, j_i, x, data.ctx, data.item, data.alpha, e,
-            spec_col=hp.k, hp=hp, schedule=schedule, sweep_index=sweep_index)
+            w, w_lin, b, pe, se, j_i, x, data.ctx, data.ctx_ptr, data.item,
+            data.alpha, e, spec_col=hp.k, hp=hp, schedule=schedule,
+            sweep_index=sweep_index)
         j_c = gram(pe, implementation=hp.implementation)
         e_t = sweeps.to_item_major(e, data.t_perm)
         alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
         h, h_lin, _, se, e_t = _side_sweep(
-            h, h_lin, None, se, pe, j_c, z, data.t_item, data.t_ctx, alpha_t,
-            e_t, spec_col=hp.k + 1, hp=hp, schedule=schedule,
+            h, h_lin, None, se, pe, j_c, z, data.t_item, data.item_ptr,
+            data.t_ctx, alpha_t, e_t, spec_col=hp.k + 1, hp=hp, schedule=schedule,
             sweep_index=sweep_index)
         e = sweeps.to_ctx_major(e_t, data.t_perm)
     return _params(params, b, w_lin, w, h_lin, h), e

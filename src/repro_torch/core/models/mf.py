@@ -8,8 +8,10 @@ R'(w_{c*,f*}) = 2 Σ_f J_I(f,f*)·w_{c*,f} and R''(w_{c*,f*}) = 2 J_I(f*,f*)
 (eqs. 18–19): an epoch costs O((|C|+|I|)k² + |S|k).
 
 The epoch here is the segment-sum form over the flat COO layout: each
-column update is a gather, two segment sums, a mat-vec with the opposite
-Gram, the Newton step and a rank-1 residual patch, all in PyTorch. The
+column update is a gather, the two segment sums over the log's sorted rows
+in one call (``segment.segment_sum_sorted``, a hand-written kernel on
+CUDA), a mat-vec with the opposite Gram, the Newton step and a rank-1
+residual patch, the rest in PyTorch. The
 kernel-fused form over the padded layout is ``mf_padded``.
 :func:`params_from_numpy` carries the JAX package's ``MFParams`` over as
 numpy arrays.
@@ -28,7 +30,7 @@ from repro_torch.core.implicit import implicit_objective
 from repro_torch.kernels import resolve_device
 from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions
-from repro_torch.sparse.segment import segment_sum
+from repro_torch.sparse.segment import segment_sum_sorted
 
 
 class MFParams(NamedTuple):
@@ -112,20 +114,21 @@ def scores_all(params: MFParams) -> torch.Tensor:
 
 
 def _side_sweep(side, other_j, other_cols_nnz, rows_nnz, alpha, e,
-                n_rows: int, hp: MFHyperParams,
+                row_ptr: torch.Tensor, hp: MFHyperParams,
                 schedule: Optional[sweeps.SweepSchedule] = None,
                 sweep_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One dimension sweep over one side; returns (side, new_e). ``side``
-    is updated in place. With a ``schedule`` the sweep covers only the
-    scheduled blocks for this ``sweep_index``."""
+    is updated in place. ``rows_nnz`` are the entries' rows, sorted, and
+    ``row_ptr`` their (n + 1,) CSR offsets. With a ``schedule`` the sweep
+    covers only the scheduled blocks for this ``sweep_index``."""
 
     def body(f, carry):
         side_m, e = carry
         o_col = other_cols_nnz(f)                      # (nnz,)
         s_col = sweeps.take_col(side_m, f)             # (n,)
         # explicit parts (L'/2, L''/2) from the residual cache
-        lp = segment_sum(alpha * e * o_col, rows_nnz, n_rows)
-        lpp = segment_sum(alpha * o_col * o_col, rows_nnz, n_rows)
+        lp, lpp = segment_sum_sorted((alpha * e * o_col, alpha * o_col * o_col),
+                                     row_ptr)
         # implicit parts (R'/2, R''/2) via the opposite Gram (Lemma 3)
         rp = side_m @ sweeps.take_col(other_j, f)
         rpp = other_j[f, f]
@@ -160,7 +163,7 @@ def epoch(params: MFParams, data: Interactions, e: torch.Tensor,
         j_i = gram(h, implementation=hp.implementation)
         w, e = _side_sweep(
             w, j_i, lambda f: sweeps.take_col(h, f)[data.item], data.ctx,
-            data.alpha, e, data.n_ctx, hp, schedule, sweep_index)
+            data.alpha, e, data.ctx_ptr, hp, schedule, sweep_index)
 
         # item side: J_C from the just-updated context factors
         j_c = gram(w, implementation=hp.implementation)
@@ -168,7 +171,7 @@ def epoch(params: MFParams, data: Interactions, e: torch.Tensor,
         alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
         h, e_t = _side_sweep(
             h, j_c, lambda f: sweeps.take_col(w, f)[data.t_ctx], data.t_item,
-            alpha_t, e_t, data.n_items, hp, schedule, sweep_index)
+            alpha_t, e_t, data.item_ptr, hp, schedule, sweep_index)
         e = sweeps.to_ctx_major(e_t, data.t_perm)
     return MFParams(w, h), e
 

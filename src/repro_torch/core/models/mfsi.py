@@ -69,7 +69,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_slab_reduce_gather,
 )
 from repro_torch.sparse.interactions import Interactions
-from repro_torch.sparse.segment import segment_sum
+from repro_torch.sparse.segment import segment_sum, segment_sum_sorted
 
 __all__ = ["MFSIParams", "MFSIHyperParams", "pad_interactions", "init",
            "params_from_numpy", "phi", "psi", "export_psi", "build_phi",
@@ -198,18 +198,19 @@ def _field_layers(design: Design, hp) -> list:
 
 
 def _side_sweep(table, phi_m, other_psi, other_j, design: Design, rows_nnz,
-                other_nnz_ids, alpha, e, hp: MFSIHyperParams, schedule=None,
-                sweep_index: int = 0):
-    """One side's per-dimension sweep over the flat observations; ``table``
-    and ``phi_m`` are updated in place, ``e`` comes back new."""
-    n_rows = design.n_rows
+                row_ptr, other_nnz_ids, alpha, e, hp: MFSIHyperParams,
+                schedule=None, sweep_index: int = 0):
+    """One side's per-dimension sweep over the flat observations;
+    ``rows_nnz`` are the entries' rows, sorted, and ``row_ptr`` their
+    (n + 1,) CSR offsets. ``table`` and ``phi_m`` are updated in place,
+    ``e`` comes back new."""
     layers = _field_layers(design, hp)
 
     def dim_body(f, carry):
         table, phi_m, e = carry
         psi_nnz = sweeps.take_col(other_psi, f)[other_nnz_ids]
-        p2 = segment_sum(alpha * psi_nnz * psi_nnz, rows_nnz, n_rows)
-        q = segment_sum(alpha * e * psi_nnz, rows_nnz, n_rows)
+        p2, q = segment_sum_sorted((alpha * psi_nnz * psi_nnz, alpha * e * psi_nnz),
+                                   row_ptr)
         r_vec = phi_m @ sweeps.take_col(other_j, f)
         jff = other_j[f, f]
         table_col = sweeps.take_col(table, f)
@@ -302,14 +303,14 @@ def epoch(params: MFSIParams, x: Design, z: Design, data: Interactions,
         psi_m = design_matmul(z, h)
         j_i = gram(psi_m, implementation=hp.implementation)
         w, phi_m, e = _side_sweep(w, phi_m, psi_m, j_i, x, data.ctx,
-                                  data.item, data.alpha, e, hp, schedule,
-                                  sweep_index)
+                                  data.ctx_ptr, data.item, data.alpha, e, hp,
+                                  schedule, sweep_index)
         j_c = gram(phi_m, implementation=hp.implementation)
         e_t = sweeps.to_item_major(e, data.t_perm)
         alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
         h, psi_m, e_t = _side_sweep(h, psi_m, phi_m, j_c, z, data.t_item,
-                                    data.t_ctx, alpha_t, e_t, hp, schedule,
-                                    sweep_index)
+                                    data.item_ptr, data.t_ctx, alpha_t, e_t,
+                                    hp, schedule, sweep_index)
     return MFSIParams(w, h), sweeps.to_ctx_major(e_t, data.t_perm)
 
 

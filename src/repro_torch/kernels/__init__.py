@@ -37,6 +37,9 @@ Kernels:
                ``cd_resid_patch_pallas`` and
                ``cd_resid_patch_gather_pallas``).
   cd_update  — the per-column update, one k_b = 1 launch of ``cd_sweep``.
+  segment_sum — sums of 1 to 4 value vectors over rows given as CSR
+               offsets, in a fixed order (no TPU kernel: the JAX package
+               leaves ``jax.ops.segment_sum`` to XLA).
 """
 from __future__ import annotations
 

@@ -27,6 +27,11 @@ class Interactions:
       t_ctx, t_item, t_perm — ``t_perm`` maps item-major position →
       context-major position, so residual caches move between sweeps.
 
+    CSR row offsets of the two orders, int64, for the sums by sorted row
+    (``segment.segment_sum_sorted``):
+      ctx_ptr:  (n_ctx + 1,) — context c's entries are [ctx_ptr[c], ctx_ptr[c+1])
+      item_ptr: (n_items + 1,) — item i's, in the item-major view
+
     Index tensors are int64 (torch's index type); the reference keeps
     int32, with the same values.
     """
@@ -38,6 +43,8 @@ class Interactions:
     t_ctx: torch.Tensor
     t_item: torch.Tensor
     t_perm: torch.Tensor
+    ctx_ptr: torch.Tensor
+    item_ptr: torch.Tensor
     n_ctx: int
     n_items: int
 
@@ -76,6 +83,7 @@ def build_interactions(ctx, item, y, alpha, n_ctx: int, n_items: int,
     order = np.lexsort((item, ctx))
     ctx, item, y, alpha = ctx[order], item[order], y[order], alpha[order]
     t_order = np.lexsort((ctx, item))
+    t_item = item[t_order]
 
     def dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -86,7 +94,9 @@ def build_interactions(ctx, item, y, alpha, n_ctx: int, n_items: int,
         y=dev(y.astype(np.float32), torch.float32),
         alpha=dev(alpha.astype(np.float32), torch.float32),
         t_ctx=dev(ctx[t_order], torch.int64),
-        t_item=dev(item[t_order], torch.int64),
+        t_item=dev(t_item, torch.int64),
         t_perm=dev(t_order, torch.int64),
+        ctx_ptr=dev(np.searchsorted(ctx, np.arange(n_ctx + 1)), torch.int64),
+        item_ptr=dev(np.searchsorted(t_item, np.arange(n_items + 1)), torch.int64),
         n_ctx=int(n_ctx), n_items=int(n_items),
     )

@@ -3,13 +3,16 @@
 ``index_add_`` and ``scatter_reduce_`` are PyTorch's scatter-reduces. On
 CUDA the sum uses atomics, so its order, and the last bits of a float
 result, can change from run to run: hold it to a tolerance, not to bit
-equality."""
+equality. :func:`segment_sum_sorted` is the sum for values already sorted
+by row, given as CSR offsets (the interaction log's two orders): on CUDA a
+hand-written kernel that sums in a fixed order, with no atomics."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels.segment_sum import ops as segment_sum_ops
 from repro_torch.obs.trace import span
 
 
@@ -19,6 +22,15 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
         out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
                           device=data.device)
         return out.index_add_(0, segment_ids, data)
+
+
+def segment_sum_sorted(values, offsets: torch.Tensor) -> tuple:
+    """Per-row sums of 1 to 4 (nnz,) value vectors sorted by row, with the
+    (n + 1,) int64 CSR ``offsets`` of those rows: one (n,) sum a vector,
+    ``kernels/segment_sum`` on CUDA. The same sums as :func:`segment_sum`
+    with the rows spelt out, for callers that hold the offsets."""
+    with span("segment_sum"):
+        return segment_sum_ops.segment_sum_sorted(values, offsets)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,

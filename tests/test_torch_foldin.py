@@ -177,7 +177,7 @@ def test_one_sweep_matches_mf_side_sweep_single_row():
     side, _ = mf._side_sweep(
         torch.zeros((1, k)), th.T @ th, lambda f: th[torch.as_tensor(ids), f],
         torch.zeros(m, dtype=torch.long), torch.as_tensor(alpha),
-        torch.as_tensor(-y), 1, hp)
+        torch.as_tensor(-y), torch.tensor([0, m]), hp)
     _close(got.row, side[0], SWEEP_RTOL, SWEEP_ATOL)
     hj = jnp.asarray(h)
     jside, _ = j_side_sweep(

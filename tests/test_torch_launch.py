@@ -2727,3 +2727,191 @@ def test_wrapper_slices_rows_past_65535_on_the_cpu(monkeypatch, form, excl):
         "launches": 2, "launches_chain": 2 if form == "chain" else 0,
         "launches_mask": 2 if excl == "mask" else 0,
         "launches_ivf": 2 if form == "ivf" else 0}
+
+
+# --------------------------------------------------------------------------
+# The sorted segment sum (kernels/segment_sum): the merge-path kernel over
+# CSR offsets against its plain version.
+# --------------------------------------------------------------------------
+def _sorted_layout(case):
+    """Row lengths of one layout (all with many slices of the kernel's
+    path): a row of 150,000 entries, runs of length-1 rows, a tail of empty
+    rows, an nnz that is not a multiple of 4, and a skewed log's rows."""
+    rng = np.random.default_rng(60)
+    if case == "long_row":
+        return np.concatenate([rng.integers(0, 9, 3000), [150_000],
+                               rng.integers(0, 9, 3000)])
+    if case == "runs_of_one":
+        return np.concatenate([np.ones(50_000, np.int64), [0, 0, 7],
+                               np.ones(20_000, np.int64)])
+    if case == "empty_tail":
+        return np.concatenate([rng.integers(1, 40, 5000),
+                               np.zeros(30_000, np.int64)])
+    if case == "odd_nnz":
+        lengths = rng.integers(0, 5, 4001)
+        lengths[-1] += (3 - lengths.sum()) % 4  # nnz ≡ 3 (mod 4)
+        return lengths
+    # "skewed": item degrees of a power-law log, the top row 97,000
+    return np.maximum(0, (97_000 / np.arange(1, 20_001)).astype(np.int64)
+                      - rng.integers(0, 3, 20_000))
+
+
+SORTED_CASES = ("long_row", "runs_of_one", "empty_tail", "odd_nnz", "skewed")
+
+
+def _sorted_inputs(dev, case, n_values, *, lead=0, integers=True):
+    """Values (views ``lead`` floats into their storage), offsets, and the
+    plain version's sums on the CPU."""
+    from repro_torch.kernels.segment_sum.ref import segment_sum_sorted_ref
+
+    lengths = _sorted_layout(case)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
+                           dtype=torch.int64, device=dev)
+    nnz = int(lengths.sum())
+    gen = torch.Generator(device=dev).manual_seed(nnz + n_values + lead)
+    values = []
+    for _ in range(n_values):
+        if integers:  # every partial sum exact in fp32
+            big = torch.randint(-3, 4, (nnz + lead,), generator=gen,
+                                device=dev).float()
+        else:
+            big = torch.randn((nnz + lead,), generator=gen, device=dev)
+        values.append(big[lead:])  # a view ``lead`` floats into its storage
+    want = segment_sum_sorted_ref([v.cpu() for v in values], offsets.cpu())
+    return values, offsets, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_values", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", SORTED_CASES)
+def test_segment_sum_sorted_kernel_exact_on_cuda(cuda, case, n_values):
+    """Small integers, so every order of summation gives the same bits: the
+    kernel equals the plain version exactly, empty rows read 0 in memory
+    the allocator last filled with NaN, two launches a call."""
+    from repro_torch.kernels.segment_sum import ops as seg_ops
+
+    values, offsets, want = _sorted_inputs(cuda, case, n_values)
+    n = offsets.shape[0] - 1
+    junk = torch.full((n_values, n), float("nan"), device=cuda)
+    del junk  # the result's block, next, held NaN
+    before = seg_ops.segment_sum_sorted.launches
+    got = seg_ops.segment_sum_sorted(values, offsets)
+    torch.cuda.synchronize()
+    assert seg_ops.segment_sum_sorted.launches == before + 2
+    assert len(got) == n_values
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", ["long_row", "odd_nnz", "skewed"])
+def test_segment_sum_sorted_kernel_unaligned_random_repeatable_on_cuda(cuda, case, lead):
+    """Random fp32 values that start ``lead`` floats past a 16-byte
+    boundary: within 1e-6 of each row's Σ|x| (plus 1e-6) of the sums taken
+    in float64 (the kernel's sums are at most ≈ 80 additions deep; a lost or
+    doubled entry of the 150,000-entry row moves it by ≈ 7e-6 of Σ|x|),
+    and two calls give the same bits."""
+    from repro_torch.kernels.segment_sum import ops as seg_ops
+    from repro_torch.kernels.segment_sum.ref import segment_sum_sorted_ref
+
+    values, offsets, _ = _sorted_inputs(cuda, case, 4, lead=lead, integers=False)
+    assert values[0].data_ptr() % 16 == 4 * lead
+    got = seg_ops.segment_sum_sorted(values, offsets)
+    again = seg_ops.segment_sum_sorted(values, offsets)
+    torch.cuda.synchronize()
+    exact = segment_sum_sorted_ref([v.double().cpu() for v in values], offsets.cpu())
+    mass = segment_sum_sorted_ref([v.double().abs().cpu() for v in values],
+                                  offsets.cpu())
+    for g, a, x, m in zip(got, again, exact, mass):
+        assert torch.equal(g, a)
+        assert bool(((g.cpu().double() - x).abs() <= 1e-6 * m + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_values", [2, 4])
+@pytest.mark.parametrize("lead", [1, 3])
+@pytest.mark.parametrize("case", ["long_row", "odd_nnz", "skewed"])
+def test_segment_sum_sorted_kernel_same_bits_in_100_launches_on_cuda(cuda, case, lead,
+                                                                     n_values):
+    """100 launches over one unaligned layout give the same bits, each into
+    memory the allocator last filled with NaN: a row that a launch failed
+    to write, or summed in another order, shows."""
+    from repro_torch.kernels.segment_sum import ops as seg_ops
+
+    values, offsets, _ = _sorted_inputs(cuda, case, n_values, lead=lead, integers=False)
+    n = offsets.shape[0] - 1
+    first = torch.stack(seg_ops.segment_sum_sorted(values, offsets))
+    assert bool(torch.isfinite(first).all())
+    differ = 0
+    for _ in range(100):
+        junk = torch.full((n_values, n), float("nan"), device=cuda)
+        del junk  # the result's block, next, held NaN
+        got = torch.stack(seg_ops.segment_sum_sorted(values, offsets))
+        differ += int(not torch.equal(got, first))
+    assert differ == 0, f"{differ} of 100 launches differ from the first"
+
+
+@pytest.mark.gpu
+def test_segment_sum_sorted_kernel_edges_on_cuda(cuda):
+    """No entries at all (every row 0), one row, no rows (no launch), and
+    what the kernel does not take: a strided or float64 vector, int32
+    offsets."""
+    from repro_torch.kernels.segment_sum import ops as seg_ops
+
+    before = seg_ops.segment_sum_sorted.launches
+    empty = torch.zeros(0, device=cuda)
+    got, = seg_ops.segment_sum_sorted([empty], torch.zeros(7, dtype=torch.int64,
+                                                            device=cuda))
+    assert torch.equal(got, torch.zeros(6, device=cuda))
+    v = torch.arange(10, dtype=torch.float32, device=cuda)
+    got = seg_ops.segment_sum_sorted([v, 2 * v], torch.tensor([0, 10], device=cuda))
+    assert [float(g) for g in torch.cat(got)] == [45.0, 90.0]
+    mid = seg_ops.segment_sum_sorted.launches
+    assert mid == before + 4
+    none, = seg_ops.segment_sum_sorted([empty], torch.zeros(1, dtype=torch.int64,
+                                                             device=cuda))
+    assert none.shape == (0,) and seg_ops.segment_sum_sorted.launches == mid
+    offsets = torch.tensor([0, 5, 10], device=cuda)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        seg_ops.segment_sum_sorted([torch.zeros(20, device=cuda)[::2]], offsets)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        seg_ops.segment_sum_sorted([v.double()], offsets)
+    with pytest.raises(ValueError, match="int64"):
+        seg_ops.segment_sum_sorted([v], offsets.int())
+
+
+@pytest.mark.gpu
+def test_mf_epoch_sums_by_the_kernel_not_index_add_on_cuda(cuda):
+    """A tiny ``mf.epoch`` on the card launches no ``aten::index_add_``:
+    each column's two sums on each side are one call of the kernel (two
+    launches), and the epoch matches the same epoch on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.models import mf
+    from repro_torch.kernels.segment_sum import ops as seg_ops
+    from repro_torch.sparse.interactions import build_interactions
+
+    rng = np.random.default_rng(61)
+    n_ctx, n_items, k, nnz = 300, 120, 8, 4000
+    cells = rng.choice(n_ctx * n_items, nnz, replace=False)
+    w0 = (0.1 * rng.normal(size=(n_ctx, k))).astype(np.float32)
+    h0 = (0.1 * rng.normal(size=(n_items, k))).astype(np.float32)
+    hp = mf.MFHyperParams(k=k)
+    out = {}
+    for dev in ("cpu", cuda):
+        data = build_interactions(cells // n_items, cells % n_items, np.ones(nnz),
+                                  np.full(nnz, 3.0), n_ctx, n_items, device=dev)
+        params = mf.params_from_numpy(w0, h0, device=dev)
+        e = mf.residuals(params, data)
+        before = seg_ops.segment_sum_sorted.launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out[str(dev)] = mf.epoch(params, data, e, hp)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert seg_ops.segment_sum_sorted.launches == before + 2 * 2 * k
+            names = {ev.key for ev in prof.key_averages()}
+            assert "aten::index_add_" not in names, sorted(names)
+    (pc, ec), (pg, eg) = out["cpu"], out[str(cuda)]
+    for a, b in ((pc.w, pg.w), (pc.h, pg.h), (ec, eg)):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-5)

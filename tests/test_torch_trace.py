@@ -83,12 +83,13 @@ def test_without_a_tracer_an_epoch_reaches_no_profiler_and_builds_no_span(model,
     step()
 
 
-def _count_calls(fn, run):
-    """Calls of the Python function ``fn`` while ``run()`` runs."""
+def _count_calls(fns, run):
+    """Calls of the Python functions ``fns`` while ``run()`` runs."""
+    codes = {fn.__code__ for fn in fns}
     n = [0]
 
     def prof(frame, event, arg):
-        if event == "call" and frame.f_code is fn.__code__:
+        if event == "call" and frame.f_code in codes:
             n[0] += 1
 
     sys.setprofile(prof)
@@ -105,7 +106,7 @@ def test_an_installed_tracer_gets_the_epochs_spans_with_their_parents(model):
     tracer = trace.Tracer()
     with trace.installed(tracer) as got:
         assert got is tracer and trace._installed is tracer
-        calls = _count_calls(segment.segment_sum, step)
+        calls = _count_calls((segment.segment_sum, segment.segment_sum_sorted), step)
     assert trace._installed is None
     by_id = {sp.span_id: sp for sp in tracer.spans}
     assert {sp.name for sp in tracer.spans} == NAMES[model]

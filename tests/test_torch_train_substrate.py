@@ -107,6 +107,62 @@ def test_segment_ops_match_jax(op, shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+# row lengths of the sorted sums' layouts: empty rows first, in the middle
+# and last, one row holding most entries, all rows empty
+SORTED_LAYOUTS = {
+    "empty_head": [0, 0, 3, 1, 4, 2],
+    "empty_middle": [2, 5, 0, 0, 0, 1, 3],
+    "empty_tail": [4, 1, 2, 0, 0],
+    "one_heavy": [1, 0, 57, 2, 0, 1],
+    "all_empty": [0, 0, 0],
+}
+
+
+@pytest.mark.parametrize("n_values", [1, 2, 3, 4])
+@pytest.mark.parametrize("layout", sorted(SORTED_LAYOUTS))
+def test_segment_sum_sorted_matches_jax(layout, n_values):
+    lengths = np.array(SORTED_LAYOUTS[layout])
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    ids = np.repeat(np.arange(len(lengths)), lengths)
+    rng = np.random.default_rng(len(lengths) + n_values)
+    values = [rng.normal(size=len(ids)).astype(np.float32) for _ in range(n_values)]
+    got = segment.segment_sum_sorted([torch.from_numpy(v) for v in values],
+                                     torch.from_numpy(offsets))
+    assert len(got) == n_values
+    for g, v in zip(got, values):
+        want = jseg.segment_sum(jnp.asarray(v), jnp.asarray(ids), len(lengths))
+        assert g.shape == (len(lengths),)
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+        # the plain version is the scatter over the same rows, bit for bit
+        np.testing.assert_array_equal(
+            g.numpy(), segment.segment_sum(torch.from_numpy(v), torch.from_numpy(ids),
+                                           len(lengths)).numpy())
+
+
+@pytest.mark.parametrize("n_values", [0, 5])
+def test_segment_sum_sorted_takes_one_to_four_vectors(n_values):
+    with pytest.raises(ValueError, match="1 to 4 value vectors"):
+        segment.segment_sum_sorted([torch.zeros(3)] * n_values,
+                                   torch.tensor([0, 3]))
+
+
+@pytest.mark.parametrize("empty_tail", [0, 3])
+def test_interactions_csr_offsets(empty_tail):
+    """``ctx_ptr`` and ``item_ptr`` are the CSR offsets of the two sorted
+    orders (rows with no entries included), and a weighted epoch's
+    ``dataclasses.replace`` keeps them."""
+    jd, td = _both(seed=7, empty_tail=empty_tail)
+    ctx, t_item = np.asarray(jd.ctx), np.asarray(jd.t_item)
+    np.testing.assert_array_equal(td.ctx_ptr.numpy(),
+                                  np.searchsorted(ctx, np.arange(td.n_ctx + 1)))
+    np.testing.assert_array_equal(td.item_ptr.numpy(),
+                                  np.searchsorted(t_item, np.arange(td.n_items + 1)))
+    assert td.ctx_ptr.dtype == td.item_ptr.dtype == torch.int64
+    assert int(td.ctx_ptr[-1]) == int(td.item_ptr[-1]) == td.nnz
+    weighted = dataclasses.replace(td, alpha=td.alpha * 2)
+    assert weighted.ctx_ptr is td.ctx_ptr and weighted.item_ptr is td.item_ptr
+
+
 def test_segment_max_of_integers_matches_jax():
     ids = np.array([0, 0, 2, 2, 2])
     data = np.array([3, -1, 7, 2, 9], np.int32)
