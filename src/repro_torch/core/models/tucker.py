@@ -55,6 +55,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_block_sweep_rowpatch,
     cd_block_sweep_rowpatch_gather,
 )
+from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions
 from repro_torch.sparse.segment import segment_sum
 
@@ -267,7 +268,9 @@ def _v_slice(b):
 def epoch(params: TuckerParams, tc: TensorContext, data: Interactions, e,
           hp: TuckerHyperParams, schedule=None, sweep_index: int = 0,
           weights=None) -> Tuple[TuckerParams, torch.Tensor]:
-    """One iCD epoch: U sweep → V sweep → core sweep → item (W) sweep.
+    """One iCD epoch: U sweep → V sweep → core sweep → item (W) sweep,
+    under the spans ``tucker.epoch`` (root), ``tucker.mode`` (``side`` u or
+    v), ``tucker.core`` (``steps`` = k1·k2·k3) and ``tucker.item``.
 
     A ``schedule`` restricts the FACTOR-mode sweeps; the scalar core sweep
     always runs in full. Returns new params and a new residual cache;
@@ -275,23 +278,29 @@ def epoch(params: TuckerParams, tc: TensorContext, data: Interactions, e,
     (nnz,) ctx-major) folds per-interaction confidence into α exactly."""
     data = _weighted(data, weights)
     u, v, w, b = (t.clone() for t in params)
-    with full_fp32():
+    with span("tucker.epoch"), full_fp32():
         j_i = gram(w, implementation=hp.implementation)
         phi_m = phi(params, tc)
-        u, phi_m, e = _mode_sweep(u, _u_slice(b), tc.c2, v, tc.c1, u.shape[0],
-                                  hp.k1, phi_m, j_i, data, w, e, hp, schedule,
-                                  sweep_index)
-        v, phi_m, e = _mode_sweep(v, _v_slice(b), tc.c1, u, tc.c2, v.shape[0],
-                                  hp.k2, phi_m, j_i, data, w, e, hp, schedule,
-                                  sweep_index)
-        b, phi_m, e = core_sweep(TuckerParams(u, v, w, b), phi_m, j_i, tc,
-                                 data, e, hp)
-        j_c = gram(phi_m)
-        e_t = sweeps.to_item_major(e, data.t_perm)
-        alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
-        w, e_t = _item_sweep(w, j_c, lambda f: sweeps.take_col(phi_m, f)[data.t_ctx],
-                             data, e_t, alpha_t, hp, schedule, sweep_index)
-    return TuckerParams(u, v, w, b), sweeps.to_ctx_major(e_t, data.t_perm)
+        with span("tucker.mode", side="u"):
+            u, phi_m, e = _mode_sweep(u, _u_slice(b), tc.c2, v, tc.c1, u.shape[0],
+                                      hp.k1, phi_m, j_i, data, w, e, hp, schedule,
+                                      sweep_index)
+        with span("tucker.mode", side="v"):
+            v, phi_m, e = _mode_sweep(v, _v_slice(b), tc.c1, u, tc.c2, v.shape[0],
+                                      hp.k2, phi_m, j_i, data, w, e, hp, schedule,
+                                      sweep_index)
+        with span("tucker.core", steps=hp.k1 * hp.k2 * hp.k3):
+            b, phi_m, e = core_sweep(TuckerParams(u, v, w, b), phi_m, j_i, tc,
+                                     data, e, hp)
+        with span("tucker.item"):
+            j_c = gram(phi_m)
+            e_t = sweeps.to_item_major(e, data.t_perm)
+            alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
+            w, e_t = _item_sweep(w, j_c,
+                                 lambda f: sweeps.take_col(phi_m, f)[data.t_ctx],
+                                 data, e_t, alpha_t, hp, schedule, sweep_index)
+            e = sweeps.to_ctx_major(e_t, data.t_perm)
+    return TuckerParams(u, v, w, b), e
 
 
 def epoch_padded(params: TuckerParams, tc: TensorContext, data: Interactions,

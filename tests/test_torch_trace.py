@@ -1,6 +1,6 @@
 """The port's spans in its training epochs (``obs/trace``: ``installed``,
 the module-level ``span``, profiler ranges) and the synchronised epoch
-clock of ``obs/train``, on toy MF and FM problems on the CPU."""
+clock of ``obs/train``, on toy MF, FM and Tucker problems on the CPU."""
 import json
 import sys
 
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.core import design
-from repro_torch.core.models import fm, mf
+from repro_torch.core.models import ctxmf, fm, mf, tucker
 from repro_torch.obs import trace
 from repro_torch.obs import train as obs_train
 from repro_torch.obs.metrics import MetricsRegistry
@@ -54,17 +54,38 @@ def _fm_epoch(k=3):
     return lambda: fm.epoch(params, x, z, data, e, hp)
 
 
-EPOCHS = {"mf": _mf_epoch, "fm": _fm_epoch}
+def _tucker_epoch(k1=3, k2=2, k3=3):
+    ctx, item, _ = _log()
+    rng = np.random.default_rng(2)
+    n_buckets = 4
+    tc, pair = ctxmf.build_context(ctx, rng.integers(0, n_buckets, NNZ), N_CTX, n_buckets,
+                                   device="cpu")
+    y = rng.integers(1, 4, size=NNZ).astype(np.float64)
+    data = build_interactions(pair, item, y, 1.3 + rng.random(NNZ), tc.n_ctx, N_ITEMS,
+                              alpha0=0.3, device="cpu")
+    hp = tucker.TuckerHyperParams(k1=k1, k2=k2, k3=k3, alpha0=0.3)
+    params = tucker.init(N_CTX, n_buckets, N_ITEMS, k1, k2, k3,
+                         generator=torch.Generator().manual_seed(0))
+    e = tucker.residuals(params, tc, data)
+    return lambda: tucker.epoch(params, tc, data, e, hp)
+
+
+EPOCHS = {"mf": _mf_epoch, "fm": _fm_epoch, "tucker": _tucker_epoch}
 NAMES = {
     "mf": {"mf.epoch", "mf.patch", "segment_sum", "gram", "reorder"},
     "fm": {"fm.epoch", "fm.moments", "fm.field_layer", "fm.patch", "fm.bias",
            "segment_sum", "gram", "reorder"},
+    "tucker": {"tucker.epoch", "tucker.mode", "tucker.core", "tucker.item",
+               "segment_sum", "gram", "reorder"},
 }
 PARENTS = {  # span -> the names its parent may have
-    "mf.patch": {"mf.epoch"}, "gram": {"mf.epoch", "fm.epoch"},
-    "reorder": {"mf.epoch", "fm.epoch"}, "fm.moments": {"fm.epoch"},
+    "mf.patch": {"mf.epoch"}, "gram": {"mf.epoch", "fm.epoch", "tucker.epoch", "tucker.item"},
+    "reorder": {"mf.epoch", "fm.epoch", "tucker.item"}, "fm.moments": {"fm.epoch"},
     "fm.field_layer": {"fm.epoch"}, "fm.patch": {"fm.epoch"}, "fm.bias": {"fm.epoch"},
-    "segment_sum": {"mf.epoch", "fm.epoch", "fm.moments", "fm.field_layer", "fm.bias"},
+    "segment_sum": {"mf.epoch", "fm.epoch", "fm.moments", "fm.field_layer", "fm.bias",
+                    "tucker.mode", "tucker.item"},
+    "tucker.mode": {"tucker.epoch"}, "tucker.core": {"tucker.epoch"},
+    "tucker.item": {"tucker.epoch"},
 }
 
 
@@ -72,7 +93,7 @@ def _no_profiler(*args, **kwargs):
     raise AssertionError("record_function called with no tracer installed")
 
 
-@pytest.mark.parametrize("model", ["mf", "fm"])
+@pytest.mark.parametrize("model", ["mf", "fm", "tucker"])
 def test_without_a_tracer_an_epoch_reaches_no_profiler_and_builds_no_span(model, monkeypatch):
     step = EPOCHS[model]()
     monkeypatch.setattr(torch.profiler, "record_function", _no_profiler)
@@ -100,7 +121,7 @@ def _count_calls(fns, run):
     return n[0]
 
 
-@pytest.mark.parametrize("model", ["mf", "fm"])
+@pytest.mark.parametrize("model", ["mf", "fm", "tucker"])
 def test_an_installed_tracer_gets_the_epochs_spans_with_their_parents(model):
     step = EPOCHS[model]()
     tracer = trace.Tracer()
@@ -117,6 +138,11 @@ def test_an_installed_tracer_gets_the_epochs_spans_with_their_parents(model):
         if sp.parent_id is not None:
             assert by_id[sp.parent_id].name in PARENTS[sp.name], sp
     assert calls > 0 and sum(sp.name == "segment_sum" for sp in tracer.spans) == calls
+    if model == "tucker":
+        modes = [sp for sp in tracer.spans if sp.name == "tucker.mode"]
+        assert [sp.attrs["side"] for sp in modes] == ["u", "v"]
+        cores = [sp for sp in tracer.spans if sp.name == "tucker.core"]
+        assert [sp.attrs["steps"] for sp in cores] == [3 * 2 * 3]
     if model == "fm":
         layers = [sp for sp in tracer.spans if sp.name == "fm.field_layer"]
         assert {sp.attrs["side"] for sp in layers} == {"ctx", "item"}
@@ -148,7 +174,7 @@ def test_a_span_ends_and_unwinds_when_its_block_raises():
     assert tracer.current is None and all(sp.t1 is not None for sp in tracer.spans)
 
 
-@pytest.mark.parametrize("model", ["mf", "fm"])
+@pytest.mark.parametrize("model", ["mf", "fm", "tucker"])
 def test_profiler_ranges_hold_every_index_add(model, tmp_path):
     """Each ``aten::index_add_`` of an epoch lies inside a ``segment_sum``
     ``user_annotation`` of the profiler's trace, on its thread."""
