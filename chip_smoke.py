@@ -222,7 +222,15 @@ Phases, one line each or more:
      item ≈ 97,294): two and four values on each side, against the float64
      sums (1e-6 of a row's Σ|x| + 1) and twice for the same bits, timed
      beside its byte bound, its plain version, the ``zeros`` +
-     ``index_add_`` it replaced and ``torch.segment_reduce``.
+     ``index_add_`` it replaced and ``torch.segment_reduce``;
+ 29. Tucker's core sweep by core slab (``kernels/tucker_core``) at the
+     ``tucker-train-youtube-hourly`` cell's shape (the benchmark's inputs:
+     ranks 16, 4, 32, ≈ 2.8 M (user, hour) pairs, 19,992,436
+     interactions): the kernels' steps and residuals against the blocked
+     plain form in float64 and twice for the same bits; one slab pass and
+     one solve, the kernels' sweep and ``tucker.core_sweep`` whole, beside
+     the pass's bounds, the plain form and the per-coordinate loop it
+     replaced; one ``tucker.epoch`` (seconds, launches, 64 slabs).
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -244,7 +252,8 @@ the split-row form's chunk length, the residual patch's slots a thread);
 the Gram and top-K kernels; ``--segment-sum`` only phase 28, after
 building the segment-sum kernel; ``--segment-sum-tune`` only the variants
 of ``csrc/segment_sum.cu`` (:func:`segment_sum_tune`: threads a block, path
-items a lane).
+items a lane); ``--tucker-core`` only phase 29, after building the
+core-sweep kernel.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -4392,9 +4401,10 @@ def cells_only() -> None:
     cells_full_width(torch.device("cuda", 0))
 
 
-def _segment_kernel_ms(fn, n: int = 10) -> dict:
-    """Device ms a call of each segment-sum kernel ``fn`` launches, by
-    name, from torch.profiler (empty when the profiler sees none)."""
+def _kernel_ms_by_name(fn, keys, n: int = 3) -> dict:
+    """Device ms a launch, and launches a call, of each CUDA kernel whose
+    name holds one of ``keys``, over ``n`` profiled calls of ``fn`` (empty
+    when the profiler sees none)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -4406,8 +4416,9 @@ def _segment_kernel_ms(fn, n: int = 10) -> dict:
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0) or 0
-        if us > 0 and "segment_sum" in ev.key and ev.device_type.name == "CUDA":
-            out[ev.key.split("<")[0].split("(")[0]] = us / n / 1e3
+        name = ev.key.split("<")[0].split("(")[0]
+        if us > 0 and ev.device_type.name == "CUDA" and any(k in name for k in keys):
+            out[name] = (us / ev.count / 1e3, ev.count / n)
     return out
 
 
@@ -4465,7 +4476,8 @@ def segment_sums_at_cell_shape(dev) -> dict:
             assert err <= 1e-6, (side, nv, err)
             del got, again, exact, mass
             kernel_ms = device_ms(lambda j: so.segment_sum_sorted(vals, ptr))
-            passes = _segment_kernel_ms(lambda j: so.segment_sum_sorted(vals, ptr))
+            passes = {k: ms for k, (ms, _) in _kernel_ms_by_name(
+                lambda j: so.segment_sum_sorted(vals, ptr), ("segment_sum",), n=10).items()}
             plain_ms = device_ms(lambda j: sr.segment_sum_sorted_ref(vals, ptr), n=10)
             scatter_ms = device_ms(lambda j: [
                 torch.zeros(n, device=dev).index_add_(0, ids, v) for v in vals], n=20)
@@ -4583,6 +4595,148 @@ def segment_sum_only() -> None:
     print(smi.stdout.strip().splitlines()[0])
 
 
+def _cuda_launches(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if ev.device_type.name == "CUDA"
+               and (getattr(ev, "self_device_time_total", 0) or 0) > 0)
+
+
+def tucker_core_at_cell_shape(dev) -> dict:
+    """Phase 29: Tucker's core sweep by core slab (``kernels/tucker_core``)
+    at the ``tucker-train-youtube-hourly`` cell's shape (the benchmark's
+    own inputs: icd-tucker's ranks 16, 4, 32 on the hourly log, ≈ 2.8 M
+    (user, hour) pairs, seed 29): the kernels' steps and residuals against
+    the blocked plain form in float64 (beside the plain form in float32)
+    and twice for the same bits; one slab pass and one solve (the
+    profiler's ms a launch), the kernels' sweep and ``tucker.core_sweep``
+    whole (CUDA events) beside the pass's bounds, the plain form and the
+    per-coordinate loop it replaced; one ``tucker.epoch``: its seconds,
+    kernel launches and slabs swept by the kernel."""
+    import dataclasses
+    import importlib.util
+
+    from bench.harness import hours
+    from bench.models import tucker as bench_tucker
+    from repro_torch.core.gram import full_fp32, gram
+    from repro_torch.core.models import tucker
+    from repro_torch.kernels.tucker_core import ops as to, ref as tr
+
+    spec = importlib.util.spec_from_file_location(  # the tests' oracle: the loop it replaced
+        "test_torch_tucker_core", os.path.join(ROOT, "tests", "test_torch_tucker_core.py"))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    with open(os.path.join(ROOT, "bench", "configs", "icd-tucker.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, "bench", "traffic", "youtube-hourly.json")) as f:
+        mix = json.load(f)
+    t0 = time.perf_counter()
+    prog = bench_tucker.Program(cfg, hours.make_inputs(cfg, mix, 29, dev), dev)
+    params, tc, data, hp, e = prog.params, prog.tc, prog.data, prog.hp, prog.e
+    torch.cuda.synchronize()
+    nnz, pairs = data.nnz, tc.n_ctx
+    k1, k2, k3 = hp.k1, hp.k2, hp.k3
+    log(f"phase 29 log: {nnz} interactions, {pairs} (user, hour) pairs, ranks "
+        f"({k1}, {k2}, {k3}), built in {time.perf_counter() - t0:.1f}s")
+    kw = dict(alpha0=hp.alpha0, l2_core=hp.l2_core, eta=hp.eta)
+    with full_fp32():
+        j_i = gram(params.w)
+        phi_m = tucker.phi(params, tc)
+
+        def inputs(dtype):
+            return tucker.core_sweep_inputs(
+                tucker.TuckerParams(*(x.to(dtype) for x in params)), phi_m.to(dtype),
+                j_i.to(dtype), tc, dataclasses.replace(data, alpha=data.alpha.to(dtype)),
+                e.to(dtype))
+
+        x32 = inputs(torch.float32)
+        got = to.core_sweep_slabs(*x32, **kw)
+        again = to.core_sweep_slabs(*x32, **kw)
+        plain = tr.core_sweep_slabs_ref(*x32, **kw)
+        want = tr.core_sweep_slabs_ref(*inputs(torch.float64), **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            "two calls of the core-sweep kernels differ"
+
+        def gap(a, b):
+            return float(torch.linalg.vector_norm(a.double() - b)
+                         / torch.linalg.vector_norm(b))
+
+        gaps = [gap(g, w) for g, w in zip(got, want)]
+        plain_gaps = [gap(p, w) for p, w in zip(plain, want)]
+        assert max(gaps) <= 2e-5, (gaps, plain_gaps)
+        del plain, want, again
+        sweep_ms = device_ms(lambda j: to.core_sweep_slabs(*x32, **kw), n=10)
+        whole_ms = device_ms(lambda j: tucker.core_sweep(
+            params, phi_m.clone(), j_i, tc, data, e, hp), n=10)
+        by_kernel = _kernel_ms_by_name(lambda j: to.core_sweep_slabs(*x32, **kw),
+                                       ("tucker_core",))
+        plain_ms = device_ms(lambda j: tr.core_sweep_slabs_ref(*x32, **kw), n=3)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        oracle.per_coordinate_core_sweep(params, phi_m.clone(), j_i, tc, data, e, hp)
+        b.record()
+        torch.cuda.synchronize()
+        loop_ms = a.elapsed_time(b)
+    # a pass: the item id, ᾱ, e read and written, the offsets, two g rows (HBM); K's 528
+    # and L'⁰'s 32 FMAs, the patch's 32 an interaction
+    pass_bytes = nnz * 16 + (pairs + 1) * 8 + 2 * pairs * 4
+    pass_flops = nnz * 2 * (k3 * (k3 + 1) // 2 + 2 * k3 + 3)
+    pass_bound, pass_by = bound(pass_bytes, pass_flops)
+    l2_bytes = nnz * 4 * k3  # the w rows, from L2
+    slabs, kernel_launches = to.core_sweep_slabs.slabs, to.core_sweep_slabs.launches
+    t1 = time.perf_counter()
+    tucker.epoch(params, tc, data, e, hp)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    epoch_slabs = to.core_sweep_slabs.slabs - slabs
+    kernel_launches = to.core_sweep_slabs.launches - kernel_launches
+    assert epoch_slabs == k1 * k2 and kernel_launches == 2 * k1 * k2 + 1, \
+        (epoch_slabs, kernel_launches)
+    launches = _cuda_launches(lambda: tucker.epoch(params, tc, data, e, hp))
+    parts = ", ".join(f"{k} {ms:.4f} ms x {c:.0f}" for k, (ms, c) in by_kernel.items())
+    log(f"phase 29 hold: kernels against the float64 blocked form, norm gaps delta "
+        f"{gaps[0]:.3g}, e {gaps[1]:.3g} (the plain form in fp32 {plain_gaps[0]:.3g}, "
+        f"{plain_gaps[1]:.3g}); two calls bit for bit")
+    log(f"phase 29 time: the kernels' sweep {sweep_ms:.3f} ms ({2 * k1 * k2 + 1} launches: "
+        f"{parts or 'by kernel not measured'}); tucker.core_sweep whole {whole_ms:.3f} ms; "
+        f"a pass's bound {pass_bound:.4f} ms ({pass_by}: {pass_bytes} B from HBM, "
+        f"{pass_flops} FLOP; the w rows {l2_bytes} B from L2); the plain form "
+        f"{plain_ms:.3f} ms; the per-coordinate loop {loop_ms:.3f} ms")
+    log(f"phase 29 epoch: tucker.epoch {epoch_s:.4f} s (wall, after the sweeps above), "
+        f"{launches} kernel launches, {epoch_slabs} slabs by the core-sweep kernels "
+        f"({kernel_launches} launches)")
+    return {"gaps": gaps, "plain_gaps": plain_gaps, "sweep_ms": sweep_ms,
+            "whole_ms": whole_ms, "by_kernel": by_kernel, "plain_ms": plain_ms,
+            "loop_ms": loop_ms, "pass_bound_ms": pass_bound, "epoch_s": epoch_s,
+            "launches": launches, "kernel_launches": kernel_launches}
+
+
+def tucker_core_only() -> None:
+    """Phase 29 alone, after building the core-sweep kernel at k3 = 32."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tucker_core import kernel as tk
+
+    t0 = time.perf_counter()
+    lib = tk.library(tk.width_of(32))
+    build.build_all([lib])
+    ptxas = [ln.split("'")[1][:40] if "Compiling entry" in ln else ln.strip()
+             for ln in lib.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    log(f"phase 1 build: {lib.path().name} in {time.perf_counter() - t0:.1f}s; "
+        f"ptxas: {' | '.join(ptxas)}")
+    tucker_core_at_cell_shape(torch.device("cuda", 0))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4593,6 +4747,7 @@ def main() -> None:
     from repro_torch.kernels.gram import kernel as gram_kernel
     from repro_torch.kernels.segment_sum import kernel as seg_kernel
     from repro_torch.kernels.topk_score import kernel, ops, ref
+    from repro_torch.kernels.tucker_core import kernel as tucker_kernel
     from repro_torch.launch import serve
 
     dev = torch.device("cuda", 0)
@@ -4600,7 +4755,7 @@ def main() -> None:
 
     # 1. build every kernel, one nvcc per source, all at once
     libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB, cd_kernel.SLAB_LIB,
-            cd_kernel.GATHER_LIB, seg_kernel.LIB]
+            cd_kernel.GATHER_LIB, seg_kernel.LIB, tucker_kernel.library(32)]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
@@ -4821,6 +4976,11 @@ def main() -> None:
     seg28 = segment_sums_at_cell_shape(dev)
     log(f"phase 28 done in {time.perf_counter() - t0:.1f}s")
 
+    # 29. Tucker's core sweep by core slab at the Tucker cell's shape
+    t0 = time.perf_counter()
+    core29 = tucker_core_at_cell_shape(dev)
+    log(f"phase 29 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -4963,6 +5123,18 @@ def main() -> None:
         "ms": float(np.mean(seg["ms"])), "plain_ms": float(np.mean(seg["plain"])),
         "bound_ms": float(np.mean(seg["bound"])), "bound_by": "bytes",
         "library_ms": float(np.mean(seg["lib"]))})
+    # Tucker's core sweep (phase 29): a pass's time and bound; its launches
+    # in one tucker.epoch at the cell's shape (2·k1·k2 + 1); the error is the
+    # worst norm gap against the float64 blocked form
+    kernels.append({
+        "name": "tucker_core", "route": "cuda",
+        "source": "src/repro_torch/kernels/tucker_core/csrc/tucker_core.cu",
+        "replaces": "none (the core sweep's lax.fori_loop under XLA)",
+        "launches": core29["kernel_launches"], "max_abs_err": max(core29["gaps"]),
+        "ms": core29["by_kernel"].get("tucker_core_pass_kernel", (None,))[0],
+        "sweep_ms": core29["sweep_ms"], "plain_ms": core29["plain_ms"],
+        "loop_ms": core29["loop_ms"], "bound_ms": core29["pass_bound_ms"],
+        "bound_by": "operations", "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4992,5 +5164,7 @@ if __name__ == "__main__":
         segment_sum_only()
     elif sys.argv[1:] == ["--segment-sum-tune"]:
         segment_sum_tune()
+    elif sys.argv[1:] == ["--tucker-core"]:
+        tucker_core_only()
     else:
         main()

@@ -15,8 +15,11 @@ k3-dimensional contractions per context row:
         L'/2  = segment_{c1}( ᾱ e s ),  s = Σ_f D_f w_{i,f}  per observation
 
 Core coordinates b_{f1,f2,f3} all interact through Φ, so they are swept
-strictly in sequence: k1·k2·k3 scalar Newton steps, a host loop here where
-the reference has ``lax.fori_loop``.
+strictly in sequence: k1·k2·k3 scalar Newton steps, as the reference's
+``lax.fori_loop``. The k3 steps of a slab (f1, f2) share g = u_{f1}·v_{f2},
+so one pass over the log a slab gives all of them
+(``kernels.tucker_core``: K = Σ ᾱ g² w wᵀ, L'⁰ = Σ ᾱ e g w, Φᵀg from the
+Gram of the g rows).
 
 Context universe: the observed pair list. The item sweep is MF-like via
 the materialized Φ.
@@ -55,13 +58,14 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_block_sweep_rowpatch,
     cd_block_sweep_rowpatch_gather,
 )
+from repro_torch.kernels.tucker_core import core_sweep_slabs
 from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions
 from repro_torch.sparse.segment import segment_sum
 
 __all__ = ["TuckerParams", "TuckerHyperParams", "pad_tensor_groups",
            "init", "params_from_numpy", "phi", "export_psi", "build_phi",
-           "predict", "core_sweep", "epoch", "epoch_padded", "residuals",
+           "predict", "core_sweep_inputs", "core_sweep", "epoch", "epoch_padded", "residuals",
            "objective", "fit"]
 
 
@@ -229,32 +233,34 @@ def _mode_sweep_padded(side, b_blk_fn, partner_of_pair, partner,
                                 block_body=block_body)
 
 
+def core_sweep_inputs(params: TuckerParams, phi_m, j_i, tc: TensorContext,
+                      data: Interactions, e) -> tuple:
+    """The arguments of ``kernels.tucker_core.core_sweep_slabs`` for a core
+    sweep from ``params``, Φ (``phi_m``), J_I and the residuals ``e``: the
+    g rows g_ab = u[c1, f1]·v[c2, f2] (k1·k2, n_pairs), their Gram G and
+    R = Gₚ·Φ. Products in the caller's precision (``full_fp32`` for
+    the reference's)."""
+    u, v, w, b = params
+    k1, k2, k3 = b.shape
+    up, vp = u[tc.c1].T.contiguous(), v[tc.c2].T.contiguous()
+    gp = (up[:, None, :] * vp[None, :, :]).reshape(k1 * k2, -1)
+    return (w, gp, gp @ gp.T, gp @ phi_m, b.reshape(k1 * k2, k3), j_i, data.ctx_ptr,
+            data.item, data.alpha, e)
+
+
 def core_sweep(params: TuckerParams, phi_m, j_i, tc: TensorContext,
                data: Interactions, e, hp):
     """Sequential core-tensor sweep: one scalar Newton step per
-    b_{f1,f2,f3}, in order. Returns ``(b, phi_m, e)``; ``phi_m`` is updated
-    in place and ``params.b`` is left as it was."""
-    u, v, w, b = params
-    b = b.clone()
-    k1, k2, k3 = b.shape
-    pair_of_nnz = data.ctx
-    up, vp, w_nnz = u[tc.c1], v[tc.c2], w[data.item]
-    for idx in range(k1 * k2 * k3):
-        f1, f2, f3 = idx // (k2 * k3), (idx // k3) % k2, idx % k3
-        g = up[:, f1] * vp[:, f2]                               # (n_ctx,)
-        w_col = w_nnz[:, f3]                                    # (nnz,)
-        g_nnz = g[pair_of_nnz]
-        lp = torch.sum(data.alpha * e * g_nnz * w_col)
-        lpp = torch.sum(data.alpha * (g_nnz * w_col) ** 2)
-        rp = torch.dot(phi_m.T @ g, sweeps.take_col(j_i, f3))
-        rpp = j_i[f3, f3] * torch.sum(g * g)
-        num = lp + hp.alpha0 * rp + hp.l2_core * b[f1, f2, f3]
-        den = lpp + hp.alpha0 * rpp + hp.l2_core
-        delta = -hp.eta * num / torch.clamp(den, min=1e-12)
-        b[f1, f2, f3] += delta
-        phi_m[:, f3] += delta * g
-        e = e + delta * g_nnz * w_col
-    return b, phi_m, e
+    b_{f1,f2,f3}, in order, a slab (f1, f2) at a time
+    (``kernels.tucker_core``: one pass over the log a slab). Returns
+    ``(b, phi_m, e)``; ``phi_m`` is updated in place and ``params.b`` is
+    left as it was."""
+    with full_fp32():
+        args = core_sweep_inputs(params, phi_m, j_i, tc, data, e)
+        delta, e = core_sweep_slabs(*args, alpha0=hp.alpha0, l2_core=hp.l2_core,
+                                    eta=hp.eta)
+        phi_m.addmm_(args[1].T, delta)
+    return params.b + delta.reshape(params.b.shape), phi_m, e
 
 
 def _u_slice(b):
@@ -270,7 +276,8 @@ def epoch(params: TuckerParams, tc: TensorContext, data: Interactions, e,
           weights=None) -> Tuple[TuckerParams, torch.Tensor]:
     """One iCD epoch: U sweep → V sweep → core sweep → item (W) sweep,
     under the spans ``tucker.epoch`` (root), ``tucker.mode`` (``side`` u or
-    v), ``tucker.core`` (``steps`` = k1·k2·k3) and ``tucker.item``.
+    v), ``tucker.core`` (``steps`` = k1·k2·k3, ``passes`` = k1·k2 + 1 over the
+log) and ``tucker.item``.
 
     A ``schedule`` restricts the FACTOR-mode sweeps; the scalar core sweep
     always runs in full. Returns new params and a new residual cache;
@@ -289,7 +296,8 @@ def epoch(params: TuckerParams, tc: TensorContext, data: Interactions, e,
             v, phi_m, e = _mode_sweep(v, _v_slice(b), tc.c1, u, tc.c2, v.shape[0],
                                       hp.k2, phi_m, j_i, data, w, e, hp, schedule,
                                       sweep_index)
-        with span("tucker.core", steps=hp.k1 * hp.k2 * hp.k3):
+        with span("tucker.core", steps=hp.k1 * hp.k2 * hp.k3,
+                  passes=hp.k1 * hp.k2 + 1):
             b, phi_m, e = core_sweep(TuckerParams(u, v, w, b), phi_m, j_i, tc,
                                      data, e, hp)
         with span("tucker.item"):

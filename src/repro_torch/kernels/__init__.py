@@ -40,6 +40,10 @@ Kernels:
   segment_sum — sums of 1 to 4 value vectors over rows given as CSR
                offsets, in a fixed order (no TPU kernel: the JAX package
                leaves ``jax.ops.segment_sum`` to XLA).
+  tucker_core — Tucker's core sweep a slab (f1, f2) of the core at a
+               time: one pass over the log and one solve of the slab's k3
+               steps (no TPU kernel: the JAX package's core sweep is a
+               ``lax.fori_loop`` of XLA ops).
 """
 from __future__ import annotations
 
