@@ -274,6 +274,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
+# each user's watch history as ``benchmarks/experiments.py`` builds it
+# (``_merge_bag``): the user's last logged items, each weighing 1/len
+from bench.harness.traffic import last_items as history_bags  # noqa: E402
+
 torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
 
 # fp32 scores of the kernel (sequential FMAs over D) against the plain
@@ -2267,20 +2271,6 @@ ICD_FM = dict(fields=(("user", 200_000), ("age", 8), ("country", 64), ("gender",
 # rows longer than this sum in another order than the plain version over
 # enough slots that the row-scaled bound applies (phase 9's LONG_ROW_REL)
 SLAB_LONG_D = 1_024
-
-
-def history_bags(ctx, item, n_ctx, length):
-    """Each user's watch history as ``benchmarks/experiments.py`` builds it
-    (``_merge_bag``): the user's last ``length`` logged items, each
-    weighing 1/len; padding id 0 with weight 0. Returns ((n_ctx, length)
-    ids, weights). ``make_full_log``'s pairs are unique, so there are no
-    repeats to merge (``make_design`` raises on a repeated id in a bag)."""
-    ends = np.searchsorted(ctx, np.arange(n_ctx), side="right")
-    n = np.minimum(ends - np.searchsorted(ctx, np.arange(n_ctx)), length)
-    held = np.arange(length)[None, :] < n[:, None]
-    idx = np.where(held, ends[:, None] - n[:, None] + np.arange(length), 0)
-    ids = np.where(held, item[idx], 0)
-    return ids, np.where(held, 1.0 / np.maximum(n, 1)[:, None], 0.0)
 
 
 def make_fm_design(dev, ctx, item):

@@ -10,7 +10,7 @@ sweeps solve, restricted to one row:
     minimize_θ   Σ_j α_j (θ·t_j − y_j)²  +  α₀ θᵀGθ  +  λ‖θ‖²,   G = TᵀT
 
 :func:`fold_in_row` runs the same per-coordinate Newton updates as
-``mf._side_sweep`` (η-damped, the ``newton_delta`` denominator clamp, so
+``sweeps.side_sweep`` (η-damped, the ``newton_delta`` denominator clamp, so
 λ=0 with an empty history stays finite), sweep after sweep until
 converged; :func:`fold_in_exact` solves the normal equations directly in
 float64 and is the oracle the tests hold it to.

@@ -73,7 +73,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_slab_reduce_gather,
 )
 from repro_torch.obs.trace import span
-from repro_torch.sparse.interactions import Interactions
+from repro_torch.sparse.interactions import Interactions, with_weights
 from repro_torch.sparse.segment import segment_sum, segment_sum_sorted
 
 __all__ = ["FMParams", "FMHyperParams", "pad_interactions", "init",
@@ -211,10 +211,9 @@ def _embed_layer_update(table_col, self_ext, q, u, r_a, r_b, p2, p1, p0,
     rp = segment_sum(xw * (r_a[rows] + g * r_b[rows]), local, vocab)
     rpp = segment_sum(xw * xw * (j_ff + 2 * g * j_fs + g * g * j_ss), local,
                       vocab)
-    w_layer = table_col[offset:offset + vocab]
-    num = lp + hp.alpha0 * rp + hp.l2 * w_layer
-    den = lpp + hp.alpha0 * rpp + hp.l2
-    delta = -eta * num / torch.clamp(den, min=1e-12)
+    delta = sweeps.newton_delta(
+        sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp),
+        table_col[offset:offset + vocab], hp.l2, eta)
     table_col = table_col.clone()
     table_col[offset:offset + vocab] += delta
 
@@ -241,10 +240,9 @@ def _linear_layer_update(lin, self_ext, u, r_b, p0, j_ss, ids_g, xw, rows,
     lpp = segment_sum(xw * xw * p0[rows], local, vocab)
     rp = segment_sum(xw * r_b[rows], local, vocab)
     rpp = j_ss * segment_sum(xw * xw, local, vocab)
-    lin_layer = lin[offset:offset + vocab]
-    num = lp + hp.alpha0 * rp + hp.l2_lin * lin_layer
-    den = lpp + hp.alpha0 * rpp + hp.l2_lin
-    delta = -eta * num / torch.clamp(den, min=1e-12)
+    delta = sweeps.newton_delta(
+        sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp),
+        lin[offset:offset + vocab], hp.l2_lin, eta)
     lin = lin.clone()
     lin[offset:offset + vocab] += delta
     dspec = segment_sum(xw * delta[local], rows, n_rows)
@@ -259,8 +257,9 @@ def _bias_update(bias, self_ext, u, r_b, p0, j_ss, n_rows, spec_col, hp):
     lpp = torch.sum(p0)
     rp = torch.sum(r_b)
     rpp = j_ss * n_rows
-    delta = -hp.eta * (lp + hp.alpha0 * rp) / torch.clamp(
-        lpp + hp.alpha0 * rpp, min=1e-12)
+    delta = sweeps.newton_delta(
+        sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp), bias,
+        0.0, hp.eta)  # the bias carries no L2 term
     self_ext[:, spec_col] += delta
     return bias + delta, delta
 
@@ -418,11 +417,6 @@ def _side_sweep_padded(table, lin, bias, self_ext, other_ext, other_j,
     return table, lin, bias, self_ext, e_pad
 
 
-def _weighted(data: Interactions, weights):
-    return data if weights is None else dataclasses.replace(
-        data, alpha=data.alpha * weights)
-
-
 def _trained(params: FMParams, hp: FMHyperParams):
     """The epoch's own copies: (b, w_lin, w, h_lin, h), with the linear
     weights and the bias left out (None) where ``hp`` switches them off."""
@@ -447,7 +441,7 @@ def epoch(params: FMParams, x: Design, z: Design, data: Interactions,
     (dims, linear), over the scheduled columns. Returns new params and a
     new residual cache; ``params`` and ``e`` are left as they were.
     ``weights`` (optional, (nnz,) ctx-major) folds into α exactly."""
-    data = _weighted(data, weights)
+    data = with_weights(data, weights)
     b, w_lin, w, h_lin, h = _trained(params, hp)
     with span("fm.epoch"), full_fp32():
         pe = phi_ext(params, x, hp)

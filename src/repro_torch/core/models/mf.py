@@ -8,11 +8,12 @@ R'(w_{c*,f*}) = 2 Σ_f J_I(f,f*)·w_{c*,f} and R''(w_{c*,f*}) = 2 J_I(f*,f*)
 (eqs. 18–19): an epoch costs O((|C|+|I|)k² + |S|k).
 
 The epoch here is the segment-sum form over the flat COO layout: each
-column update is a gather, the two segment sums over the log's sorted rows
-in one call (``segment.segment_sum_sorted``, a hand-written kernel on
-CUDA), a mat-vec with the opposite Gram, the Newton step and a rank-1
-residual patch, the rest in PyTorch. The
-kernel-fused form over the padded layout is ``mf_padded``.
+side is ``sweeps.side_sweep``, whose column update is a gather, the two
+segment sums over the log's sorted rows in one call
+(``segment.segment_sum_sorted``, a hand-written kernel on CUDA), a
+mat-vec with the opposite Gram, the Newton step and a rank-1 residual
+patch, the rest in PyTorch. The kernel-fused form over the padded layout
+is ``mf_padded``.
 :func:`params_from_numpy` carries the JAX package's ``MFParams`` over as
 numpy arrays.
 """
@@ -29,8 +30,7 @@ from repro_torch.core.gram import full_fp32, gram
 from repro_torch.core.implicit import implicit_objective
 from repro_torch.kernels import resolve_device
 from repro_torch.obs.trace import span
-from repro_torch.sparse.interactions import Interactions
-from repro_torch.sparse.segment import segment_sum_sorted
+from repro_torch.sparse.interactions import Interactions, with_weights
 
 
 class MFParams(NamedTuple):
@@ -113,37 +113,6 @@ def scores_all(params: MFParams) -> torch.Tensor:
         return params.w @ params.h.T
 
 
-def _side_sweep(side, other_j, other_cols_nnz, rows_nnz, alpha, e,
-                row_ptr: torch.Tensor, hp: MFHyperParams,
-                schedule: Optional[sweeps.SweepSchedule] = None,
-                sweep_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One dimension sweep over one side; returns (side, new_e). ``side``
-    is updated in place. ``rows_nnz`` are the entries' rows, sorted, and
-    ``row_ptr`` their (n + 1,) CSR offsets. With a ``schedule`` the sweep
-    covers only the scheduled blocks for this ``sweep_index``."""
-
-    def body(f, carry):
-        side_m, e = carry
-        o_col = other_cols_nnz(f)                      # (nnz,)
-        s_col = sweeps.take_col(side_m, f)             # (n,)
-        # explicit parts (L'/2, L''/2) from the residual cache
-        lp, lpp = segment_sum_sorted((alpha * e * o_col, alpha * o_col * o_col),
-                                     row_ptr)
-        # implicit parts (R'/2, R''/2) via the opposite Gram (Lemma 3)
-        rp = side_m @ sweeps.take_col(other_j, f)
-        rpp = other_j[f, f]
-        delta = sweeps.newton_delta(
-            sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp),
-            s_col, hp.l2, hp.eta)
-        with span("mf.patch"):                         # rank-1 residual patch
-            e = e + delta[rows_nnz] * o_col
-        return sweeps.put_col(side_m, f, s_col + delta), e
-
-    return sweeps.sweep_columns(
-        side.shape[1], body, (side, e), unroll=hp.unroll,
-        schedule=schedule, sweep_index=sweep_index)
-
-
 def epoch(params: MFParams, data: Interactions, e: torch.Tensor,
           hp: MFHyperParams, schedule: Optional[sweeps.SweepSchedule] = None,
           sweep_index: int = 0,
@@ -155,24 +124,18 @@ def epoch(params: MFParams, data: Interactions, e: torch.Tensor,
     ``params`` and ``e`` are left as they were. ``weights`` is an optional
     (nnz,) per-interaction confidence weight in context-major order: a
     weighted epoch is exactly an epoch over ``alpha·w``."""
-    if weights is not None:
-        data = dataclasses.replace(data, alpha=data.alpha * weights)
+    data = with_weights(data, weights)
     w, h = params.w.clone(), params.h.clone()
+    kw = dict(alpha0=hp.alpha0, l2=hp.l2, eta=hp.eta, schedule=schedule,
+              sweep_index=sweep_index)
     with span("mf.epoch"), full_fp32():
         # context side: J_I from the fixed item factors
         j_i = gram(h, implementation=hp.implementation)
-        w, e = _side_sweep(
-            w, j_i, lambda f: sweeps.take_col(h, f)[data.item], data.ctx,
-            data.alpha, e, data.ctx_ptr, hp, schedule, sweep_index)
-
+        w, e = sweeps.side_sweep(w, j_i, lambda f: h[:, f][data.item], data.ctx,
+                                 data.ctx_ptr, data.alpha, e, **kw)
         # item side: J_C from the just-updated context factors
         j_c = gram(w, implementation=hp.implementation)
-        e_t = sweeps.to_item_major(e, data.t_perm)
-        alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
-        h, e_t = _side_sweep(
-            h, j_c, lambda f: sweeps.take_col(w, f)[data.t_ctx], data.t_item,
-            alpha_t, e_t, data.item_ptr, hp, schedule, sweep_index)
-        e = sweeps.to_ctx_major(e_t, data.t_perm)
+        h, e = sweeps.item_side_sweep(h, j_c, lambda f: w[:, f], data, e, **kw)
     return MFParams(w, h), e
 
 

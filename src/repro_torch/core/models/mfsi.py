@@ -68,7 +68,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_slab_reduce,
     cd_slab_reduce_gather,
 )
-from repro_torch.sparse.interactions import Interactions
+from repro_torch.sparse.interactions import Interactions, with_weights
 from repro_torch.sparse.segment import segment_sum, segment_sum_sorted
 
 __all__ = ["MFSIParams", "MFSIHyperParams", "pad_interactions", "init",
@@ -161,14 +161,13 @@ def _field_layer_update(table_col, phi_col, q, r_vec, p2, jff, ids_g, xw,
     the residual cache — the caller owns the e layout (flat per-nnz or
     padded grid) and applies ``dphi_rows`` there."""
     local = ids_g - offset
-    w_layer = table_col[offset:offset + vocab]
     lp = segment_sum(xw * q[rows], local, vocab)
     lpp = segment_sum(xw * xw * p2[rows], local, vocab)
     rp = segment_sum(xw * r_vec[rows], local, vocab)
     rpp = jff * segment_sum(xw * xw, local, vocab)
-    num = lp + hp.alpha0 * rp + hp.l2 * w_layer
-    den = lpp + hp.alpha0 * rpp + hp.l2
-    delta = -eta * num / torch.clamp(den, min=1e-12)
+    delta = sweeps.newton_delta(
+        sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp),
+        table_col[offset:offset + vocab], hp.l2, eta)
 
     table_col = table_col.clone()
     table_col[offset:offset + vocab] += delta
@@ -282,11 +281,6 @@ def _side_sweep_padded(table, phi_m, other_psi, other_j, design: Design,
                                 block_body=block_body)
 
 
-def _weighted(data: Interactions, weights):
-    return data if weights is None else dataclasses.replace(
-        data, alpha=data.alpha * weights)
-
-
 def epoch(params: MFSIParams, x: Design, z: Design, data: Interactions,
           e: torch.Tensor, hp: MFSIHyperParams, schedule=None,
           sweep_index: int = 0,
@@ -296,7 +290,7 @@ def epoch(params: MFSIParams, x: Design, z: Design, data: Interactions,
     params and a new residual cache; ``params`` and ``e`` are left as they
     were. ``weights`` (optional, (nnz,) ctx-major) folds per-interaction
     confidence into α exactly."""
-    data = _weighted(data, weights)
+    data = with_weights(data, weights)
     w, h = params.w.clone(), params.h.clone()
     with full_fp32():
         phi_m = design_matmul(x, w)

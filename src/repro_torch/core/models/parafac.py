@@ -16,7 +16,9 @@ Context modes:
   * ``dense``  — C = C1×C2; K is J_{C2} (eq. 39), the same for every c1,
     and J_C = J_{C1} ⊙ J_{C2} for the item sweep.
 
-The item sweep is MF's (§5.1).
+The item sweep is MF's (§5.1): ``sweeps.item_side_sweep``, its sums over
+the log's item-major rows by ``segment.segment_sum_sorted`` (a
+hand-written kernel on CUDA, in a fixed order).
 
 Fused padded path (:func:`epoch_padded`, dispatched by ``hp.block_k`` as
 in ``mf_padded``): each side's sweep runs on a
@@ -31,9 +33,10 @@ launches the shared-Gram sweep. A context mode with a few long rows
 PyTorch runs eagerly, so each block's host-side products (Φ over the pair
 list, the R'/2 slab, the K segment sums, the pseudo-ψ slab) are plain
 PyTorch in full fp32 between the kernel launches, as the reference leaves
-them to XLA. On CUDA the segment sums (``index_add_``) use atomics: their
-last bits can change from run to run. :func:`params_from_numpy` carries
-the JAX package's ``PARAFACParams`` over as numpy arrays.
+them to XLA. On CUDA the context modes' segment sums (``index_add_``) use
+atomics: their last bits can change from run to run.
+:func:`params_from_numpy` carries the JAX package's ``PARAFACParams`` over
+as numpy arrays.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_block_sweep_rowpatch,
     cd_block_sweep_rowpatch_gather,
 )
-from repro_torch.sparse.interactions import Interactions
+from repro_torch.sparse.interactions import Interactions, with_weights
 from repro_torch.sparse.segment import segment_sum
 
 
@@ -221,29 +224,6 @@ def _context_mode_sweep(side, partner, group_of_pair, partner_of_pair, j_i,
                                 sweep_index=sweep_index)
 
 
-def _item_sweep(params_w, j_c, phi_cols_nnz, data: Interactions, e_t,
-                alpha_t, hp, schedule=None, sweep_index: int = 0):
-    """MF item sweep (paper: identical to §5.1); ``params_w`` is updated
-    in place."""
-
-    def body(f, carry):
-        w_m, e_t = carry
-        o_col = phi_cols_nnz(f)
-        w_col = sweeps.take_col(w_m, f)
-        lp = segment_sum(alpha_t * e_t * o_col, data.t_item, data.n_items)
-        lpp = segment_sum(alpha_t * o_col * o_col, data.t_item, data.n_items)
-        rp = w_m @ sweeps.take_col(j_c, f)
-        rpp = j_c[f, f]
-        delta = sweeps.newton_delta(
-            sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp),
-            w_col, hp.l2, hp.eta)
-        e_t = e_t + delta[data.t_item] * o_col
-        return sweeps.put_col(w_m, f, w_col + delta), e_t
-
-    return sweeps.sweep_columns(hp.k, body, (params_w, e_t),
-                                schedule=schedule, sweep_index=sweep_index)
-
-
 def _context_mode_sweep_padded(side, partner, group_of_pair, partner_of_pair,
                                j_i, data: Interactions, w_items,
                                pg: PaddedGroup, e_pad, n_side: int,
@@ -298,7 +278,7 @@ def _context_mode_sweep_padded(side, partner, group_of_pair, partner_of_pair,
                                 block_body=block_body)
 
 
-def _item_sweep_padded(w_m, j_c, phi_pairs, padded: TensorPadded, e_pad, hp,
+def _padded_item_sweep(w_m, j_c, phi_pairs, padded: TensorPadded, e_pad, hp,
                        k_b: int):
     """MF-like fused item sweep (shared-Gram block sweep): ψ rows gathered
     from Φ through the item-major pair-id grid — in the kernel by default
@@ -330,11 +310,6 @@ def _item_sweep_padded(w_m, j_c, phi_pairs, padded: TensorPadded, e_pad, hp,
                                 block_body=block_body)
 
 
-def _weighted(data: Interactions, weights):
-    return data if weights is None else dataclasses.replace(
-        data, alpha=data.alpha * weights)
-
-
 def epoch(params: PARAFACParams, tc: TensorContext, data: Interactions,
           e: torch.Tensor, hp: PARAFACHyperParams, schedule=None,
           sweep_index: int = 0,
@@ -344,7 +319,7 @@ def epoch(params: PARAFACParams, tc: TensorContext, data: Interactions,
     factors and a new residual cache; ``params`` and ``e`` are left as
     they were. ``weights`` (optional, (nnz,) ctx-major) folds
     per-interaction confidence into α exactly."""
-    data = _weighted(data, weights)
+    data = with_weights(data, weights)
     u, v, w = (t.clone() for t in params)
     with full_fp32():
         j_i = gram(w, implementation=hp.implementation)
@@ -356,16 +331,11 @@ def epoch(params: PARAFACParams, tc: TensorContext, data: Interactions,
             j_c = gram(u) * gram(v)  # eq. (39): J_C = J_{C1} ⊙ J_{C2}
         else:
             j_c = gram(u[tc.c1] * v[tc.c2])
-        e_t = sweeps.to_item_major(e, data.t_perm)
-        alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
-
-        def phi_cols(f):
-            return (sweeps.take_col(u, f)[tc.c1]
-                    * sweeps.take_col(v, f)[tc.c2])[data.t_ctx]
-
-        w, e_t = _item_sweep(w, j_c, phi_cols, data, e_t, alpha_t, hp,
-                             schedule, sweep_index)
-    return PARAFACParams(u, v, w), sweeps.to_ctx_major(e_t, data.t_perm)
+        w, e = sweeps.item_side_sweep(
+            w, j_c, lambda f: u[:, f][tc.c1] * v[:, f][tc.c2], data, e,
+            alpha0=hp.alpha0, l2=hp.l2, eta=hp.eta, schedule=schedule,
+            sweep_index=sweep_index)
+    return PARAFACParams(u, v, w), e
 
 
 def _reweight_padded(padded: TensorPadded, alpha_eff) -> TensorPadded:
@@ -383,7 +353,7 @@ def epoch_padded(params: PARAFACParams, tc: TensorContext, data: Interactions,
     residual cache; ``params`` and ``e`` are left as they were.
     ``weights`` rebuilds all three group α grids."""
     if weights is not None:
-        data = _weighted(data, weights)
+        data = with_weights(data, weights)
         padded = _reweight_padded(padded, data.alpha)
     u, v, w = (t.clone() for t in params)
     k_b = sweeps.resolve_block_k(hp.block_k, hp.k)
@@ -405,7 +375,7 @@ def epoch_padded(params: PARAFACParams, tc: TensorContext, data: Interactions,
         else:
             j_c = gram(phi_pairs)
         e_g = padded.gi.scatter(e)
-        w, e_g = _item_sweep_padded(w, j_c, phi_pairs, padded, e_g, hp, k_b)
+        w, e_g = _padded_item_sweep(w, j_c, phi_pairs, padded, e_g, hp, k_b)
         e = padded.gi.gather(e_g)
     return PARAFACParams(u, v, w), e
 

@@ -21,8 +21,8 @@ so one pass over the log a slab gives all of them
 (``kernels.tucker_core``: K = Σ ᾱ g² w wᵀ, L'⁰ = Σ ᾱ e g w, Φᵀg from the
 Gram of the g rows).
 
-Context universe: the observed pair list. The item sweep is MF-like via
-the materialized Φ.
+Context universe: the observed pair list. The item sweep is MF's
+(``sweeps.item_side_sweep``) over the materialized Φ.
 
 Fused padded path (:func:`epoch_padded`): the U/V mode sweeps run blocked
 on :class:`~repro_torch.core.models.parafac.TensorPadded` grids through
@@ -46,10 +46,8 @@ from repro_torch.core.implicit import explicit_loss
 from repro_torch.core.models.parafac import (
     TensorContext,
     TensorPadded,
-    _item_sweep,
-    _item_sweep_padded,
+    _padded_item_sweep,
     _reweight_padded,
-    _weighted,
     pad_tensor_groups,
 )
 from repro_torch.core.padded import PaddedGroup, append_sentinel_row
@@ -60,7 +58,7 @@ from repro_torch.kernels.cd_sweep.ops import (
 )
 from repro_torch.kernels.tucker_core import core_sweep_slabs
 from repro_torch.obs.trace import span
-from repro_torch.sparse.interactions import Interactions
+from repro_torch.sparse.interactions import Interactions, with_weights
 from repro_torch.sparse.segment import segment_sum
 
 __all__ = ["TuckerParams", "TuckerHyperParams", "pad_tensor_groups",
@@ -93,7 +91,7 @@ class TuckerHyperParams:
     #                   kernel gathers the flat pseudo-ψ slab, 'pregather'
     #                   = a (n, k_b, D_pad) scatter_blk tile first
 
-    # the item sweep reads hp.k and hp.alpha0/l2/eta
+    # the padded item sweep (parafac's) reads hp.k
     @property
     def k(self) -> int:
         return self.k3
@@ -283,7 +281,7 @@ log) and ``tucker.item``.
     always runs in full. Returns new params and a new residual cache;
     ``params`` and ``e`` are left as they were. ``weights`` (optional,
     (nnz,) ctx-major) folds per-interaction confidence into α exactly."""
-    data = _weighted(data, weights)
+    data = with_weights(data, weights)
     u, v, w, b = (t.clone() for t in params)
     with span("tucker.epoch"), full_fp32():
         j_i = gram(w, implementation=hp.implementation)
@@ -301,13 +299,9 @@ log) and ``tucker.item``.
             b, phi_m, e = core_sweep(TuckerParams(u, v, w, b), phi_m, j_i, tc,
                                      data, e, hp)
         with span("tucker.item"):
-            j_c = gram(phi_m)
-            e_t = sweeps.to_item_major(e, data.t_perm)
-            alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
-            w, e_t = _item_sweep(w, j_c,
-                                 lambda f: sweeps.take_col(phi_m, f)[data.t_ctx],
-                                 data, e_t, alpha_t, hp, schedule, sweep_index)
-            e = sweeps.to_ctx_major(e_t, data.t_perm)
+            w, e = sweeps.item_side_sweep(
+                w, gram(phi_m), lambda f: phi_m[:, f], data, e, alpha0=hp.alpha0,
+                l2=hp.l2, eta=hp.eta, schedule=schedule, sweep_index=sweep_index)
     return TuckerParams(u, v, w, b), e
 
 
@@ -320,7 +314,7 @@ def epoch_padded(params: TuckerParams, tc: TensorContext, data: Interactions,
     rebuilds all three group α grids (and the flat α the core sweep
     reads). Returns new params and a new flat residual cache."""
     if weights is not None:
-        data = _weighted(data, weights)
+        data = with_weights(data, weights)
         padded = _reweight_padded(padded, data.alpha)
     u, v, w, b = (t.clone() for t in params)
     with full_fp32():
@@ -345,7 +339,7 @@ def epoch_padded(params: TuckerParams, tc: TensorContext, data: Interactions,
                                  data, e, hp)
         j_c = gram(phi_m)
         e_g = padded.gi.scatter(e)
-        w, e_g = _item_sweep_padded(w, j_c, phi_m, padded, e_g, hp,
+        w, e_g = _padded_item_sweep(w, j_c, phi_m, padded, e_g, hp,
                                     sweeps.resolve_block_k(hp.block_k, hp.k3))
         e = padded.gi.gather(e_g)
     return TuckerParams(u, v, w, b), e

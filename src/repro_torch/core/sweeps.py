@@ -8,6 +8,11 @@ Gram (implicit part, Lemma 3), the Newton step, the rank-1 residual patch.
 :func:`sweep_columns` runs the f*-loop, per column or through a fused
 block body (the ``kernels/cd_sweep`` path). PyTorch runs eagerly, so the
 loop is a host loop where the reference had ``lax.fori_loop``.
+
+:func:`side_sweep` is that column update for one-hot gradients (a side's
+row is its own coordinate: MF's two sides, the item side of PARAFAC, CtxMF
+and Tucker), over the flat log with its sums by sorted row;
+:func:`item_side_sweep` runs it on the item-major view.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.obs.trace import span
+from repro_torch.sparse.interactions import Interactions
+from repro_torch.sparse.segment import segment_sum_sorted
 
 
 class NewtonParts(NamedTuple):
@@ -144,6 +151,54 @@ def sweep_columns(n_dims: int, body: Callable, carry, *, unroll: bool = False,
     for f in range(n_dims):
         carry = body(f, carry)
     return carry
+
+
+def side_sweep(side, other_j, other_col_nnz, rows_nnz, row_ptr, alpha, e, *,
+               alpha0: float, l2: float, eta: float,
+               schedule: Optional[SweepSchedule] = None,
+               sweep_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-hot column sweep over one side; returns (side, new_e).
+    ``side`` is updated in place. ``other_col_nnz(f)`` is the opposite
+    factor's column f over the entries, ``other_j`` the opposite Gram,
+    ``rows_nnz`` the entries' rows, sorted, and ``row_ptr`` their (n + 1,)
+    CSR offsets. With a ``schedule`` the sweep covers only the scheduled
+    blocks for this ``sweep_index``. The rank-1 residual patch runs under
+    the span ``mf.patch``, whichever model's sweep it is: the benchmark's
+    span tool reads it by that name."""
+
+    def body(f, carry):
+        side_m, e = carry
+        o_col = other_col_nnz(f)                       # (nnz,)
+        s_col = take_col(side_m, f)                    # (n,)
+        # explicit parts (L'/2, L''/2) from the residual cache
+        lp, lpp = segment_sum_sorted((alpha * e * o_col, alpha * o_col * o_col),
+                                     row_ptr)
+        # implicit parts (R'/2, R''/2) via the opposite Gram (Lemma 3)
+        rp = side_m @ take_col(other_j, f)
+        rpp = other_j[f, f]
+        delta = newton_delta(NewtonParts(lp + alpha0 * rp, lpp + alpha0 * rpp),
+                             s_col, l2, eta)
+        with span("mf.patch"):                         # rank-1 residual patch
+            e = e + delta[rows_nnz] * o_col
+        return put_col(side_m, f, s_col + delta), e
+
+    return sweep_columns(side.shape[1], body, (side, e), schedule=schedule,
+                         sweep_index=sweep_index)
+
+
+def item_side_sweep(h, j_c, ctx_col, data: Interactions, e, *, alpha0: float,
+                    l2: float, eta: float, schedule: Optional[SweepSchedule] = None,
+                    sweep_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`side_sweep` over the item factors ``h`` (updated in place):
+    ``ctx_col(f)`` is the context side's column f, one value a context row
+    of the log, and ``j_c`` its Gram. ``e`` comes and goes in context-major
+    order; the sweep runs on the item-major view."""
+    e_t = to_item_major(e, data.t_perm)
+    alpha_t = to_item_major(data.alpha, data.t_perm)
+    h, e_t = side_sweep(h, j_c, lambda f: ctx_col(f)[data.t_ctx], data.t_item,
+                        data.item_ptr, alpha_t, e_t, alpha0=alpha0, l2=l2,
+                        eta=eta, schedule=schedule, sweep_index=sweep_index)
+    return h, to_ctx_major(e_t, data.t_perm)
 
 
 def resolve_block_k(block_k: int, k: int) -> int:

@@ -57,6 +57,14 @@ class Interactions:
         return self.ctx.device
 
 
+def with_weights(data: Interactions, weights) -> Interactions:
+    """``data`` with an optional (nnz,) context-major weight vector folded
+    into α (a weighted epoch is exactly an epoch over α·w); ``data`` as it
+    came when ``weights`` is None."""
+    return data if weights is None else dataclasses.replace(
+        data, alpha=data.alpha * weights)
+
+
 def build_interactions(ctx, item, y, alpha, n_ctx: int, n_items: int,
                        alpha0: float = 1.0, rescale: bool = True, *,
                        device=None) -> Interactions:

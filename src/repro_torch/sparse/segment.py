@@ -5,7 +5,11 @@ CUDA the sum uses atomics, so its order, and the last bits of a float
 result, can change from run to run: hold it to a tolerance, not to bit
 equality. :func:`segment_sum_sorted` is the sum for values already sorted
 by row, given as CSR offsets (the interaction log's two orders): on CUDA a
-hand-written kernel that sums in a fixed order, with no atomics."""
+hand-written kernel that sums in a fixed order, with no atomics. The flat
+epochs take it for the one-hot column sweep (``sweeps.side_sweep``: MF's
+two sides, the item side of PARAFAC, CtxMF and Tucker) and for FM's and
+MFSI's moments; the tensor models' context modes and the field layers sum
+by :func:`segment_sum`."""
 from __future__ import annotations
 
 from typing import Optional

@@ -30,6 +30,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import design
 from repro_torch.core.models import fm
 from repro_torch.sparse.interactions import build_interactions
+from repro_torch.sparse.segment import segment_sum
 
 torch.set_num_threads(1)
 
@@ -350,3 +351,62 @@ def test_init_params_and_dataclass_mirror_the_reference():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fm.params_from_numpy(*arrays)
+
+
+def _inline_step(lp, lpp, rp, rpp, theta, l2, eta, alpha0):
+    """The Newton step as the layers wrote it before ``sweeps.newton_delta``."""
+    num = lp + alpha0 * rp + l2 * theta
+    den = lpp + alpha0 * rpp + l2
+    return -eta * num / torch.clamp(den, min=1e-12)
+
+
+@pytest.mark.parametrize("l2", [0.0, 0.05])
+@pytest.mark.parametrize("layer", ["embed", "linear", "bias"])
+def test_layer_step_is_the_inline_newton_step_bit_for_bit(layer, l2):
+    """Each FM layer's Δ through ``sweeps.newton_delta`` equals the inline
+    formula's, bit for bit; the last id of the layer has no entry, so at
+    λ = 0 its denominator is clamped."""
+    gen = torch.Generator().manual_seed(3)
+    n_rows, vocab, offset, k, f, eta = 9, 4, 2, 3, 1, 0.7
+    hp = fm.FMHyperParams(k=k, alpha0=0.3, l2=l2, l2_lin=l2 + 0.01, eta=0.9)
+    spec_col = hp.k
+    ids_g = offset + torch.randint(0, vocab - 1, (n_rows,), generator=gen)
+    xw = 0.5 + torch.rand(n_rows, generator=gen)
+    rows = torch.arange(n_rows)
+    local = ids_g - offset
+    table_col, lin = torch.randn(8, generator=gen), torch.randn(8, generator=gen)
+    self_ext = torch.randn((n_rows, k + 2), generator=gen)
+    q, u, r_a, r_b, p1 = torch.randn((5, n_rows), generator=gen)
+    p2, p0 = torch.rand((2, n_rows), generator=gen)
+    j_ff, j_fs, j_ss = torch.tensor(1.3), torch.tensor(-0.2), torch.tensor(0.8)
+    if layer == "embed":
+        g = self_ext[:, f][rows] - xw * table_col[ids_g]
+        delta = _inline_step(
+            segment_sum(xw * (q[rows] + g * u[rows]), local, vocab),
+            segment_sum(xw * xw * (p2[rows] + 2 * g * p1[rows] + g * g * p0[rows]),
+                        local, vocab),
+            segment_sum(xw * (r_a[rows] + g * r_b[rows]), local, vocab),
+            segment_sum(xw * xw * (j_ff + 2 * g * j_fs + g * g * j_ss), local, vocab),
+            table_col[offset:offset + vocab], hp.l2, eta, hp.alpha0)
+        want = table_col.clone()
+        want[offset:offset + vocab] += delta
+        got = fm._embed_layer_update(
+            table_col, self_ext.clone(), q, u, r_a, r_b, p2, p1, p0, j_ff, j_fs, j_ss,
+            ids_g, xw, rows, vocab, offset, f, spec_col, hp, eta)[0]
+    elif layer == "linear":
+        delta = _inline_step(
+            segment_sum(xw * u[rows], local, vocab),
+            segment_sum(xw * xw * p0[rows], local, vocab),
+            segment_sum(xw * r_b[rows], local, vocab),
+            j_ss * segment_sum(xw * xw, local, vocab),
+            lin[offset:offset + vocab], hp.l2_lin, eta, hp.alpha0)
+        want = lin.clone()
+        want[offset:offset + vocab] += delta
+        got = fm._linear_layer_update(lin, self_ext.clone(), u, r_b, p0, j_ss, ids_g,
+                                      xw, rows, vocab, offset, spec_col, hp, eta)[0]
+    else:
+        want = -hp.eta * (torch.sum(u) + hp.alpha0 * torch.sum(r_b)) / torch.clamp(
+            torch.sum(p0) + hp.alpha0 * (j_ss * n_rows), min=1e-12)
+        got = fm._bias_update(torch.tensor(0.4), self_ext.clone(), u, r_b, p0, j_ss,
+                              n_rows, spec_col, hp)[1]
+    assert torch.equal(got, want)

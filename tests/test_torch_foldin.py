@@ -23,7 +23,7 @@ from repro.core.gram import gram as jgram
 from repro.core.models import mf as jmf
 from repro.core.models import zoo as jzoo
 from repro.core.models.mf import _side_sweep as j_side_sweep
-from repro_torch.core import foldin, naive_cd
+from repro_torch.core import foldin, naive_cd, sweeps
 from repro_torch.core.models import fm, mf, mfsi, parafac, tucker, zoo
 from repro_torch.sparse.interactions import build_interactions
 
@@ -160,7 +160,7 @@ def test_empty_history_l2_zero_stays_finite():
 
 
 def test_one_sweep_matches_mf_side_sweep_single_row():
-    """fold_in_row with n_sweeps=1 IS ``mf._side_sweep`` on a (1, k) side:
+    """fold_in_row with n_sweeps=1 IS ``sweeps.side_sweep`` on a (1, k) side:
     the port's fold-in against the port's and the reference's side sweeps
     and the reference's one-sweep fold-in."""
     rng = np.random.default_rng(5)
@@ -174,10 +174,11 @@ def test_one_sweep_matches_mf_side_sweep_single_row():
                              eta=hp.eta, n_sweeps=1, device="cpu")
     assert got.n_sweeps == 1
     th = torch.as_tensor(h)
-    side, _ = mf._side_sweep(
+    side, _ = sweeps.side_sweep(
         torch.zeros((1, k)), th.T @ th, lambda f: th[torch.as_tensor(ids), f],
-        torch.zeros(m, dtype=torch.long), torch.as_tensor(alpha),
-        torch.as_tensor(-y), torch.tensor([0, m]), hp)
+        torch.zeros(m, dtype=torch.long), torch.tensor([0, m]),
+        torch.as_tensor(alpha), torch.as_tensor(-y), alpha0=hp.alpha0, l2=hp.l2,
+        eta=hp.eta)
     _close(got.row, side[0], SWEEP_RTOL, SWEEP_ATOL)
     hj = jnp.asarray(h)
     jside, _ = j_side_sweep(

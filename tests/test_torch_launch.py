@@ -2882,13 +2882,17 @@ def test_segment_sum_sorted_kernel_edges_on_cuda(cuda):
 
 
 @pytest.mark.gpu
-def test_mf_epoch_sums_by_the_kernel_not_index_add_on_cuda(cuda):
-    """A tiny ``mf.epoch`` on the card launches no ``aten::index_add_``:
-    each column's two sums on each side are one call of the kernel (two
-    launches), and the epoch matches the same epoch on the CPU."""
+@pytest.mark.parametrize("model", ["mf", "tucker"])
+def test_mf_epoch_sums_by_the_kernel_not_index_add_on_cuda(cuda, model):
+    """A tiny flat epoch on the card sums the one-hot column sweep by the
+    kernel: each column's two sums on a side are one call (two launches).
+    ``mf.epoch`` runs it on both sides and launches no
+    ``aten::index_add_``; ``tucker.epoch`` runs it on the item side, 2·k3
+    launches, while its mode sweeps keep ``index_add_``. The epoch matches
+    the same epoch on the CPU."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.models import mf
+    from repro_torch.core.models import mf, tucker
     from repro_torch.kernels.segment_sum import ops as seg_ops
     from repro_torch.sparse.interactions import build_interactions
 
@@ -2898,20 +2902,39 @@ def test_mf_epoch_sums_by_the_kernel_not_index_add_on_cuda(cuda):
     w0 = (0.1 * rng.normal(size=(n_ctx, k))).astype(np.float32)
     h0 = (0.1 * rng.normal(size=(n_items, k))).astype(np.float32)
     hp = mf.MFHyperParams(k=k)
+    t_hp = tucker.TuckerHyperParams(k1=3, k2=2, k3=4, alpha0=0.3, l2=0.05,
+                                    l2_core=0.02)
+    t0 = [(0.3 * rng.normal(size=s)).astype(np.float32)
+          for s in ((40, 3), (6, 2), (30, 4), (3, 2, 4))]
     out = {}
     for dev in ("cpu", cuda):
-        data = build_interactions(cells // n_items, cells % n_items, np.ones(nnz),
-                                  np.full(nnz, 3.0), n_ctx, n_items, device=dev)
-        params = mf.params_from_numpy(w0, h0, device=dev)
-        e = mf.residuals(params, data)
+        if model == "mf":
+            data = build_interactions(cells // n_items, cells % n_items, np.ones(nnz),
+                                      np.full(nnz, 3.0), n_ctx, n_items, device=dev)
+            params = mf.params_from_numpy(w0, h0, device=dev)
+            e = mf.residuals(params, data)
+
+            def step():
+                return mf.epoch(params, data, e, hp)
+        else:
+            tc, data = _tensor_problem(dev)
+            params = tucker.params_from_numpy(*t0, device=dev)
+            e = tucker.residuals(params, tc, data)
+
+            def step():
+                return tucker.epoch(params, tc, data, e, t_hp)
         before = seg_ops.segment_sum_sorted.launches
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            out[str(dev)] = mf.epoch(params, data, e, hp)
+            out[str(dev)] = step()
         if dev == cuda:
             torch.cuda.synchronize()
-            assert seg_ops.segment_sum_sorted.launches == before + 2 * 2 * k
-            names = {ev.key for ev in prof.key_averages()}
-            assert "aten::index_add_" not in names, sorted(names)
+            launches = seg_ops.segment_sum_sorted.launches - before
+            if model == "mf":
+                assert launches == 2 * 2 * k
+                names = {ev.key for ev in prof.key_averages()}
+                assert "aten::index_add_" not in names, sorted(names)
+            else:
+                assert launches == 2 * t_hp.k3
     (pc, ec), (pg, eg) = out["cpu"], out[str(cuda)]
-    for a, b in ((pc.w, pg.w), (pc.h, pg.h), (ec, eg)):
+    for a, b in (*zip(pc, pg), (ec, eg)):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-5)

@@ -30,6 +30,7 @@ from repro_torch.core import design
 from repro_torch.core.models import mfsi
 from repro_torch.kernels.cd_sweep import ops, ref
 from repro_torch.sparse.interactions import build_interactions
+from repro_torch.sparse.segment import segment_sum
 
 torch.set_num_threads(1)
 
@@ -398,3 +399,30 @@ def test_dataclass_fields_mirror_the_reference():
         **{n: getattr(jmfsi.MFSIHyperParams(k=3), n) for n in jnames})
     assert [f.name for f in dataclasses.fields(design.Field)] == \
         [f.name for f in dataclasses.fields(jdesign.Field)]
+
+
+@pytest.mark.parametrize("l2", [0.0, 0.05])
+def test_field_layer_step_is_the_inline_newton_step_bit_for_bit(l2):
+    """A field layer's Δ through ``sweeps.newton_delta`` equals the inline
+    formula's, bit for bit; the last id of the layer has no entry, so at
+    λ = 0 its denominator is clamped."""
+    gen = torch.Generator().manual_seed(4)
+    n_rows, vocab, offset, eta = 9, 4, 2, 0.7
+    hp = mfsi.MFSIHyperParams(k=3, alpha0=0.3, l2=l2)
+    ids_g = offset + torch.randint(0, vocab - 1, (n_rows,), generator=gen)
+    xw = 0.5 + torch.rand(n_rows, generator=gen)
+    rows = torch.arange(n_rows)
+    local = ids_g - offset
+    table_col, phi_col = torch.randn(8, generator=gen), torch.randn(n_rows, generator=gen)
+    q, r_vec = torch.randn((2, n_rows), generator=gen)
+    p2, jff = torch.rand(n_rows, generator=gen), torch.tensor(1.3)
+    num = (segment_sum(xw * q[rows], local, vocab)
+           + hp.alpha0 * segment_sum(xw * r_vec[rows], local, vocab)
+           + hp.l2 * table_col[offset:offset + vocab])
+    den = (segment_sum(xw * xw * p2[rows], local, vocab)
+           + hp.alpha0 * (jff * segment_sum(xw * xw, local, vocab)) + hp.l2)
+    want = table_col.clone()
+    want[offset:offset + vocab] += -eta * num / torch.clamp(den, min=1e-12)
+    got = mfsi._field_layer_update(table_col, phi_col, q, r_vec, p2, jff, ids_g, xw,
+                                   rows, vocab, offset, hp, eta)[0]
+    assert torch.equal(got, want)

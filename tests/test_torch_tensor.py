@@ -425,6 +425,68 @@ def test_tucker_epochs_match_reference(fused, extra, block_k):
            TUCKER_RTOL, TUCKER_ATOL)
 
 
+def _index_add_item_sweep(h, j_c, ctx_col, data, e, *, alpha0, l2, eta,
+                          schedule=None, sweep_index=0):
+    """The tensor models' item sweep as it was before the sums by sorted
+    row: each of the two sums ``zeros`` + ``index_add_`` over
+    ``data.t_item``."""
+    e_t = sweeps.to_item_major(e, data.t_perm)
+    alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
+
+    def body(f, carry):
+        w_m, e_t = carry
+        o_col = ctx_col(f)[data.t_ctx]
+        w_col = w_m[:, f]
+        lp = torch.zeros(data.n_items).index_add_(0, data.t_item, alpha_t * e_t * o_col)
+        lpp = torch.zeros(data.n_items).index_add_(0, data.t_item,
+                                                   alpha_t * o_col * o_col)
+        rp = w_m @ j_c[:, f]
+        delta = sweeps.newton_delta(
+            sweeps.NewtonParts(lp + alpha0 * rp, lpp + alpha0 * j_c[f, f]), w_col,
+            l2, eta)
+        e_t = e_t + delta[data.t_item] * o_col
+        w_m[:, f] = w_col + delta
+        return w_m, e_t
+
+    h, e_t = sweeps.sweep_columns(h.shape[1], body, (h, e_t), schedule=schedule,
+                                  sweep_index=sweep_index)
+    return h, sweeps.to_ctx_major(e_t, data.t_perm)
+
+
+@pytest.mark.parametrize("schedule", [None, sweeps.SweepSchedule(kind="rotating", block=1,
+                                                                 repeats=(1, 2))])
+@pytest.mark.parametrize("model", ["parafac", "parafac-dense", "tucker"])
+def test_flat_epochs_equal_the_index_add_item_sweep_bit_for_bit(model, schedule,
+                                                                monkeypatch):
+    """On the CPU the sums by sorted row are ``index_add_`` over the same
+    rows, so two weighted flat epochs through ``sweeps.item_side_sweep``
+    equal, bit for bit, the same epochs through the item sweep the tensor
+    models had before it."""
+    _, _, tc, data = _problem(seed=60)
+    wts = _t(_weights(61, data.nnz))
+    if model == "tucker":
+        hp = tucker.TuckerHyperParams(k1=3, k2=2, k3=4, alpha0=0.3, l2=0.05,
+                                      l2_core=0.02)
+        mod, params = tucker, tucker.params_from_numpy(
+            *_factors(62, [(5, 3), (4, 2), (6, 4), (3, 2, 4)]), device="cpu")
+    else:
+        hp = parafac.PARAFACHyperParams(k=4, alpha0=0.3, l2=0.05,
+                                        dense_context=model == "parafac-dense")
+        mod, params = parafac, _parafac_params(62, tc, data.n_items, 4)[1]
+
+    def run():
+        p, e = params, mod.residuals(params, tc, data)
+        for ep in range(2):
+            p, e = mod.epoch(p, tc, data, e, hp, schedule, ep, weights=wts)
+        return (*p, e)
+
+    got = run()
+    monkeypatch.setattr(sweeps, "item_side_sweep", _index_add_item_sweep)
+    want = run()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 # -------------------------------------------------------------- CtxMF ---
 def _ctx_problem(seed=20, n_users=9, n_items=11, n_events=60, n_buckets=4):
     rng = np.random.default_rng(seed)

@@ -76,10 +76,10 @@ NAMES = {
     "fm": {"fm.epoch", "fm.moments", "fm.field_layer", "fm.patch", "fm.bias",
            "segment_sum", "gram", "reorder"},
     "tucker": {"tucker.epoch", "tucker.mode", "tucker.core", "tucker.item",
-               "segment_sum", "gram", "reorder"},
+               "mf.patch", "segment_sum", "gram", "reorder"},
 }
 PARENTS = {  # span -> the names its parent may have
-    "mf.patch": {"mf.epoch"}, "gram": {"mf.epoch", "fm.epoch", "tucker.epoch", "tucker.item"},
+    "mf.patch": {"mf.epoch", "tucker.item"}, "gram": {"mf.epoch", "fm.epoch", "tucker.epoch", "tucker.item"},
     "reorder": {"mf.epoch", "fm.epoch", "tucker.item"}, "fm.moments": {"fm.epoch"},
     "fm.field_layer": {"fm.epoch"}, "fm.patch": {"fm.epoch"}, "fm.bias": {"fm.epoch"},
     "segment_sum": {"mf.epoch", "fm.epoch", "fm.moments", "fm.field_layer", "fm.bias",
