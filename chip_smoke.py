@@ -230,7 +230,14 @@ Phases, one line each or more:
      plain form in float64 and twice for the same bits; one slab pass and
      one solve, the kernels' sweep and ``tucker.core_sweep`` whole, beside
      the pass's bounds, the plain form and the per-coordinate loop it
-     replaced; one ``tucker.epoch`` (seconds, launches, 64 slabs).
+     replaced; one ``tucker.epoch`` (seconds, launches, 64 slabs);
+ 30. Tucker's mode sweeps by column (``kernels/tucker_mode``) at the same
+     cell's inputs: the u and v sweeps by the kernels against the per-column
+     body they replaced in float64 (norm gaps of u, v, Φ and e) and twice
+     for the same bits; a column's pass and solve (the profiler's ms a
+     launch) and each sweep whole (CUDA events) beside a column's bound, the
+     plain form and the per-column body in float32; one ``tucker.epoch``
+     (seconds, launches, the kernels' columns).
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -253,7 +260,8 @@ the Gram and top-K kernels; ``--segment-sum`` only phase 28, after
 building the segment-sum kernel; ``--segment-sum-tune`` only the variants
 of ``csrc/segment_sum.cu`` (:func:`segment_sum_tune`: threads a block, path
 items a lane); ``--tucker-core`` only phase 29, after building the
-core-sweep kernel.
+core-sweep kernel; ``--tucker-mode`` only phase 30, after building the
+mode-sweep kernel.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -4707,6 +4715,169 @@ def tucker_core_at_cell_shape(dev) -> dict:
             "launches": launches, "kernel_launches": kernel_launches}
 
 
+def tucker_mode_at_cell_shape(dev) -> dict:
+    """Phase 30: Tucker's mode sweeps by column (``kernels/tucker_mode``) at
+    the ``tucker-train-youtube-hourly`` cell's shape (the benchmark's own
+    inputs, seed 30): the u sweep, then the v sweep from its u, by the
+    kernels against the per-column body they replaced (the tests' oracle) in
+    float64: the norm gaps of u, v, Φ and e, beside the plain form's in
+    float32; two runs give the same bits; each kernel's ms a launch (the
+    profiler) and each sweep whole (CUDA events) beside a column's bound,
+    the plain form and the per-column body in float32; one ``tucker.epoch``:
+    its seconds, kernel launches and the columns the kernels swept."""
+    import dataclasses
+    import importlib.util
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench.harness import hours
+    from bench.models import tucker as bench_tucker
+    from repro_torch.core.gram import full_fp32, gram
+    from repro_torch.core.models import tucker
+    from repro_torch.kernels.tucker_mode import ops as mo, ref as mr
+
+    spec = importlib.util.spec_from_file_location(  # the tests' oracle: the body it replaced
+        "test_torch_tucker_mode", os.path.join(ROOT, "tests", "test_torch_tucker_mode.py"))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    with open(os.path.join(ROOT, "bench", "configs", "icd-tucker.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, "bench", "traffic", "youtube-hourly.json")) as f:
+        mix = json.load(f)
+    t0 = time.perf_counter()
+    prog = bench_tucker.Program(cfg, hours.make_inputs(cfg, mix, 30, dev), dev)
+    params, tc, data, hp, e = prog.params, prog.tc, prog.data, prog.hp, prog.e
+    torch.cuda.synchronize()
+    nnz, pairs = data.nnz, tc.n_ctx
+    k1, k2, k3 = hp.k1, hp.k2, hp.k3
+    log(f"phase 30 log: {nnz} interactions, {pairs} (user, hour) pairs, ranks "
+        f"({k1}, {k2}, {k3}), built in {time.perf_counter() - t0:.1f}s")
+    kw = dict(alpha0=hp.alpha0, l2=hp.l2, eta=hp.eta)
+
+    def side_call(fn, side, p, fac, partner, phi_m, j_i, alpha, ee):
+        """One sweep of every column of ``side`` by ``fn`` (``ops.mode_sweep``'s
+        signature): (fac, Φ, e)."""
+        if side == "u":
+            head = (fac, p.b, partner, tc.c2, tc.c1, *tc.c1_groups)
+        else:
+            head = (fac, p.b.transpose(0, 1), partner, tc.c1, tc.c2, *tc.c2_groups)
+        return fn(*head, phi_m, j_i, p.w, data.ctx_ptr, data.item, alpha, ee,
+                  columns=tuple(range(fac.shape[1])), **kw)
+
+    def old_body(fac, b_s, partner, pop, gop, order, ptr, phi_m, j_i, w, ctx_ptr, item,
+                 alpha, ee, *, columns, **_):
+        return oracle.per_column_mode_sweep(
+            fac, (lambda f: b_s[f]), pop, partner, gop, fac.shape[0], fac.shape[1], phi_m,
+            j_i, dataclasses.replace(data, alpha=alpha), w, ee, hp)
+
+    def both_sides(fn, dtype):
+        """u then v from the start, by ``fn`` in ``dtype``: (u, v, Φ, e)."""
+        p = tucker.TuckerParams(*(x.to(dtype) for x in params))
+        u, v, phi_m, ee = p.u.clone(), p.v.clone(), tucker.phi(p, tc).contiguous(), e.to(dtype)
+        j_i, alpha = p.w.T @ p.w, data.alpha.to(dtype)
+        u, phi_m, ee = side_call(fn, "u", p, u, v, phi_m, j_i, alpha, ee)
+        v, phi_m, ee = side_call(fn, "v", p, v, u, phi_m, j_i, alpha, ee)
+        return u, v, phi_m, ee
+
+    def gap(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b))
+
+    names = ("u", "v", "phi", "e")
+    with full_fp32():
+        got = both_sides(mo.mode_sweep, torch.float32)
+        again = both_sides(mo.mode_sweep, torch.float32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            "two runs of the mode-sweep kernels differ"
+        plain = both_sides(mr.mode_sweep_ref, torch.float32)
+        want = both_sides(old_body, torch.float64)
+        gaps = {n: gap(g, w) for n, g, w in zip(names, got, want)}
+        plain_gaps = {n: gap(p, w) for n, p, w in zip(names, plain, want)}
+        assert max(gaps.values()) <= 2e-5, (gaps, plain_gaps)
+        del plain, want, again, got
+
+        j_i = gram(params.w)
+        phi0 = tucker.phi(params, tc).contiguous()
+        times = {}
+        for side, fac, partner in (("u", params.u, params.v), ("v", params.v, params.u)):
+            def call(j, side=side, fac=fac, partner=partner, fn=mo.mode_sweep):
+                return side_call(fn, side, params, fac.clone(), partner, phi0.clone(), j_i,
+                                 data.alpha, e)
+
+            call(0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call(0)
+                torch.cuda.synchronize()
+            by_kernel = {ev.key.split("(")[0].replace("void ", ""):
+                         ((ev.self_device_time_total or 0) / ev.count / 1e3, ev.count)
+                         for ev in prof.key_averages()
+                         if ev.device_type.name == "CUDA" and "tucker_mode" in ev.key}
+            times[side] = {
+                "sweep_ms": device_ms(call, n=10), "by_kernel": by_kernel,
+                "plain_ms": device_ms(lambda j: call(j, fn=mr.mode_sweep_ref), n=3),
+                "old_ms": device_ms(lambda j: call(j, fn=old_body), n=3)}
+    # a column: the item id, ᾱ, e and s read and written an interaction, Φ read and
+    # written, the offsets, the group and partner ids a pair (HBM); s and the pair
+    # products' FMAs; the w rows from L2
+    col_bytes = nnz * 24 + pairs * (2 * 4 * k3 + 8 + 8 + 8)
+    col_flops = {side: nnz * (2 * k3 + 6) + pairs * (6 * k_o * k3 + 6 * k3)
+                 for side, k_o in (("u", k2), ("v", k1))}
+    col_bound = {side: bound(col_bytes, f) for side, f in col_flops.items()}
+    l2_bytes = nnz * 4 * k3
+    launches0, cols0 = mo.mode_sweep.launches, mo.mode_sweep.columns
+    t1 = time.perf_counter()
+    tucker.epoch(params, tc, data, e, hp)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    kernel_launches = mo.mode_sweep.launches - launches0
+    columns = mo.mode_sweep.columns - cols0
+    assert columns == k1 + k2 and kernel_launches == 2 * (k1 + k2) + 2, \
+        (columns, kernel_launches)
+    launches = _cuda_launches(lambda: tucker.epoch(params, tc, data, e, hp))
+    log(f"phase 30 hold: u, v by the kernels against the float64 per-column body, norm "
+        f"gaps {', '.join(f'{n} {x:.3g}' for n, x in gaps.items())} (the plain form in "
+        f"fp32 {', '.join(f'{n} {x:.3g}' for n, x in plain_gaps.items())}); two runs bit "
+        f"for bit")
+    for side in ("u", "v"):
+        t = times[side]
+        parts = "; ".join(f"{k} {ms:.4f} ms x {c}" for k, (ms, c) in t["by_kernel"].items())
+        b_ms, b_by = col_bound[side]
+        log(f"phase 30 time {side}: the kernels' sweep {t['sweep_ms']:.3f} ms "
+            f"({parts or 'by kernel not measured'}); a column's bound {b_ms:.4f} ms "
+            f"({b_by}: {col_bytes} B from HBM, {col_flops[side]} FLOP; the w rows "
+            f"{l2_bytes} B from L2); the plain form {t['plain_ms']:.3f} ms; the "
+            f"per-column body it replaced {t['old_ms']:.3f} ms")
+    log(f"phase 30 epoch: tucker.epoch {epoch_s:.4f} s (wall, after the sweeps above), "
+        f"{launches} kernel launches, {columns} columns by the mode-sweep kernels "
+        f"({kernel_launches} launches)")
+    return {"gaps": gaps, "plain_gaps": plain_gaps, "times": times,
+            "bound_ms": {s: b[0] for s, b in col_bound.items()}, "epoch_s": epoch_s,
+            "launches": launches, "kernel_launches": kernel_launches}
+
+
+def tucker_mode_only() -> None:
+    """Phase 30 alone, after building the mode-sweep kernel at k3 = 32."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tucker_core import kernel as tk
+    from repro_torch.kernels.tucker_mode import kernel as mk
+
+    t0 = time.perf_counter()
+    libs = [mk.library(mk.width_of(32)), tk.library(tk.width_of(32))]
+    build.build_all(libs)
+    for lib in libs:
+        ptxas = [ln.split("'")[1][:48] if "Compiling entry" in ln else ln.strip()
+                 for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        log(f"phase 1 build: {lib.path().name} in {time.perf_counter() - t0:.1f}s; "
+            f"ptxas: {' | '.join(ptxas)}")
+    tucker_mode_at_cell_shape(torch.device("cuda", 0))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+
 def tucker_core_only() -> None:
     """Phase 29 alone, after building the core-sweep kernel at k3 = 32."""
     from repro_torch.kernels import build
@@ -4738,6 +4909,7 @@ def main() -> None:
     from repro_torch.kernels.segment_sum import kernel as seg_kernel
     from repro_torch.kernels.topk_score import kernel, ops, ref
     from repro_torch.kernels.tucker_core import kernel as tucker_kernel
+    from repro_torch.kernels.tucker_mode import kernel as mode_kernel
     from repro_torch.launch import serve
 
     dev = torch.device("cuda", 0)
@@ -4745,7 +4917,8 @@ def main() -> None:
 
     # 1. build every kernel, one nvcc per source, all at once
     libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB, cd_kernel.SLAB_LIB,
-            cd_kernel.GATHER_LIB, seg_kernel.LIB, tucker_kernel.library(32)]
+            cd_kernel.GATHER_LIB, seg_kernel.LIB, tucker_kernel.library(32),
+            mode_kernel.library(32)]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
@@ -4971,6 +5144,11 @@ def main() -> None:
     core29 = tucker_core_at_cell_shape(dev)
     log(f"phase 29 done in {time.perf_counter() - t0:.1f}s")
 
+    # 30. Tucker's mode sweeps by column at the Tucker cell's shape
+    t0 = time.perf_counter()
+    mode30 = tucker_mode_at_cell_shape(dev)
+    log(f"phase 30 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -5125,6 +5303,20 @@ def main() -> None:
         "sweep_ms": core29["sweep_ms"], "plain_ms": core29["plain_ms"],
         "loop_ms": core29["loop_ms"], "bound_ms": core29["pass_bound_ms"],
         "bound_by": "operations", "library_ms": None})
+    # Tucker's mode sweeps (phase 30): a u column's pass and solve, its bound;
+    # launches in one tucker.epoch at the cell's shape (2·(k1 + k2) + 2); the
+    # error is the worst norm gap against the float64 per-column body
+    mode_u = mode30["times"]["u"]
+    kernels.append({
+        "name": "tucker_mode", "route": "cuda",
+        "source": "src/repro_torch/kernels/tucker_mode/csrc/tucker_mode.cu",
+        "replaces": "none (the mode sweeps' XLA ops, repro/core/models/tucker.py:_mode_sweep)",
+        "launches": mode30["kernel_launches"], "max_abs_err": max(mode30["gaps"].values()),
+        "ms": {k: ms for k, (ms, _) in mode_u["by_kernel"].items()},
+        "sweep_ms": {s: t["sweep_ms"] for s, t in mode30["times"].items()},
+        "plain_ms": {s: t["plain_ms"] for s, t in mode30["times"].items()},
+        "old_ms": {s: t["old_ms"] for s, t in mode30["times"].items()},
+        "bound_ms": mode30["bound_ms"]["u"], "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5156,5 +5348,7 @@ if __name__ == "__main__":
         segment_sum_tune()
     elif sys.argv[1:] == ["--tucker-core"]:
         tucker_core_only()
+    elif sys.argv[1:] == ["--tucker-mode"]:
+        tucker_mode_only()
     else:
         main()

@@ -41,7 +41,8 @@ as numpy arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,11 +73,31 @@ class PARAFACParams(NamedTuple):
     w: torch.Tensor  # (n_items, k)
 
 
+class PairGroups(NamedTuple):
+    """The pairs grouped by one mode's id: ``order`` (n_ctx,) int32 lists
+    the pairs group by group, each group's in pair order (None where the
+    pair list already is in that order), and ``ptr`` (n + 1,) int64 gives
+    group g's slice ``order[ptr[g]:ptr[g + 1]]``."""
+
+    order: Optional[torch.Tensor]
+    ptr: torch.Tensor
+
+
+def pair_groups(ids: torch.Tensor, n: int) -> PairGroups:
+    """:class:`PairGroups` of the pairs by ``ids`` (n_ctx,) in [0, n)."""
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=ids.device)
+    ptr[1:] = torch.cumsum(torch.bincount(ids, minlength=n), 0)
+    if bool(torch.all(ids[1:] >= ids[:-1])):
+        return PairGroups(None, ptr)
+    return PairGroups(torch.argsort(ids, stable=True).to(torch.int32), ptr)
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorContext:
     """Observed context pairs C ⊆ C1×C2 (int64 tensors; the reference keeps
     int32, with the same values). ``Interactions.ctx`` indexes rows of this
-    pair list."""
+    pair list. ``c1_groups`` and ``c2_groups``, the pairs grouped by each
+    mode, are built at their first use and kept."""
 
     c1: torch.Tensor  # (n_ctx,)
     c2: torch.Tensor  # (n_ctx,)
@@ -86,6 +107,14 @@ class TensorContext:
     @property
     def n_ctx(self) -> int:
         return int(self.c1.shape[0])
+
+    @functools.cached_property
+    def c1_groups(self) -> PairGroups:
+        return pair_groups(self.c1, self.n_c1)
+
+    @functools.cached_property
+    def c2_groups(self) -> PairGroups:
+        return pair_groups(self.c2, self.n_c2)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,10 @@ k3-dimensional contractions per context row:
         R''/2 = segment_{c1}( Σ_f D_f · (D J_I)_f )
         L'/2  = segment_{c1}( ᾱ e s ),  s = Σ_f D_f w_{i,f}  per observation
 
+The flat epoch sweeps a mode column with one pass over the pairs and the
+log and one solve of every row's step (``kernels.tucker_mode``): D, its
+(nnz, k3) gather and the sums are never formed in device memory.
+
 Core coordinates b_{f1,f2,f3} all interact through Φ, so they are swept
 strictly in sequence: k1·k2·k3 scalar Newton steps, as the reference's
 ``lax.fori_loop``. The k3 steps of a slab (f1, f2) share g = u_{f1}·v_{f2},
@@ -57,6 +61,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_block_sweep_rowpatch_gather,
 )
 from repro_torch.kernels.tucker_core import core_sweep_slabs
+from repro_torch.kernels.tucker_mode import mode_sweep
 from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions, with_weights
 from repro_torch.sparse.segment import segment_sum
@@ -152,35 +157,22 @@ def build_phi(params: TuckerParams, c1, c2) -> torch.Tensor:
                          params.b)
 
 
-def _mode_sweep(side, b_slice_fn, partner_of_pair, partner, group_of_pair,
-                n_side: int, k_side: int, phi_m, j_i, data: Interactions,
-                w_items, e, hp, schedule=None, sweep_index: int = 0):
-    """Flat mode sweep; ``side`` and ``phi_m`` are updated in place."""
-    pair_of_nnz = data.ctx
-    grp_nnz = group_of_pair[pair_of_nnz]
-    pp = partner[partner_of_pair]                              # (n_ctx, k_other)
-    w_nnz = w_items[data.item]                                 # (nnz, k3)
-
-    def body(fs, carry):
-        side_m, phi_m, e = carry
-        d = pp @ b_slice_fn(fs)                                # (n_ctx, k3)
-        s = torch.sum(d[pair_of_nnz] * w_nnz, dim=1)           # (nnz,)
-        lp = segment_sum(data.alpha * e * s, grp_nnz, n_side)
-        lpp = segment_sum(data.alpha * s * s, grp_nnz, n_side)
-        rp = segment_sum(torch.sum(d * (phi_m @ j_i), dim=1), group_of_pair,
-                         n_side)
-        rpp = segment_sum(torch.sum(d * (d @ j_i), dim=1), group_of_pair,
-                          n_side)
-        s_col = sweeps.take_col(side_m, fs)
-        delta = sweeps.newton_delta(
-            sweeps.NewtonParts(lp + hp.alpha0 * rp, lpp + hp.alpha0 * rpp),
-            s_col, hp.l2, hp.eta)
-        phi_m += delta[group_of_pair][:, None] * d
-        e = e + delta[grp_nnz] * s
-        return sweeps.put_col(side_m, fs, s_col + delta), phi_m, e
-
-    return sweeps.sweep_columns(k_side, body, (side, phi_m, e),
-                                schedule=schedule, sweep_index=sweep_index)
+def _mode_sweep(name, side, b_slices, partner_of_pair, partner, group_of_pair,
+                groups, phi_m, j_i, data: Interactions, w_items, e, hp, schedule=None,
+                sweep_index: int = 0):
+    """Flat mode sweep of ``side`` (u or v, ``name``) under the span
+    ``tucker.mode``: its columns in the order ``sweeps.sweep_columns``
+    gives, by ``kernels.tucker_mode`` (one pass over the pairs and the log
+    and one solve a column, then a closing patch). ``side`` and ``phi_m``
+    are updated in place."""
+    columns = sweeps.sweep_columns(side.shape[1], lambda f, cols: (*cols, f), (),
+                                   schedule=schedule, sweep_index=sweep_index)
+    with span("tucker.mode", side=name, columns=len(columns),
+              passes=len(columns) + 1 if columns else 0):
+        return mode_sweep(side, b_slices, partner, partner_of_pair, group_of_pair,
+                          groups.order, groups.ptr, phi_m, j_i, w_items, data.ctx_ptr,
+                          data.item, data.alpha, e, columns=columns, alpha0=hp.alpha0,
+                          l2=hp.l2, eta=hp.eta)
 
 
 def _mode_sweep_padded(side, b_blk_fn, partner_of_pair, partner,
@@ -261,21 +253,14 @@ def core_sweep(params: TuckerParams, phi_m, j_i, tc: TensorContext,
     return params.b + delta.reshape(params.b.shape), phi_m, e
 
 
-def _u_slice(b):
-    return lambda f1: b[f1]                        # (k2, k3)
-
-
-def _v_slice(b):
-    return lambda f2: b[:, f2]                     # (k1, k3)
-
-
 def epoch(params: TuckerParams, tc: TensorContext, data: Interactions, e,
           hp: TuckerHyperParams, schedule=None, sweep_index: int = 0,
           weights=None) -> Tuple[TuckerParams, torch.Tensor]:
     """One iCD epoch: U sweep → V sweep → core sweep → item (W) sweep,
     under the spans ``tucker.epoch`` (root), ``tucker.mode`` (``side`` u or
-    v), ``tucker.core`` (``steps`` = k1·k2·k3, ``passes`` = k1·k2 + 1 over the
-log) and ``tucker.item``.
+    v, ``columns`` swept, ``passes`` = columns + 1 over the log),
+    ``tucker.core`` (``steps`` = k1·k2·k3, ``passes`` = k1·k2 + 1 over the
+    log) and ``tucker.item``.
 
     A ``schedule`` restricts the FACTOR-mode sweeps; the scalar core sweep
     always runs in full. Returns new params and a new residual cache;
@@ -285,15 +270,12 @@ log) and ``tucker.item``.
     u, v, w, b = (t.clone() for t in params)
     with span("tucker.epoch"), full_fp32():
         j_i = gram(w, implementation=hp.implementation)
-        phi_m = phi(params, tc)
-        with span("tucker.mode", side="u"):
-            u, phi_m, e = _mode_sweep(u, _u_slice(b), tc.c2, v, tc.c1, u.shape[0],
-                                      hp.k1, phi_m, j_i, data, w, e, hp, schedule,
-                                      sweep_index)
-        with span("tucker.mode", side="v"):
-            v, phi_m, e = _mode_sweep(v, _v_slice(b), tc.c1, u, tc.c2, v.shape[0],
-                                      hp.k2, phi_m, j_i, data, w, e, hp, schedule,
-                                      sweep_index)
+        phi_m = phi(params, tc).contiguous()
+        u, phi_m, e = _mode_sweep("u", u, b, tc.c2, v, tc.c1, tc.c1_groups, phi_m, j_i,
+                                  data, w, e, hp, schedule, sweep_index)
+        v, phi_m, e = _mode_sweep("v", v, b.transpose(0, 1), tc.c1, u, tc.c2,
+                                  tc.c2_groups, phi_m, j_i, data, w, e, hp, schedule,
+                                  sweep_index)
         with span("tucker.core", steps=hp.k1 * hp.k2 * hp.k3,
                   passes=hp.k1 * hp.k2 + 1):
             b, phi_m, e = core_sweep(TuckerParams(u, v, w, b), phi_m, j_i, tc,

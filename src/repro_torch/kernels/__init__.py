@@ -44,6 +44,10 @@ Kernels:
                time: one pass over the log and one solve of the slab's k3
                steps (no TPU kernel: the JAX package's core sweep is a
                ``lax.fori_loop`` of XLA ops).
+  tucker_mode — Tucker's mode sweeps a column of u or v at a time: one
+               pass over the pairs and the log and one solve of every
+               row's step (no TPU kernel: the JAX package's mode sweep is
+               a loop of XLA ops).
 """
 from __future__ import annotations
 

@@ -2886,10 +2886,10 @@ def test_segment_sum_sorted_kernel_edges_on_cuda(cuda):
 def test_mf_epoch_sums_by_the_kernel_not_index_add_on_cuda(cuda, model):
     """A tiny flat epoch on the card sums the one-hot column sweep by the
     kernel: each column's two sums on a side are one call (two launches).
-    ``mf.epoch`` runs it on both sides and launches no
-    ``aten::index_add_``; ``tucker.epoch`` runs it on the item side, 2·k3
-    launches, while its mode sweeps keep ``index_add_``. The epoch matches
-    the same epoch on the CPU."""
+    ``mf.epoch`` runs it on both sides, ``tucker.epoch`` on the item side,
+    2·k3 launches (its mode sweeps sum in ``kernels/tucker_mode``); neither
+    launches an ``aten::index_add_``. The epoch matches the same epoch on
+    the CPU."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.models import mf, tucker
@@ -2929,12 +2929,9 @@ def test_mf_epoch_sums_by_the_kernel_not_index_add_on_cuda(cuda, model):
         if dev == cuda:
             torch.cuda.synchronize()
             launches = seg_ops.segment_sum_sorted.launches - before
-            if model == "mf":
-                assert launches == 2 * 2 * k
-                names = {ev.key for ev in prof.key_averages()}
-                assert "aten::index_add_" not in names, sorted(names)
-            else:
-                assert launches == 2 * t_hp.k3
+            assert launches == (2 * 2 * k if model == "mf" else 2 * t_hp.k3)
+            names = {ev.key for ev in prof.key_averages()}
+            assert "aten::index_add_" not in names, sorted(names)
     (pc, ec), (pg, eg) = out["cpu"], out[str(cuda)]
     for a, b in (*zip(pc, pg), (ec, eg)):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-5)

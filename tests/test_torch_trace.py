@@ -141,6 +141,7 @@ def test_an_installed_tracer_gets_the_epochs_spans_with_their_parents(model):
     if model == "tucker":
         modes = [sp for sp in tracer.spans if sp.name == "tucker.mode"]
         assert [sp.attrs["side"] for sp in modes] == ["u", "v"]
+        assert [(sp.attrs["columns"], sp.attrs["passes"]) for sp in modes] == [(3, 4), (2, 3)]
         cores = [sp for sp in tracer.spans if sp.name == "tucker.core"]
         assert [sp.attrs["steps"] for sp in cores] == [3 * 2 * 3]
     if model == "fm":

@@ -252,9 +252,11 @@ def test_core_sweep_kernel_edges_on_cuda(cuda):
 @pytest.mark.gpu
 def test_tucker_epoch_on_cuda_matches_cpu(cuda):
     """Two ``tucker.epoch`` calls at ranks (3, 2, 4), weighted, on the card
-    (the core sweep by the kernels) against the same on the CPU (the plain
-    form), float32."""
+    (the core sweep and the mode sweeps by the kernels) against the same on
+    the CPU (the plain forms), float32; the kernels' counters: 6 slabs, and
+    3 + 2 mode columns in 2·5 + 2 launches, an epoch."""
     from repro_torch.kernels.tucker_core import ops
+    from repro_torch.kernels.tucker_mode import ops as mode_ops
 
     out = []
     for dev in ("cpu", cuda):
@@ -264,10 +266,13 @@ def test_tucker_epoch_on_cuda_matches_cpu(cuda):
         hp = tucker.TuckerHyperParams(k1=3, k2=2, k3=4, alpha0=ALPHA0, l2_core=L2_CORE)
         e = tucker.residuals(params, tc, data)
         slabs = ops.core_sweep_slabs.slabs
+        launches, columns = mode_ops.mode_sweep.launches, mode_ops.mode_sweep.columns
         for _ in range(2):
             params, e = tucker.epoch(params, tc, data, e, hp)
         if dev != "cpu":
             assert ops.core_sweep_slabs.slabs == slabs + 2 * 6
+            assert mode_ops.mode_sweep.columns == columns + 2 * (3 + 2)
+            assert mode_ops.mode_sweep.launches == launches + 2 * (2 * (3 + 2) + 2)
         out.append([t.cpu() for t in (*params, e)])
     for a, b in zip(*out):
         assert _gap(b, a) <= 2e-5, _gap(b, a)
