@@ -1,0 +1,11 @@
+"""field_layer_ms.mfsi: device time of the kernels launched inside the
+``mfsi.field_layer`` spans (the field layers' sums, Newton steps and
+cache patches, the residual patches aside), in ms an epoch, from
+the span passes' pass (b); None where the port has no such span."""
+
+
+def read(m: dict):
+    p = m.get("spans")
+    row = None if p is None or m["model"] != "mfsi" else \
+        p["device"]["inclusive"].get("mfsi.field_layer")
+    return 1e3 * row["device_s"] / p["epochs"] if row and row["launches"] else None

@@ -34,10 +34,13 @@ and the id grid, and the kernels gather; ``'pregather'`` builds the
 (C, k_b, D_pad) tile first. Both kernels take any D_pad, so no row length
 is refused (the reference's VMEM residency check has no counterpart here).
 
-PyTorch runs eagerly: the field layers are host loops of gathers and
-``index_add_`` segment sums, in full fp32, between the kernel launches.
-On CUDA those segment sums use atomics, so their last bits can change from
-run to run. The padded residual grid ``e_pad`` is updated in place, as the
+Flat path (:func:`epoch`): each field layer of a dimension is one call of
+the hand-written field-layer kernels (``kernels/mfsi_layer``: sums, steps
+and cache patches in three launches, four for a bag); the moments and the
+residual patch stay PyTorch. On the padded path the field layers are host
+loops of gathers and ``index_add_`` segment sums. Both run in full fp32,
+and on CUDA both sum by atomics, so their last bits can change from run
+to run. The padded residual grid ``e_pad`` is updated in place, as the
 reference donates it: callers rebind. :func:`params_from_numpy` carries
 the JAX package's ``MFSIParams`` over as numpy arrays.
 """
@@ -68,6 +71,8 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_slab_reduce,
     cd_slab_reduce_gather,
 )
+from repro_torch.kernels.mfsi_layer import ops as field_layer_ops
+from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions, with_weights
 from repro_torch.sparse.segment import segment_sum, segment_sum_sorted
 
@@ -198,29 +203,32 @@ def _field_layers(design: Design, hp) -> list:
 
 def _side_sweep(table, phi_m, other_psi, other_j, design: Design, rows_nnz,
                 row_ptr, other_nnz_ids, alpha, e, hp: MFSIHyperParams,
-                schedule=None, sweep_index: int = 0):
+                schedule=None, sweep_index: int = 0, *, side: str):
     """One side's per-dimension sweep over the flat observations;
     ``rows_nnz`` are the entries' rows, sorted, and ``row_ptr`` their
     (n + 1,) CSR offsets. ``table`` and ``phi_m`` are updated in place,
-    ``e`` comes back new."""
-    layers = _field_layers(design, hp)
+    ``e`` comes back new. ``side`` ('ctx' or 'item') labels the spans.
+    Each field layer is one ``kernels.mfsi_layer.field_layer`` call, which
+    moves the table's and Φ's column f* and the caches q and r in place."""
+    layers, scratch = field_layer_ops.prepare(_field_layers(design, hp), design.n_rows)
 
     def dim_body(f, carry):
         table, phi_m, e = carry
-        psi_nnz = sweeps.take_col(other_psi, f)[other_nnz_ids]
-        p2, q = segment_sum_sorted((alpha * psi_nnz * psi_nnz, alpha * e * psi_nnz),
-                                   row_ptr)
+        with span("mfsi.moments"):
+            psi_nnz = sweeps.take_col(other_psi, f)[other_nnz_ids]
+            p2, q = segment_sum_sorted((alpha * psi_nnz * psi_nnz, alpha * e * psi_nnz),
+                                       row_ptr)
         r_vec = phi_m @ sweeps.take_col(other_j, f)
         jff = other_j[f, f]
         table_col = sweeps.take_col(table, f)
         phi_col = sweeps.take_col(phi_m, f)
-        for ids_g, xw, rows, vocab, offset, eta in layers:
-            table_col, phi_col, q, r_vec, dphi_rows = _field_layer_update(
-                table_col, phi_col, q, r_vec, p2, jff, ids_g, xw, rows, vocab,
-                offset, hp, eta)
-            e = e + dphi_rows[rows_nnz] * psi_nnz
-        sweeps.put_col(table, f, table_col)
-        sweeps.put_col(phi_m, f, phi_col)
+        for layer in layers:
+            with span("mfsi.field_layer", side=side, dim=f, offset=layer.offset):
+                dphi_rows = field_layer_ops.field_layer(
+                    layer, table_col, phi_col, q, r_vec, p2, jff, scratch,
+                    alpha0=hp.alpha0, l2=hp.l2)
+            with span("mfsi.patch"):
+                e = e + dphi_rows[rows_nnz] * psi_nnz
         return table, phi_m, e
 
     return sweeps.sweep_columns(hp.k, dim_body, (table, phi_m, e),
@@ -289,23 +297,27 @@ def epoch(params: MFSIParams, x: Design, z: Design, data: Interactions,
     the scheduled columns (``schedule=None`` = full pass). Returns new
     params and a new residual cache; ``params`` and ``e`` are left as they
     were. ``weights`` (optional, (nnz,) ctx-major) folds per-interaction
-    confidence into α exactly."""
+    confidence into α exactly. Runs under the spans ``mfsi.epoch`` (root),
+    ``mfsi.moments`` (a dimension's gathered ψ column and its two sorted
+    sums), ``mfsi.field_layer`` (``side``, ``dim``, ``offset``) and
+    ``mfsi.patch`` (each residual patch), no-ops with no tracer installed."""
     data = with_weights(data, weights)
     w, h = params.w.clone(), params.h.clone()
-    with full_fp32():
+    with span("mfsi.epoch"), full_fp32():
         phi_m = design_matmul(x, w)
         psi_m = design_matmul(z, h)
         j_i = gram(psi_m, implementation=hp.implementation)
         w, phi_m, e = _side_sweep(w, phi_m, psi_m, j_i, x, data.ctx,
                                   data.ctx_ptr, data.item, data.alpha, e, hp,
-                                  schedule, sweep_index)
+                                  schedule, sweep_index, side="ctx")
         j_c = gram(phi_m, implementation=hp.implementation)
         e_t = sweeps.to_item_major(e, data.t_perm)
         alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
         h, psi_m, e_t = _side_sweep(h, psi_m, phi_m, j_c, z, data.t_item,
                                     data.item_ptr, data.t_ctx, alpha_t, e_t,
-                                    hp, schedule, sweep_index)
-    return MFSIParams(w, h), sweeps.to_ctx_major(e_t, data.t_perm)
+                                    hp, schedule, sweep_index, side="item")
+        e = sweeps.to_ctx_major(e_t, data.t_perm)
+    return MFSIParams(w, h), e
 
 
 def epoch_padded(params: MFSIParams, x: Design, z: Design,

@@ -48,6 +48,10 @@ Kernels:
                pass over the pairs and the log and one solve of every
                row's step (no TPU kernel: the JAX package's mode sweep is
                a loop of XLA ops).
+  mfsi_layer — iCD-MFSI's field layer on the flat layout: a field's (or
+               a Jacobi bag's) Newton steps in one dimension and the
+               per-row cache patches, in three launches (no TPU kernel:
+               the JAX package's field layer is XLA ops).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The port's spans in its training epochs (``obs/trace``: ``installed``,
 the module-level ``span``, profiler ranges) and the synchronised epoch
-clock of ``obs/train``, on toy MF, FM and Tucker problems on the CPU."""
+clock of ``obs/train``, on toy MF, FM, Tucker and MFSI problems on the CPU."""
 import json
 import sys
 
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.core import design
-from repro_torch.core.models import ctxmf, fm, mf, tucker
+from repro_torch.core.models import ctxmf, fm, mf, mfsi, tucker
 from repro_torch.obs import trace
 from repro_torch.obs import train as obs_train
 from repro_torch.obs.metrics import MetricsRegistry
@@ -37,17 +37,21 @@ def _mf_epoch(k=3):
     return lambda: mf.epoch(params, data, e, hp)
 
 
-def _fm_epoch(k=3):
+def _designs():
     rng = np.random.default_rng(1)
-    _, _, data = _log()
     fields = [dict(name="user", ids=np.arange(N_CTX), vocab=N_CTX),
               dict(name="age", ids=rng.integers(0, 3, N_CTX), vocab=3),
               dict(name="hist", vocab=N_ITEMS, weights=np.full((N_CTX, 2), 0.5, np.float32),
                    ids=np.stack([rng.choice(N_ITEMS, 2, replace=False)
                                  for _ in range(N_CTX)]))]
     items = [dict(name="item_id", ids=np.arange(N_ITEMS), vocab=N_ITEMS)]
-    x = design.make_design(fields, N_CTX, device="cpu")
-    z = design.make_design(items, N_ITEMS, device="cpu")
+    return (design.make_design(fields, N_CTX, device="cpu"),
+            design.make_design(items, N_ITEMS, device="cpu"))
+
+
+def _fm_epoch(k=3):
+    _, _, data = _log()
+    x, z = _designs()
     hp = fm.FMHyperParams(k=k, alpha0=0.3)
     params = fm.init(x.p, z.p, k, generator=torch.Generator().manual_seed(0))
     e = fm.residuals(params, x, z, data, hp)
@@ -70,22 +74,37 @@ def _tucker_epoch(k1=3, k2=2, k3=3):
     return lambda: tucker.epoch(params, tc, data, e, hp)
 
 
-EPOCHS = {"mf": _mf_epoch, "fm": _fm_epoch, "tucker": _tucker_epoch}
+def _mfsi_epoch(k=3):
+    _, _, data = _log()
+    x, z = _designs()
+    hp = mfsi.MFSIHyperParams(k=k, alpha0=0.3)
+    params = mfsi.init(x.p, z.p, k, generator=torch.Generator().manual_seed(0))
+    e = mfsi.residuals(params, x, z, data)
+    return lambda: mfsi.epoch(params, x, z, data, e, hp)
+
+
+EPOCHS = {"mf": _mf_epoch, "fm": _fm_epoch, "tucker": _tucker_epoch, "mfsi": _mfsi_epoch}
 NAMES = {
     "mf": {"mf.epoch", "mf.patch", "segment_sum", "gram", "reorder"},
     "fm": {"fm.epoch", "fm.moments", "fm.field_layer", "fm.patch", "fm.bias",
            "segment_sum", "gram", "reorder"},
     "tucker": {"tucker.epoch", "tucker.mode", "tucker.core", "tucker.item",
                "mf.patch", "segment_sum", "gram", "reorder"},
+    "mfsi": {"mfsi.epoch", "mfsi.moments", "mfsi.field_layer", "mfsi.patch",
+             "segment_sum", "gram", "reorder"},
 }
 PARENTS = {  # span -> the names its parent may have
-    "mf.patch": {"mf.epoch", "tucker.item"}, "gram": {"mf.epoch", "fm.epoch", "tucker.epoch", "tucker.item"},
-    "reorder": {"mf.epoch", "fm.epoch", "tucker.item"}, "fm.moments": {"fm.epoch"},
+    "mf.patch": {"mf.epoch", "tucker.item"}, "gram": {"mf.epoch", "fm.epoch", "tucker.epoch", "tucker.item",
+                                                      "mfsi.epoch"},
+    "reorder": {"mf.epoch", "fm.epoch", "tucker.item", "mfsi.epoch"}, "fm.moments": {"fm.epoch"},
     "fm.field_layer": {"fm.epoch"}, "fm.patch": {"fm.epoch"}, "fm.bias": {"fm.epoch"},
     "segment_sum": {"mf.epoch", "fm.epoch", "fm.moments", "fm.field_layer", "fm.bias",
-                    "tucker.mode", "tucker.item"},
+                    "tucker.mode", "tucker.item", "mfsi.epoch", "mfsi.moments",
+                    "mfsi.field_layer"},
     "tucker.mode": {"tucker.epoch"}, "tucker.core": {"tucker.epoch"},
     "tucker.item": {"tucker.epoch"},
+    "mfsi.moments": {"mfsi.epoch"}, "mfsi.field_layer": {"mfsi.epoch"},
+    "mfsi.patch": {"mfsi.epoch"},
 }
 
 
@@ -93,7 +112,7 @@ def _no_profiler(*args, **kwargs):
     raise AssertionError("record_function called with no tracer installed")
 
 
-@pytest.mark.parametrize("model", ["mf", "fm", "tucker"])
+@pytest.mark.parametrize("model", ["mf", "fm", "tucker", "mfsi"])
 def test_without_a_tracer_an_epoch_reaches_no_profiler_and_builds_no_span(model, monkeypatch):
     step = EPOCHS[model]()
     monkeypatch.setattr(torch.profiler, "record_function", _no_profiler)
@@ -121,7 +140,7 @@ def _count_calls(fns, run):
     return n[0]
 
 
-@pytest.mark.parametrize("model", ["mf", "fm", "tucker"])
+@pytest.mark.parametrize("model", ["mf", "fm", "tucker", "mfsi"])
 def test_an_installed_tracer_gets_the_epochs_spans_with_their_parents(model):
     step = EPOCHS[model]()
     tracer = trace.Tracer()
@@ -149,6 +168,32 @@ def test_an_installed_tracer_gets_the_epochs_spans_with_their_parents(model):
         assert {sp.attrs["side"] for sp in layers} == {"ctx", "item"}
         assert {sp.attrs["dim"] for sp in layers} == {0, 1, 2, "linear"}
         assert all(isinstance(sp.attrs["offset"], int) for sp in layers)
+    if model == "mfsi":
+        layers = [sp for sp in tracer.spans if sp.name == "mfsi.field_layer"]
+        # 3 dims × (3 context layers: user, age, the Jacobi bag; 1 item layer)
+        assert [sp.attrs["side"] for sp in layers] == ["ctx"] * 9 + ["item"] * 3
+        assert [sp.attrs["dim"] for sp in layers] == [0, 0, 0, 1, 1, 1, 2, 2, 2, 0, 1, 2]
+        assert [sp.attrs["offset"] for sp in layers[:3]] == [0, N_CTX, N_CTX + 3]
+        assert sum(sp.name == "mfsi.patch" for sp in tracer.spans) == len(layers)
+        assert sum(sp.name == "mfsi.moments" for sp in tracer.spans) == 2 * 3
+
+
+@pytest.mark.parametrize("model", ["mf", "fm", "tucker", "mfsi"])
+@pytest.mark.parametrize("ranges", [False, True])
+def test_an_installed_tracer_leaves_the_epochs_bits_alone(model, ranges):
+    """The same epoch with no tracer and with one installed (with or
+    without profiler ranges) gives the same parameters and residuals, bit
+    for bit."""
+    step = EPOCHS[model]()
+    plain = step()
+    with trace.installed(trace.Tracer(profiler_ranges=ranges)) as tracer:
+        traced = step()
+    assert tracer.spans
+    flat = [(a, b) for x, y in zip(plain, traced)
+            for a, b in (zip(x, y) if isinstance(x, tuple) else [(x, y)])]
+    assert len(flat) >= 3
+    for a, b in flat:
+        assert torch.equal(a, b)
 
 
 def test_installed_tracers_nest_and_come_back():
@@ -175,7 +220,7 @@ def test_a_span_ends_and_unwinds_when_its_block_raises():
     assert tracer.current is None and all(sp.t1 is not None for sp in tracer.spans)
 
 
-@pytest.mark.parametrize("model", ["mf", "fm", "tucker"])
+@pytest.mark.parametrize("model", ["mf", "fm", "tucker", "mfsi"])
 def test_profiler_ranges_hold_every_index_add(model, tmp_path):
     """Each ``aten::index_add_`` of an epoch lies inside a ``segment_sum``
     ``user_annotation`` of the profiler's trace, on its thread."""
