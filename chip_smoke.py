@@ -237,7 +237,14 @@ Phases, one line each or more:
      for the same bits; a column's pass and solve (the profiler's ms a
      launch) and each sweep whole (CUDA events) beside a column's bound, the
      plain form and the per-column body in float32; one ``tucker.epoch``
-     (seconds, launches, the kernels' columns).
+     (seconds, launches, the kernels' columns);
+ 31. FM's embedding field layer (``kernels/fm_layer``) at the
+     ``fm-train-youtube`` cell's shape (the benchmark's inputs: icd-fm's
+     A+P+H designs, k 128): every layer of a dimension on both sides by the
+     kernels against the plain form in float64; a one-hot field's, a small
+     field's, the bag's and the item side's layer, and an epoch's 1,024
+     layers, timed beside their byte bounds; one flat ``fm.epoch``
+     (seconds, launches, the layer kernels' launches).
 
 Phase 2 also holds the top-K kernel's large-K path (K = 257, 1,000 and
 2,048, K past n_valid) in small integers, exactly, and its bf16, int8
@@ -261,7 +268,8 @@ building the segment-sum kernel; ``--segment-sum-tune`` only the variants
 of ``csrc/segment_sum.cu`` (:func:`segment_sum_tune`: threads a block, path
 items a lane); ``--tucker-core`` only phase 29, after building the
 core-sweep kernel; ``--tucker-mode`` only phase 30, after building the
-mode-sweep kernel.
+mode-sweep kernel; ``--fm-layer`` only phase 31, after building FM's
+field-layer kernel.
 
 It then prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -4898,6 +4906,215 @@ def tucker_core_only() -> None:
     print(smi.stdout.strip().splitlines()[0])
 
 
+def _kernel_total_ms(fn, key: str, n: int = 2) -> float:
+    """Device ms a call of ``fn`` spends in the CUDA kernels whose name holds
+    ``key``, over ``n`` profiled calls (nan when the profiler sees none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for j in range(n):
+            fn(j)
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) or 0 for ev in prof.key_averages()
+             if ev.device_type.name == "CUDA" and key in ev.key)
+    return us / n / 1e3 if us > 0 else float("nan")
+
+
+def fm_layer_bytes(layer, n_rows: int) -> int:
+    """Row 15's byte bound for one layer: each array read once and each
+    output written once. An entry's id and weight (and row, in a bag); a
+    row's φ_f, φ_s, q, u, r_a, r_b read and written, p2, p1, p0 read, dφ_f
+    and dφ_s written; a feature's θ read and written."""
+    entry = 12 + (0 if layer.identity else 8)
+    return layer.ids.shape[0] * entry + n_rows * (6 * 8 + 3 * 4 + 2 * 4) + layer.vocab * 8
+
+
+def fm_layer_at_cell_shape(dev) -> dict:
+    """Phase 31: FM's embedding field layer (``kernels/fm_layer``, row 15) at
+    the ``fm-train-youtube`` cell's shape (the benchmark's own inputs,
+    seed 31: icd-fm's A+P+H designs, k 128, the moments of dimension 0 on
+    both sides from the residuals): every layer of one dimension by the
+    kernels against the plain form in float64 (beside the plain form in
+    float32), by the worst norm gap of the table's column, dφ_f, dφ_s and
+    the four caches; each kind of layer's ms (a one-hot field in device
+    memory, a small one in shared memory, the Jacobi bag, the item side's
+    layer; CUDA events) and its kernels' ms a launch (the profiler), and an
+    epoch's 1,024 layers (128 dimensions × 7 context and 1 item layer),
+    each beside its byte bound; one flat ``fm.epoch``: its seconds, kernel
+    launches and the layer kernels' launches."""
+    from bench.harness import traffic
+    from bench.models import fm as bench_fm
+    from repro_torch.core import sweeps
+    from repro_torch.core.gram import full_fp32, gram
+    from repro_torch.core.models import fm, mfsi
+    from repro_torch.kernels.fm_layer import ops as lo, ref as lr
+    from repro_torch.sparse.segment import segment_sum_sorted
+
+    with open(os.path.join(ROOT, "bench", "configs", "icd-fm.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, "bench", "traffic", "youtube.json")) as f:
+        mix = json.load(f)
+    t0 = time.perf_counter()
+    prog = bench_fm.Program(cfg, traffic.make_inputs(cfg, mix, 31, dev), dev)
+    params, x, z, data, hp, e = prog.params, prog.x, prog.z, prog.data, prog.hp, prog.e
+    torch.cuda.synchronize()
+    k, f = hp.k, 0
+    log(f"phase 31 log: {data.nnz} interactions, p_ctx {x.p}, p_item {z.p}, k {k}, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    def side_state(self_ext, other_ext, other_j, rows_ptr, other_ids, alpha, ee, spec):
+        """A side's Φe and the caches of dimension f, as ``fm._side_sweep``
+        makes them, and J's three entries."""
+        o_spec, o_f = other_ext[:, spec][other_ids], other_ext[:, f][other_ids]
+        p0, = segment_sum_sorted((alpha * o_spec * o_spec,), rows_ptr)
+        p2, p1, q, u = segment_sum_sorted(
+            (alpha * o_f * o_f, alpha * o_f * o_spec, alpha * ee * o_f, alpha * ee * o_spec),
+            rows_ptr)
+        return (self_ext, (q, u, self_ext @ other_j[:, f], self_ext @ other_j[:, spec], p2, p1,
+                           p0), other_j[[f, f, spec], [f, spec, spec]])
+
+    with full_fp32():
+        pe, se = fm.phi_ext(params, x, hp), fm.psi_ext(params, z, hp)
+        j_i, j_c = gram(se), gram(pe)
+        e_t = sweeps.to_item_major(e, data.t_perm)
+        alpha_t = sweeps.to_item_major(data.alpha, data.t_perm)
+        sides = {
+            "ctx": (params.w, x, k, side_state(pe, se, j_i, data.ctx_ptr, data.item, data.alpha,
+                                               e, k)),
+            "item": (params.h, z, k + 1, side_state(se, pe, j_c, data.item_ptr, data.t_ctx,
+                                                    alpha_t, e_t, k + 1))}
+        del e_t, alpha_t
+        prep = {s: lo.prepare(mfsi._field_layers(d, hp), d.n_rows)
+                for s, (_, d, _, _) in sides.items()}
+
+        def run(side, layer, fn, dtype=None):
+            """One layer by ``fn`` on copies of the side's state (cast to
+            ``dtype``): the outputs compared."""
+            table, _, spec, (ext, caches, jv) = sides[side]
+            cast = (lambda t: t.clone()) if dtype is None else (lambda t: t.to(dtype))
+            tab, ext_, cs = cast(table), cast(ext), lo.Caches(*(cast(c) for c in caches))
+            args = (layer, tab[:, f], ext_[:, f], ext_[:, spec], cs, tuple(map(cast, jv)))
+            if fn is lo.field_layer:
+                args += (prep[side][1],)  # the scratch
+            dphi = fn(*args, alpha0=hp.alpha0, l2=hp.l2)
+            sl = slice(layer.offset, layer.offset + layer.vocab)
+            return [tab[sl, f], *dphi, cs.q, cs.u, cs.r_a, cs.r_b]
+
+        def gap(a, b):
+            return float(torch.linalg.vector_norm(a.double() - b)
+                         / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+        gaps, plain_gaps = [], []
+        for side in sides:
+            for layer in prep[side][0]:
+                want = run(side, layer, lr.field_layer_ref, torch.float64)
+                got = run(side, layer, lo.field_layer)
+                plain = run(side, layer, lr.field_layer_ref)
+                gaps.append(max(gap(g, w) for g, w in zip(got, want)))
+                plain_gaps.append(max(gap(p, w) for p, w in zip(plain, want)))
+                del want, got, plain
+        torch.cuda.synchronize()
+        # the atomics' order against index order: where a layer's sums cancel, the
+        # float32 plain form strays from float64 as far
+        assert all(g <= max(1e-4, 4 * p) for g, p in zip(gaps, plain_gaps)), (gaps, plain_gaps)
+
+        # times: the layers move their own copies of the state, step after step
+        work = {s: (sides[s][0].clone(), sides[s][2], sides[s][3][0].clone(),
+                    lo.Caches(*(c.clone() for c in sides[s][3][1])), sides[s][3][2])
+                for s in sides}
+
+        def call(side, layer, dim=f):
+            tab, spec, ext, cs, jv = work[side]
+            return lo.field_layer(layer, tab[:, dim], ext[:, dim], ext[:, spec], cs,
+                                  (jv[0], jv[1], jv[2]), prep[side][1], alpha0=hp.alpha0,
+                                  l2=hp.l2)
+
+        ctx_layers, item_layers = prep["ctx"][0], prep["item"][0]
+        kinds = {"one_hot_user": ("ctx", ctx_layers[0]),
+                 "small_field": ("ctx", min(ctx_layers, key=lambda lay: lay.vocab)),
+                 "bag": ("ctx", next(lay for lay in ctx_layers if not lay.identity)),
+                 "item": ("item", item_layers[0])}
+        times = {}
+        for name, (side, layer) in kinds.items():
+            n_rows = sides[side][1].n_rows
+            b_ms, _ = bound(fm_layer_bytes(layer, n_rows), 0)
+            times[name] = {
+                "ms": device_ms(lambda j: call(side, layer), n=30),
+                "bound_ms": b_ms, "vocab": layer.vocab, "entries": int(layer.ids.shape[0]),
+                "by_kernel": _kernel_ms_by_name(lambda j: call(side, layer), ("fm_layer",))}
+
+        def epoch_layers(j):
+            for dim in range(k):
+                for side, layers in (("ctx", ctx_layers), ("item", item_layers)):
+                    for layer in layers:
+                        call(side, layer, dim)
+
+        # the host takes about as long to launch the 1,024 layers as the card to run them,
+        # so device_ms (which holds the stream while the host enqueues) would time the host:
+        # the kernels' own time comes from the profiler, the loop's from the host clock
+        before = lo.field_layer.launches
+        epoch_ms = _kernel_total_ms(epoch_layers, "fm_layer", n=2)
+        per_epoch = (lo.field_layer.launches - before) // 3  # 1 warm-up call, 2 profiled
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        epoch_layers(0)
+        torch.cuda.synchronize()
+        epoch_wall_ms = 1e3 * (time.perf_counter() - t1)
+        epoch_bytes = k * sum(fm_layer_bytes(lay, sides[s][1].n_rows)
+                              for s, layers in (("ctx", ctx_layers), ("item", item_layers))
+                              for lay in layers)
+        epoch_bound, _ = bound(epoch_bytes, 0)
+        del work
+    launches0 = lo.field_layer.launches
+    t1 = time.perf_counter()
+    fm.epoch(params, x, z, data, e, hp)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    kernel_launches = lo.field_layer.launches - launches0
+    want_launches = k * sum(3 + (not lay.identity) for lay in (*ctx_layers, *item_layers))
+    assert kernel_launches == per_epoch == want_launches, (kernel_launches, per_epoch,
+                                                           want_launches)
+    launches = _cuda_launches(lambda: fm.epoch(params, x, z, data, e, hp))
+    log(f"phase 31 hold: every layer of dimension {f} ({len(ctx_layers)} context, "
+        f"{len(item_layers)} item) by the kernels against the float64 plain form, worst norm "
+        f"gap {max(gaps):.3g} (the plain form in fp32 {max(plain_gaps):.3g})")
+    for name, t in times.items():
+        parts = ", ".join(f"{kn} {ms:.4f} ms x {c:.0f}" for kn, (ms, c) in t["by_kernel"].items())
+        log(f"phase 31 time {name} (vocab {t['vocab']}, {t['entries']} entries): a layer "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes); "
+            f"{parts or 'by kernel not measured'}")
+    log(f"phase 31 epoch's layers: {k} dimensions x {len(ctx_layers) + len(item_layers)} layers "
+        f"{epoch_ms:.3f} ms of kernels ({per_epoch} launches; the loop {epoch_wall_ms:.3f} ms "
+        f"on the host clock), bound {epoch_bound:.3f} ms ({epoch_bytes} B)")
+    log(f"phase 31 epoch: fm.epoch {epoch_s:.4f} s (wall, after the layers above), {launches} "
+        f"kernel launches, {kernel_launches} by the field-layer kernels")
+    return {"gaps": gaps, "plain_gaps": plain_gaps, "times": times, "epoch_ms": epoch_ms,
+            "epoch_wall_ms": epoch_wall_ms, "epoch_bound_ms": epoch_bound, "epoch_s": epoch_s, "launches": launches,
+            "kernel_launches": kernel_launches}
+
+
+def fm_layer_only() -> None:
+    """Phase 31 alone, after building the field-layer kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fm_layer import kernel as fk
+    from repro_torch.kernels.segment_sum import kernel as sk
+
+    t0 = time.perf_counter()
+    build.build_all([fk.LIB, sk.LIB])
+    ptxas = [ln.split("'")[1][:40] if "Compiling entry" in ln else ln.strip()
+             for ln in fk.LIB.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "smem" in ln or "Compiling entry" in ln]
+    log(f"phase 1 build: {fk.LIB.path().name} in {time.perf_counter() - t0:.1f}s; "
+        f"ptxas: {' | '.join(ptxas)}")
+    fm_layer_at_cell_shape(torch.device("cuda", 0))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4905,6 +5122,7 @@ def main() -> None:
         sys.exit(1)
     from repro_torch.kernels import build
     from repro_torch.kernels.cd_sweep import kernel as cd_kernel
+    from repro_torch.kernels.fm_layer import kernel as fm_layer_kernel
     from repro_torch.kernels.gram import kernel as gram_kernel
     from repro_torch.kernels.segment_sum import kernel as seg_kernel
     from repro_torch.kernels.topk_score import kernel, ops, ref
@@ -4918,7 +5136,7 @@ def main() -> None:
     # 1. build every kernel, one nvcc per source, all at once
     libs = [kernel.LIB, gram_kernel.LIB, cd_kernel.LIB, cd_kernel.SLAB_LIB,
             cd_kernel.GATHER_LIB, seg_kernel.LIB, tucker_kernel.library(32),
-            mode_kernel.library(32)]
+            mode_kernel.library(32), fm_layer_kernel.LIB]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     log(f"phase 1 build: {', '.join(p.name for p in paths)} in "
@@ -5149,6 +5367,11 @@ def main() -> None:
     mode30 = tucker_mode_at_cell_shape(dev)
     log(f"phase 30 done in {time.perf_counter() - t0:.1f}s")
 
+    # 31. FM's embedding field layer at the fm cell's shape
+    t0 = time.perf_counter()
+    layer31 = fm_layer_at_cell_shape(dev)
+    log(f"phase 31 done in {time.perf_counter() - t0:.1f}s")
+
     form_launches = {"bf16": ivf["launches"]["bf16"]["launches_bf16"],
                      "int8": ivf["launches"]["int8"]["launches_int8"],
                      "mask": ivf["launches"]["mask"],
@@ -5317,6 +5540,21 @@ def main() -> None:
         "plain_ms": {s: t["plain_ms"] for s, t in mode30["times"].items()},
         "old_ms": {s: t["old_ms"] for s, t in mode30["times"].items()},
         "bound_ms": mode30["bound_ms"]["u"], "bound_by": "bytes", "library_ms": None})
+    # FM's embedding field layer (phase 31): each kind of layer's ms and an
+    # epoch's 1,024 layers, beside their byte bounds; launches in one flat
+    # fm.epoch at the cell's shape (3 a one-hot layer, 4 the bag's); the error
+    # is the worst norm gap against the float64 plain form
+    kernels.append({
+        "name": "fm_layer", "route": "cuda",
+        "source": "src/repro_torch/kernels/fm_layer/csrc/fm_layer.cu",
+        "replaces": "none (the embedding layer's XLA ops, "
+                    "repro/core/models/fm.py:_embed_layer_update)",
+        "launches": layer31["kernel_launches"], "max_abs_err": max(layer31["gaps"]),
+        "ms": {name: t["ms"] for name, t in layer31["times"].items()},
+        "epoch_ms": layer31["epoch_ms"], "plain_ms": None,
+        "bound_ms": {name: t["bound_ms"] for name, t in layer31["times"].items()},
+        "epoch_bound_ms": layer31["epoch_bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5350,5 +5588,7 @@ if __name__ == "__main__":
         tucker_core_only()
     elif sys.argv[1:] == ["--tucker-mode"]:
         tucker_mode_only()
+    elif sys.argv[1:] == ["--fm-layer"]:
+        fm_layer_only()
     else:
         main()

@@ -34,12 +34,17 @@ passes the slab ``[Ψe[:, blk] | ψ_spec]`` and the id grid to the kernels,
 ``'pregather'`` builds the (C, k_b+1, D_pad) tile first. The launch form
 for each m is chosen inside ``kernels/cd_sweep/ops.py``.
 
-PyTorch runs eagerly: the layers are host loops of gathers and
-``index_add_`` segment sums in full fp32 (atomics on CUDA, so the last bits
-can change from run to run); the flat epoch's sums over the log's sorted
-rows (p0, the moments p2, p1, q, u, and u for the linear layers and the
-bias) go to ``segment.segment_sum_sorted``, a hand-written kernel on CUDA
-that sums in a fixed order. ``e_pad`` is updated in place, as the
+Flat path (:func:`epoch`): each embedding field layer of a dimension is one
+call of the hand-written field-layer kernels (``kernels/fm_layer``: the
+four sums, the steps and the patches of Φe and the six caches in three
+launches, four for a bag); the moments, the residual patch, the linear
+layers and the bias stay PyTorch. On the padded path the embedding layers
+are host loops of gathers and ``index_add_`` segment sums. Both run in full
+fp32, and on CUDA both sum by atomics, so their last bits can change from
+run to run. The flat epoch's sums over the log's sorted rows (p0, the
+moments p2, p1, q, u, and u for the linear layers and the bias) go to
+``segment.segment_sum_sorted``, a hand-written kernel on CUDA that sums in
+a fixed order. ``e_pad`` is updated in place, as the
 reference donates it. Where ``use_linear``/``use_bias`` is off, the epochs
 return the parameter as it came (the reference returns ``None`` there).
 :func:`params_from_numpy` carries the JAX package's ``FMParams`` over.
@@ -72,6 +77,7 @@ from repro_torch.kernels.cd_sweep.ops import (
     cd_slab_reduce,
     cd_slab_reduce_gather,
 )
+from repro_torch.kernels.fm_layer import ops as field_layer_ops
 from repro_torch.obs.trace import span
 from repro_torch.sparse.interactions import Interactions, with_weights
 from repro_torch.sparse.segment import segment_sum, segment_sum_sorted
@@ -196,12 +202,13 @@ def build_phi(params: FMParams, x: Design, hp: FMHyperParams,
 def _embed_layer_update(table_col, self_ext, q, u, r_a, r_b, p2, p1, p0,
                         j_ff, j_fs, j_ss, ids_g, xw, rows, vocab, offset, f,
                         spec_col, hp, eta):
-    """Vectorized Newton update of one embedding layer (field × dim f*).
+    """Vectorized Newton update of one embedding layer (field × dim f*) on
+    the padded path; the flat path runs the same algebra in
+    ``kernels/fm_layer`` (whose ``ref`` gives these bits in place).
 
     Patches the per-context caches and ``self_ext`` (in place) but NOT
-    the residual cache: the caller owns the e layout and applies
-    (Δφ_{f*}, Δφ_spec) there (per layer on the flat path, one fused
-    rank-(k_b+1) residual patch a block on the padded path)."""
+    the residual cache: the caller applies (Δφ_{f*}, Δφ_spec) to the
+    padded grid, one fused rank-(k_b+1) residual patch a block."""
     local = ids_g - offset
     w_rows = table_col[ids_g]                                # w_{l,f*} per entry
     g = self_ext[:, f][rows] - xw * w_rows
@@ -298,10 +305,14 @@ def _side_sweep(table, lin, bias, self_ext, other_ext, other_j,
     """One side's sweep over the flat observations: dims, linear weights,
     bias. ``rows_nnz`` are the entries' rows, sorted, and ``row_ptr`` their
     (n + 1,) CSR offsets. ``table`` and ``self_ext`` are updated in place;
-    returns (table, lin, bias, self_ext, e) with a new ``e``."""
+    returns (table, lin, bias, self_ext, e) with a new ``e``. Each
+    embedding field layer is one ``kernels.fm_layer.field_layer`` call,
+    which moves the table's column f*, Φe's columns f* and spec and the
+    caches q, u, r_a, r_b in place."""
     n_rows = design.n_rows
     side = "ctx" if spec_col == hp.k else "item"
     layers = _field_layers(design, hp)
+    embed_layers, scratch = field_layer_ops.prepare(layers, n_rows)
     o_spec_nnz = other_ext[:, spec_col][other_nnz_ids]     # ones, kept generic
     p0, = segment_sum_sorted((alpha * o_spec_nnz * o_spec_nnz,), row_ptr)
     j_ss = other_j[spec_col, spec_col]
@@ -314,18 +325,18 @@ def _side_sweep(table, lin, bias, self_ext, other_ext, other_j,
             p2, p1, q, u = segment_sum_sorted(
                 (a_f * other_f_nnz, a_f * o_spec_nnz, a_e * other_f_nnz,
                  a_e * o_spec_nnz), row_ptr)
-        r_a = self_ext @ other_j[:, f]
-        r_b = self_ext @ other_j[:, spec_col]
-        j_ff, j_fs = other_j[f, f], other_j[f, spec_col]
-        table_col = table[:, f]
-        for ids_g, xw, rows, vocab, offset, eta in layers:
-            with span("fm.field_layer", side=side, dim=f, offset=offset):
-                table_col, q, u, r_a, r_b, dphi_f, dphi_s = _embed_layer_update(
-                    table_col, self_ext, q, u, r_a, r_b, p2, p1, p0, j_ff, j_fs,
-                    j_ss, ids_g, xw, rows, vocab, offset, f, spec_col, hp, eta)
+        caches = field_layer_ops.Caches(
+            q, u, self_ext @ other_j[:, f], self_ext @ other_j[:, spec_col], p2, p1, p0)
+        j = (other_j[f, f], other_j[f, spec_col], j_ss)
+        table_col = sweeps.take_col(table, f)
+        phi_f, phi_s = sweeps.take_col(self_ext, f), sweeps.take_col(self_ext, spec_col)
+        for layer in embed_layers:
+            with span("fm.field_layer", side=side, dim=f, offset=layer.offset):
+                dphi_f, dphi_s = field_layer_ops.field_layer(
+                    layer, table_col, phi_f, phi_s, caches, j, scratch,
+                    alpha0=hp.alpha0, l2=hp.l2)
             with span("fm.patch"):
                 e = e + dphi_f[rows_nnz] * other_f_nnz + dphi_s[rows_nnz] * o_spec_nnz
-        sweeps.put_col(table, f, table_col)
         return table, self_ext, e
 
     table, self_ext, e = sweeps.sweep_columns(

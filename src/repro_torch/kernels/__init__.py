@@ -52,6 +52,10 @@ Kernels:
                a Jacobi bag's) Newton steps in one dimension and the
                per-row cache patches, in three launches (no TPU kernel:
                the JAX package's field layer is XLA ops).
+  fm_layer   — iCD-FM's embedding field layer on the flat layout: the
+               same step with FM's four sums, Φe's two columns and six
+               per-row caches, in three launches (no TPU kernel: the JAX
+               package's embedding layer is XLA ops).
 """
 from __future__ import annotations
 
